@@ -1,0 +1,284 @@
+"""The port's constant cache: every precomputed tensor behind one builder.
+
+Each builder is an lru-cached numpy function that computes in float64 /
+complex128 and casts once at the end, exactly as the reference
+``repro.core.constants`` does, so the two agree bit for bit (tested with
+``np.array_equal``).  Torch code reads the constants through `to_torch`,
+which caches one tensor per (array, device, dtype): a constant crosses to
+the device once per process, not once per call.
+
+Padding of the collocation grid (`chain_matrices(pad_lanes=...)`): the
+reference rounds the sample axis G up to a multiple of 128, a TPU lane rule.
+The port keeps the option for parity tests, but its consumers call with
+``pad_lanes=False``: the Hopper chain kernel walks G itself and needs no
+padded columns (main path: G = 196 instead of 256, 23% less work).
+"""
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from . import fourier as _fx
+from .irreps import idx
+from .so3 import real_clebsch_gordan_block, real_sph_harm
+
+__all__ = [
+    "y_dense",
+    "z_dense",
+    "y_half",
+    "z_half",
+    "z_half_l0",
+    "filter_fourier_col",
+    "conv_u_index",
+    "cg_11_blocks",
+    "chain_sample_sh",
+    "chain_sample_grid",
+    "chain_project_sh",
+    "chain_project_grid",
+    "chain_matrices",
+    "chain_l0",
+    "to_torch",
+]
+
+
+# --------------------------------------------------------------------------
+# SH <-> 2D Fourier conversion tensors
+# --------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=None)
+def _y_raw(L: int) -> np.ndarray:
+    return _fx.sh_to_fourier_dense(L)
+
+
+@lru_cache(maxsize=None)
+def _z_raw(Lf: int, Lout: int) -> np.ndarray:
+    return _fx.fourier_to_sh_dense(Lf, Lout)
+
+
+@lru_cache(maxsize=None)
+def y_dense(L: int, cdtype: str = "complex64") -> np.ndarray:
+    """sh->Fourier tensor [(L+1)^2, 2L+1 (u), 2L+1 (v)], centered."""
+    return _y_raw(L).astype(cdtype)
+
+
+@lru_cache(maxsize=None)
+def z_dense(Lf: int, Lout: int, cdtype: str = "complex64") -> np.ndarray:
+    """Fourier->sh tensor [2Lf+1, 2Lf+1, (Lout+1)^2], centered."""
+    return _z_raw(Lf, Lout).astype(cdtype)
+
+
+@lru_cache(maxsize=None)
+def y_half(L: int, cdtype: str = "complex64") -> np.ndarray:
+    """Half (Hermitian / real-input) sh->Fourier tensor: v >= 0 columns only."""
+    return _fx.sh_to_fourier_half(L, y=_y_raw(L)).astype(cdtype)
+
+
+@lru_cache(maxsize=None)
+def z_half(Lf: int, Lout: int, cdtype: str = "complex64") -> np.ndarray:
+    """Half Fourier->sh tensor with the v < 0 columns conjugate-folded in."""
+    return _fx.fourier_to_sh_half(Lf, Lout, z=_z_raw(Lf, Lout)).astype(cdtype)
+
+
+@lru_cache(maxsize=None)
+def z_half_l0(Lf: int, cdtype: str = "complex64") -> np.ndarray:
+    """The l = 0 row of `z_half` [2Lf+1, Lf+1]: half grid -> SH coefficient 0."""
+    return np.ascontiguousarray(z_half(Lf, 0, cdtype)[:, :, 0])
+
+
+# --------------------------------------------------------------------------
+# eSCN rotation-aligned path constants
+# --------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=None)
+def filter_fourier_col(L2: int, cdtype: str = "complex64") -> np.ndarray:
+    """u-column (v=0) Fourier coefficients of S_{l,0}, stacked [L2+1, 2L2+1]."""
+    y = _y_raw(L2)
+    cols = np.stack([y[idx(l, 0), :, L2] for l in range(L2 + 1)], axis=0)
+    return cols.astype(cdtype)
+
+
+@lru_cache(maxsize=None)
+def conv_u_index(L1: int, L2: int) -> tuple[np.ndarray, np.ndarray]:
+    """Index/mask for the banded 1D convolution along u.
+
+    out[u3] = sum_{u1} F1[u1] * k[u3 - u1] with centered indices;
+    idx[i3, i1] = i3 - i1 into the kernel array of length 2L2+1.
+    """
+    n1, n2 = 2 * L1 + 1, 2 * L2 + 1
+    N = n1 + n2 - 1
+    i3 = np.arange(N)[:, None]
+    i1 = np.arange(n1)[None, :]
+    k = i3 - i1
+    valid = (k >= 0) & (k < n2)
+    return np.where(valid, k, 0).astype(np.int32), valid.astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def cg_11_blocks(L: int) -> tuple[np.ndarray, ...]:
+    """CG blocks C_{(l-1,1)->l} for the Wigner-from-rotmat recursion."""
+    return tuple(
+        real_clebsch_gordan_block(l - 1, 1, l).astype(np.float32)
+        for l in range(2, L + 1)
+    )
+
+
+# --------------------------------------------------------------------------
+# n-way collocation (sample-multiply-project) matrices
+# --------------------------------------------------------------------------
+
+
+def _chain_grid_angles(Ltot: int) -> tuple[int, np.ndarray]:
+    """(N, angles) of the alias-free product grid for total degree Ltot.
+
+    A product of bandlimited spherical functions with degrees summing to
+    Ltot is bandlimited at Ltot on the torus double cover; N = 2*Ltot + 2
+    (> 2*Ltot + 1 and even) samples it alias-free.
+    """
+    N = 2 * Ltot + 2
+    return N, 2 * math.pi * np.arange(N) / N
+
+
+@lru_cache(maxsize=None)
+def chain_sample_sh(L: int, Ltot: int) -> np.ndarray:
+    """T [(L+1)^2, G]: real SH of degree <= L sampled on the degree-Ltot
+    product grid (float64, unpadded)."""
+    N, t = _chain_grid_angles(Ltot)
+    tt, pp = np.meshgrid(t, t, indexing="ij")
+    xyz = np.stack([np.sin(tt) * np.cos(pp), np.sin(tt) * np.sin(pp), np.cos(tt)], -1)
+    S = real_sph_harm(L, xyz.reshape(-1, 3))
+    return S.T.copy()
+
+
+@lru_cache(maxsize=None)
+def chain_sample_grid(L: int, Ltot: int) -> np.ndarray:
+    """T' [2*(2L+1)*(L+1), G]: Fourier-resident entry sampling matrix.
+
+    A resident operand arrives as its Hermitian half grid F [2L+1, L+1];
+    its real samples are V[g] = Re(sum_{u, v>=0} c_v F[u,v] e^{i(u t_g + v p_g)})
+    with c_0 = 1, c_v = 2, which is one real matmul on [Re F; Im F].
+    """
+    N, t = _chain_grid_angles(Ltot)
+    us = np.arange(-L, L + 1)
+    vs = np.arange(0, L + 1)
+    Et = np.exp(1j * np.outer(us, t))
+    Ep = np.exp(1j * np.outer(vs, t))
+    c = np.where(vs == 0, 1.0, 2.0)
+    E = np.einsum("ua,vb,v->uvab", Et, Ep, c).reshape((2 * L + 1) * (L + 1), N * N)
+    return np.concatenate([E.real, -E.imag], axis=0)
+
+
+@lru_cache(maxsize=None)
+def chain_project_sh(Ltot: int, Lout: int) -> np.ndarray:
+    """P [G, (Lout+1)^2]: product-grid samples -> SH degrees <= Lout.
+
+    P[g, k] = Re((1/G) sum_{u,v} e^{-i(u t_g + v p_g)} z^k_{u,v}) — exact,
+    because the sampled product is alias-free (float64, unpadded).
+    """
+    N, t = _chain_grid_angles(Ltot)
+    z = _z_raw(Ltot, Lout)
+    us = np.arange(-Ltot, Ltot + 1)
+    Et = np.exp(-1j * np.outer(t, us))
+    P = np.einsum("au,bv,uvk->abk", Et, Et, z).real / (N * N)
+    return P.reshape(N * N, -1)
+
+
+@lru_cache(maxsize=None)
+def chain_project_grid(Ltot: int) -> np.ndarray:
+    """P' [G, 2*(2Lt+1)*(Lt+1)]: samples -> real-stacked half product grid."""
+    N, t = _chain_grid_angles(Ltot)
+    us = np.arange(-Ltot, Ltot + 1)
+    vs = np.arange(0, Ltot + 1)
+    Et = np.exp(-1j * np.outer(t, us))
+    Ep = np.exp(-1j * np.outer(t, vs))
+    E = np.einsum("au,bv->abuv", Et, Ep).reshape(N * N, -1) / (N * N)
+    return np.concatenate([E.real, E.imag], axis=1)
+
+
+@lru_cache(maxsize=None)
+def chain_matrices(Ls: tuple, Lout: int, entries: tuple = None,
+                   out_entry: str = "sh", pad_lanes: bool = True,
+                   dtype: str = "float32"):
+    """Chain collocation matrices ((T_1..T_n), P) for  x1 (x) ... (x) xn.
+
+    entries: per-operand 'sh' (packed SH, `chain_sample_sh`) or 'grid'
+    (real-stacked half grid, `chain_sample_grid`); out_entry 'sh' projects
+    to degrees <= Lout, 'grid' returns the real-stacked half product grid
+    (requires Lout == sum(Ls)).  ``pad_lanes`` rounds G up to a multiple of
+    128 with inert zero columns/rows (the reference's TPU lane rule — kept
+    for parity; the port's kernel runs unpadded).  ``dtype`` is the storage
+    dtype ('float32' | 'float64'); the float64 intermediates round once.
+    """
+    Ls = tuple(int(L) for L in Ls)
+    Ltot = sum(Ls)
+    entries = ("sh",) * len(Ls) if entries is None else tuple(entries)
+    if len(entries) != len(Ls) or any(e not in ("sh", "grid") for e in entries):
+        raise ValueError(f"entries must be {len(Ls)} of 'sh'|'grid', got {entries!r}")
+    Ts = [chain_sample_sh(L, Ltot) if e == "sh" else chain_sample_grid(L, Ltot)
+          for L, e in zip(Ls, entries)]
+    if out_entry == "sh":
+        P = chain_project_sh(Ltot, Lout)
+    elif out_entry == "grid":
+        if Lout != Ltot:
+            raise ValueError(f"out_entry='grid' keeps the full product grid "
+                             f"(L={Ltot}); got Lout={Lout}")
+        P = chain_project_grid(Ltot)
+    else:
+        raise ValueError(f"unknown out_entry {out_entry!r} (expected 'sh'|'grid')")
+    if pad_lanes:
+        G = Ts[0].shape[1]
+        Gp = ((G + 127) // 128) * 128
+        Ts = [np.pad(T, [(0, 0), (0, Gp - G)]) for T in Ts]
+        P = np.pad(P, [(0, Gp - G), (0, 0)])
+    return tuple(T.astype(dtype) for T in Ts), P.astype(dtype)
+
+
+@lru_cache(maxsize=None)
+def chain_l0(Ls: tuple, entries: tuple = None) -> np.ndarray:
+    """C [d_1, ..., d_n] float64: the l = 0 coefficient of an n-way product
+    as a multilinear form over the operands,
+
+        s = einsum('...a,...b,...,ab...->...', x_1, ..., x_n, C),
+
+    the contraction of the sampling matrices against the l = 0 projection
+    column — exact.  A gate-fused chain gets its per-row gate scalars from
+    it before the kernel runs.
+    """
+    Ls = tuple(int(L) for L in Ls)
+    Ltot = sum(Ls)
+    entries = ("sh",) * len(Ls) if entries is None else tuple(entries)
+    Ts = [chain_sample_sh(L, Ltot) if e == "sh" else chain_sample_grid(L, Ltot)
+          for L, e in zip(Ls, entries)]
+    p0 = chain_project_sh(Ltot, 0)[:, 0]
+    letters = "abcdefghij"[: len(Ls)]
+    expr = ",".join(c + "z" for c in letters) + ",z->" + letters
+    return np.einsum(expr, *Ts, p0, optimize=True)
+
+
+# --------------------------------------------------------------------------
+# numpy -> torch, once per device
+# --------------------------------------------------------------------------
+
+_TORCH: dict = {}
+
+
+def to_torch(arr: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """The cached torch copy of a builder's numpy constant on ``device``.
+
+    Keys on the array's identity: every builder above is lru-cached, so the
+    same constant is the same array object for the life of the process (the
+    entry keeps a reference to it, so the id cannot be reused).  Pass a
+    builder's array itself: a slice or view made per call is a new object
+    and would add an entry at every call.
+    """
+    dev = torch.device(device)
+    key = (id(arr), str(dev), dtype)
+    hit = _TORCH.get(key)
+    if hit is None:
+        t = torch.from_numpy(np.ascontiguousarray(arr)).to(device=dev, dtype=dtype)
+        hit = _TORCH[key] = (arr, t)
+    return hit[1]

@@ -1,0 +1,112 @@
+"""Equivariant convolution (paper §3.3, class 2): x_i (x)_Gaunt Y(r_ij), on
+the eSCN rotation-aligned path.
+
+Rotate the frame so the edge lands on the zenith; the filter then has only
+m = 0 components, S_{l,m}(e_z) = delta_{m0} sqrt((2l+1)/4pi), its torus grid
+is the single v = 0 column, and the 2D convolution degenerates to a banded
+1D convolution along u:  out = D^T [ (D x) (x)_Gaunt Y(e_z) ].
+
+Wigner rotations are built differentiably from the rotation matrix by the CG
+intertwiner recursion  D^l = C^T (D^{l-1} (x) D^1) C, so forces flow through
+the geometry.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import constants as _const
+from .engine import build_escn
+
+__all__ = [
+    "align_rotation",
+    "wigner_blocks_from_rotmat",
+    "apply_wigner_blocks",
+    "WignerBlocks",
+    "EquivariantConv",
+]
+
+_PERM_YZX = [1, 2, 0]  # (x, y, z) -> (m=-1, 0, 1) = (y, z, x)
+
+
+def align_rotation(rhat: torch.Tensor) -> torch.Tensor:
+    """[..., 3] unit vectors -> rotation matrices R with R @ rhat = e_z."""
+    r = rhat / torch.linalg.norm(rhat, dim=-1, keepdim=True)
+    ex = r.new_tensor([1.0, 0.0, 0.0]).expand_as(r)
+    ez = r.new_tensor([0.0, 0.0, 1.0]).expand_as(r)
+    use_z = (r[..., 0:1].abs() > 0.9).to(r.dtype)
+    u = use_z * ez + (1 - use_z) * ex
+    b1 = torch.linalg.cross(u, r, dim=-1)
+    b1 = b1 / torch.linalg.norm(b1, dim=-1, keepdim=True)
+    b2 = torch.linalg.cross(r, b1, dim=-1)
+    return torch.stack([b1, b2, r], dim=-2)
+
+
+def wigner_blocks_from_rotmat(L: int, R: torch.Tensor) -> list:
+    """Real Wigner-D blocks [D^0, ..., D^L] for rotation matrices R [..., 3, 3]:
+    D^1 = P R P^T with P the (x,y,z) -> (y,z,x) reordering, then
+    D^l = C^T (D^{l-1} (x) D^1) C."""
+    Ds = [R.new_ones(R.shape[:-2] + (1, 1))]
+    if L == 0:
+        return Ds
+    D1 = R[..., _PERM_YZX, :][..., :, _PERM_YZX]
+    Ds.append(D1)
+    for l in range(2, L + 1):
+        C = _const.to_torch(_const.cg_11_blocks(L)[l - 2], R.device, R.dtype)
+        Ds.append(torch.einsum("ijk,...ia,...jb,abm->...km", C, Ds[l - 1], D1, C))
+    return Ds
+
+
+def apply_wigner_blocks(Ds, x: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+    """Apply the block-diagonal Wigner rotation to packed x [..., (L+1)^2]
+    (the blocks broadcast against x's leading dims)."""
+    eq = "...ji,...j->...i" if transpose else "...ij,...j->...i"
+    return torch.cat([torch.einsum(eq, D, x[..., l * l: (l + 1) ** 2])
+                      for l, D in enumerate(Ds)], dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class WignerBlocks:
+    """Precomputed rotation-aligned geometry for the eSCN path: the blocks
+    [D^0, ..., D^L] of `align_rotation` for a fixed edge geometry, built once
+    and reused by every layer of a model stack."""
+
+    blocks: tuple
+
+    @property
+    def L(self) -> int:
+        return len(self.blocks) - 1
+
+    @classmethod
+    def from_rhat(cls, rhat: torch.Tensor, L: int) -> "WignerBlocks":
+        return cls(tuple(wigner_blocks_from_rotmat(L, align_rotation(rhat.float()))))
+
+
+class EquivariantConv:
+    """Gaunt equivariant convolution  (x (x) Y(rhat)) with the paper's
+    w_{l1} w_{l2} w_l per-degree weights, on the eSCN backend.
+
+    ``__call__(x, rhat)`` takes raw directions [..., 3] or the
+    `WignerBlocks` of :meth:`geometry_rep`; leading dims broadcast between
+    x and the geometry.
+    """
+
+    def __init__(self, L1: int, L2: int, Lout: int | None = None, method: str = "escn"):
+        if method != "escn":
+            raise NotImplementedError(f"conv method {method!r} is not ported "
+                                      "(only 'escn')")
+        self.L1, self.L2 = L1, L2
+        self.Lout = L1 + L2 if Lout is None else Lout
+        self.method = method
+        self._raw = build_escn(L1, L2, self.Lout)
+        self._geom = build_escn(L1, L2, self.Lout, geometry="wigner")
+
+    def geometry_rep(self, rhat: torch.Tensor) -> WignerBlocks:
+        """Hoist the alignment rotation and the Wigner recursion out of the
+        layer loop: build the blocks once per geometry."""
+        return WignerBlocks.from_rhat(rhat, max(self.L1, self.Lout))
+
+    def __call__(self, x, rhat, w1=None, w2=None, w3=None) -> torch.Tensor:
+        fn = self._geom if isinstance(rhat, WignerBlocks) else self._raw
+        return fn(x, rhat, w1, w2, w3).float()

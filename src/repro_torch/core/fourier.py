@@ -1,0 +1,148 @@
+"""SH <-> 2D Fourier basis conversion tensors (the paper's Section 3.2), numpy.
+
+Forward (`y` coefficients): every real SH S_{l,m}, extended to the torus
+double cover of the sphere (theta in [0, 2pi)), is an exactly bandlimited 2D
+trigonometric polynomial
+    S_{l,m}(t, p) = sum_{|u|<=l, v = +-m} y^{l,m}_{u,v} e^{i(u t + v p)};
+y is obtained exactly by sampling the analytic continuation on an N x N grid
+with N > 2L and taking a 2D FFT.
+
+Backward (`z` coefficients): the SH coefficients of a function known by its
+torus Fourier series come from sphere-domain projection
+    z^{l,m}_{u,v} = int_0^{2pi} int_0^pi e^{i(u t + v p)} S_{l,m} sin t dt dp,
+which separates into a closed-form azimuthal delta and an exact theta
+integral (finite trig expansion, int_0^pi e^{int} dt in closed form).
+
+The `half` forms keep only the v >= 0 columns, which determine the whole
+grid of a real spherical function through F[-u,-v] = conj(F[u,v]).
+
+These builders are pure float64/complex128 numpy and match the reference
+``repro.core.fourier`` bit for bit; caching lives in `core.constants`.
+"""
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+
+import numpy as np
+
+from .irreps import idx, num_coeffs
+from .so3 import _legendre_sinm_poly, _sh_norms, real_sph_harm
+
+__all__ = [
+    "sh_to_fourier_dense",
+    "fourier_to_sh_dense",
+    "sh_to_fourier_half",
+    "fourier_to_sh_half",
+]
+
+
+def _torus_samples(L: int) -> tuple[np.ndarray, int]:
+    """Sample all real SH (analytically continued) on an N x N torus grid."""
+    N = 2 * L + 2  # > bandlimit 2L+1
+    t = 2 * math.pi * np.arange(N) / N
+    p = 2 * math.pi * np.arange(N) / N
+    tt, pp = np.meshgrid(t, p, indexing="ij")
+    # Cartesian continuation: sin t may be negative for t > pi, which is
+    # exactly the torus extension
+    xyz = np.stack(
+        [np.sin(tt) * np.cos(pp), np.sin(tt) * np.sin(pp), np.cos(tt)], axis=-1
+    )
+    S = real_sph_harm(L, xyz.reshape(-1, 3)).reshape(N, N, num_coeffs(L))
+    return S, N
+
+
+def sh_to_fourier_dense(L: int) -> np.ndarray:
+    """y[(L+1)^2, 2L+1 (u), 2L+1 (v)] complex128, centered (index L <-> freq 0)."""
+    S, N = _torus_samples(L)
+    F = np.fft.fft2(S, axes=(0, 1)) / (N * N)
+    out = np.zeros((num_coeffs(L), 2 * L + 1, 2 * L + 1), dtype=np.complex128)
+    for u in range(-L, L + 1):
+        for v in range(-L, L + 1):
+            out[:, L + u, L + v] = F[u % N, v % N, :]
+    out[np.abs(out) < 1e-14] = 0.0
+    return out
+
+
+@lru_cache(maxsize=None)
+def _theta_fourier_integrals(L: int, u_max: int) -> np.ndarray:
+    """I[l, m, u + u_max] = int_0^pi e^{iut} Theta_{l,m}(t) sin t dt.
+
+    Returns [L+1, L+1, 2*u_max+1] complex, valid for m <= l; exact.
+    """
+    # h_{l,m}(t) = Theta_{l,m}(t) sin(t) is a trig polynomial of degree <= L+1
+    N = 2 * (L + 2) + 1
+    t = 2 * math.pi * np.arange(N) / N
+    ct, st = np.cos(t), np.sin(t)
+    P = _legendre_sinm_poly(L, ct)
+    norms = _sh_norms(L)
+    h = np.zeros((L + 1, L + 1, N))
+    for l in range(L + 1):
+        for m in range(l + 1):
+            h[l, m] = norms[l, m] * P[l, m] * st ** m * st
+    hk = np.fft.fft(h, axis=-1) / N  # coefficient of e^{+ikt} at index k % N
+
+    def E(n: int) -> complex:  # int_0^pi e^{int} dt
+        if n == 0:
+            return math.pi
+        if n % 2 == 0:
+            return 0.0
+        return 2j / n
+
+    ks = np.arange(-(L + 1), L + 2)
+    hk_c = np.zeros((L + 1, L + 1, len(ks)), dtype=np.complex128)
+    for i, k in enumerate(ks):
+        hk_c[:, :, i] = hk[:, :, k % N]
+    out = np.zeros((L + 1, L + 1, 2 * u_max + 1), dtype=np.complex128)
+    for ui, u in enumerate(range(-u_max, u_max + 1)):
+        Evec = np.array([E(u + k) for k in ks])
+        out[:, :, ui] = hk_c @ Evec
+    return out
+
+
+def fourier_to_sh_dense(Lf: int, Lout: int) -> np.ndarray:
+    """z[2Lf+1 (u), 2Lf+1 (v), (Lout+1)^2] complex128 (centered u, v).
+
+    x^{(l)}_m = Re( sum_{u,v} F[u, v] z[u, v, idx(l,m)] )  for F the centered
+    torus-Fourier coefficient grid of a real spherical function.
+    """
+    I = _theta_fourier_integrals(Lout, Lf)
+    z = np.zeros((2 * Lf + 1, 2 * Lf + 1, num_coeffs(Lout)), dtype=np.complex128)
+    sq2 = math.sqrt(2.0)
+    for l in range(Lout + 1):
+        for m in range(0, l + 1):
+            if m > Lf:
+                continue
+            th = I[l, m]
+            if m == 0:
+                # psi integral of e^{ivp}: 2pi delta_{v,0}
+                z[:, Lf + 0, idx(l, 0)] += 2 * math.pi * th
+            else:
+                # S_{l,m} carries sqrt2 cos(mp): sqrt2 pi (delta_{v,m} + delta_{v,-m})
+                z[:, Lf + m, idx(l, m)] += sq2 * math.pi * th
+                z[:, Lf - m, idx(l, m)] += sq2 * math.pi * th
+                # S_{l,-m} carries sqrt2 sin(mp): sqrt2 i pi (delta_{v,m} - delta_{v,-m})
+                z[:, Lf + m, idx(l, -m)] += sq2 * 1j * math.pi * th
+                z[:, Lf - m, idx(l, -m)] += -sq2 * 1j * math.pi * th
+    z[np.abs(z) < 1e-14] = 0.0
+    return z
+
+
+def sh_to_fourier_half(L: int, y: np.ndarray | None = None) -> np.ndarray:
+    """yh[(L+1)^2, 2L+1 (u), L+1 (v >= 0)]: the v >= 0 columns of `y`."""
+    y = sh_to_fourier_dense(L) if y is None else y
+    return np.ascontiguousarray(y[:, :, L:])
+
+
+def fourier_to_sh_half(Lf: int, Lout: int, z: np.ndarray | None = None) -> np.ndarray:
+    """zh[2Lf+1 (u), Lf+1 (v >= 0), (Lout+1)^2] with the v < 0 columns folded in.
+
+    For Hermitian F,  Re(sum_{u,v} F[u,v] z[u,v,k])
+      = Re( sum_u F[u,0] z[u,0,k]
+            + sum_{u,v>0} F[u,v] (z[u,v,k] + conj(z[-u,-v,k])) ),
+    so  x = Re(einsum('...uv,uvk->...k', Fh, zh))  is exact.
+    """
+    z = fourier_to_sh_dense(Lf, Lout) if z is None else z
+    zh = z[:, Lf:, :].copy()
+    zh[:, 1:, :] += np.conj(z[::-1, Lf - 1 :: -1, :])
+    return zh

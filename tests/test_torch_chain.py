@@ -1,0 +1,235 @@
+"""The port's chain collocation product against the reference Pallas kernel
+(interpret mode on the CPU), forward and backward, and the port's chain
+plans against the reference's.
+
+On the CPU the kernel wrapper runs its plain version inside the same
+autograd Function the kernel uses, so these tests hold the Function's
+hand-written backward against ``jax.grad`` of the reference's custom VJP.
+Tolerance: the f32 identity tier, ``repro.testing.tol_for('float32')``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import engine as ref_engine
+from repro.kernels.gaunt_fused import gaunt_chain_fused_pallas
+from repro.testing import assert_close
+from repro_torch.core import engine as port_engine
+from repro_torch.kernels.gaunt_fused import (chain_plain, gaunt_chain_fused_hopper,
+                                             gaunt_chain_fused_torch,
+                                             launch_chain_kernel)
+
+CHAINS = [
+    ((1, 1), 2),
+    ((2, 2), 2),
+    ((2, 1, 2), 3),
+    ((2, 2, 2), 2),
+    ((1, 2, 1, 2), 4),
+]
+B = 9
+
+
+def _inputs(Ls, variant, gated, seed):
+    """numpy operands (+ gate): 'sh' — all packed SH, exit at the chain's
+    Lout; 'grid' — operand 0 a complex half grid, exit the product grid."""
+    rng = np.random.default_rng(seed)
+    xs, entries = [], []
+    for i, L in enumerate(Ls):
+        if variant == "grid" and i == 0:
+            shape = (B, 2 * L + 1, L + 1)
+            xs.append((rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64))
+            entries.append("grid")
+        else:
+            xs.append(rng.normal(size=(B, (L + 1) ** 2)).astype(np.float32))
+            entries.append("sh")
+    gate = tuple(rng.normal(size=(B,)).astype(np.float32) for _ in range(2)) if gated else None
+    return xs, tuple(entries), gate
+
+
+def _ref(xs, Ls, Lout, entries, out_entry, gate):
+    return gaunt_chain_fused_pallas(
+        [jnp.asarray(x) for x in xs], Ls, Lout, entries=entries, out_entry=out_entry,
+        interpret=True, gate=None if gate is None else tuple(jnp.asarray(g) for g in gate))
+
+
+def _as_real(a):
+    a = np.asarray(a)
+    return np.stack([a.real, a.imag], -1) if np.iscomplexobj(a) else a
+
+
+@pytest.mark.parametrize("Ls,Lout", CHAINS)
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("variant", ["sh", "grid"])
+def test_chain_matches_reference_kernel(Ls, Lout, gated, variant):
+    xs, entries, gate = _inputs(Ls, variant, gated, seed=sum(Ls) + 7 * gated)
+    out_entry = "grid" if variant == "grid" else "sh"
+    Lo = sum(Ls) if variant == "grid" else Lout
+    want = _as_real(_ref(xs, Ls, Lo, entries, out_entry, gate))
+    txs = [torch.as_tensor(x) for x in xs]
+    tgate = None if gate is None else tuple(torch.as_tensor(g) for g in gate)
+    for fn in (gaunt_chain_fused_torch, gaunt_chain_fused_hopper):
+        got = fn(txs, Ls, Lo, entries=entries, out_entry=out_entry, gate=tgate)
+        assert got.shape == want.shape[: len(got.shape)]
+        assert_close(_as_real(got.numpy()), want, dtype="float32")
+
+
+@pytest.mark.parametrize("Ls,Lout", CHAINS)
+@pytest.mark.parametrize("gated", [False, True])
+def test_chain_function_backward_matches_jax_grad(Ls, Lout, gated):
+    """The kernel's autograd Function (plain forward on the CPU, hand-written
+    collocation VJP) against jax.grad through the reference custom VJP."""
+    xs, entries, gate = _inputs(Ls, "sh", gated, seed=3 + sum(Ls))
+    W = np.random.default_rng(11).normal(size=(B, (Lout + 1) ** 2)).astype(np.float32)
+    n = len(xs)
+
+    def ref_loss(*args):
+        g = (args[n], args[n + 1]) if gated else None
+        out = gaunt_chain_fused_pallas(list(args[:n]), Ls, Lout, interpret=True, gate=g)
+        return jnp.sum(out * W)
+
+    ref_args = [jnp.asarray(x) for x in xs] + ([jnp.asarray(g) for g in gate] if gated else [])
+    want = jax.grad(ref_loss, argnums=tuple(range(len(ref_args))))(*ref_args)
+    leaves = [torch.as_tensor(a).requires_grad_(True) for a in
+              (list(xs) + (list(gate) if gated else []))]
+    tgate = (leaves[n], leaves[n + 1]) if gated else None
+    out = gaunt_chain_fused_hopper(leaves[:n], Ls, Lout, gate=tgate)
+    got = torch.autograd.grad((out * torch.as_tensor(W)).sum(), leaves)
+    for g, w in zip(got, want):
+        assert_close(g.numpy(), np.asarray(w), dtype="float32")
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_chain_function_double_backward_matches_plain(gated):
+    """The Function's backward is differentiable: its second derivatives
+    equal autograd's through the plain version (float64, CPU)."""
+    Ls, Lout = (2, 1, 2), 3
+    rng = np.random.default_rng(5)
+    xs = [torch.as_tensor(rng.normal(size=(4, (L + 1) ** 2))) for L in Ls]
+    gate = tuple(torch.as_tensor(rng.normal(size=(4,))) for _ in range(2)) if gated else None
+    results = []
+    for fn in (gaunt_chain_fused_hopper, gaunt_chain_fused_torch):
+        leaves = [x.clone().requires_grad_(True) for x in xs]
+        g = tuple(t.clone().requires_grad_(True) for t in gate) if gated else None
+        out = fn(leaves, Ls, Lout, gate=g, dtype="float64")
+        (gx,) = torch.autograd.grad(out.pow(2).sum(), leaves[0], create_graph=True)
+        results.append(torch.autograd.grad(gx.pow(2).sum(), leaves + list(g or ())))
+    for a, b in zip(*results):
+        assert torch.allclose(a, b, rtol=1e-10, atol=1e-10)
+
+
+def test_kernel_wrapper_needs_cuda_and_f32():
+    x = torch.zeros(4, 9)
+    T = torch.zeros(9, 196)
+    P = torch.zeros(196, 9)
+    with pytest.raises(ValueError, match="CUDA"):
+        launch_chain_kernel([x, x, x], [T, T, T], P)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        gaunt_chain_fused_hopper([x.bfloat16()] * 3, (2, 2, 2), 2)
+    assert torch.equal(chain_plain([x, x, x], [T, T, T], P), torch.zeros(4, 9))
+
+
+@pytest.mark.parametrize("backend", port_engine.CHAIN_BACKENDS)
+@pytest.mark.parametrize("gated", [False, True])
+def test_chain_plan_matches_reference_tree(backend, gated):
+    """Port chain plans on every backend (weights, output weights, gate) vs
+    the reference's tree chain plan."""
+    Ls, Lout = (2, 2, 2), 2
+    rng = np.random.default_rng(21)
+    x = rng.normal(size=(5, 3, 9)).astype(np.float32)
+    ws = [rng.normal(size=(5, 3, 3)).astype(np.float32) for _ in Ls]
+    wo = rng.normal(size=(5, 3, 3)).astype(np.float32)
+    gp = ({"w1": rng.normal(size=(3, 4)).astype(np.float32),
+           "w2": rng.normal(size=(4, 3)).astype(np.float32)} if gated else None)
+    ref = ref_engine.plan_chain(Ls, Lout, backend="tree", gate=gated)
+    xj = jnp.asarray(x)
+    kw = {"gate_params": {k: jnp.asarray(v) for k, v in gp.items()}} if gated else {}
+    want = np.asarray(ref.apply([xj] * 3, weights=[jnp.asarray(w) for w in ws],
+                                w_out=jnp.asarray(wo), **kw))
+    cp = port_engine.plan_chain(Ls, Lout, backend=backend, gate=gated)
+    xt = torch.as_tensor(x)
+    kw = {"gate_params": {k: torch.as_tensor(v) for k, v in gp.items()}} if gated else {}
+    got = cp.apply([xt] * 3, weights=[torch.as_tensor(w) for w in ws],
+                   w_out=torch.as_tensor(wo), **kw)
+    assert cp.backend == backend
+    assert_close(got.numpy(), want, dtype="float32")
+
+
+def test_measured_chain_pick_on_cpu_is_a_cpu_candidate():
+    eng = port_engine.GauntEngine()
+    cp = eng.plan_chain((2, 2, 2), 2, tune="measure", batch_hint=64,
+                        share_hint=(0, 0, 0), gate=True, device="cpu")
+    key = eng.chain_measure_key((2, 2, 2), 2, "float32", 64, (0, 0, 0), True, "cpu")
+    assert set(eng.measured_times[key]) == {"tree", "fused_torch"}
+    assert cp.backend == min(eng.measured_times[key], key=eng.measured_times[key].get)
+    assert eng.timing_runs == 1
+    eng.plan_chain((2, 2, 2), 2, tune="measure", batch_hint=60,  # same rung: cached
+                   share_hint=(0, 0, 0), gate=True, device="cpu")
+    assert eng.timing_runs == 1
+
+
+@pytest.mark.parametrize("backend", ["tree", "fused_torch"])
+@pytest.mark.parametrize("gated", [False, True])
+def test_chain_plan_resident_entry_and_exit_match_reference(backend, gated):
+    """A Fourier-resident operand enters the chain as its half grid and the
+    product leaves resident (out_basis='fourier'), gate included."""
+    from repro.core.rep import Rep as RefRep
+    from repro_torch.core.rep import Rep
+
+    Ls = (2, 1)
+    rng = np.random.default_rng(31)
+    a = rng.normal(size=(6, 9)).astype(np.float32)
+    b = rng.normal(size=(6, 4)).astype(np.float32)
+    gp = ({"w1": rng.normal(size=(6, 3)).astype(np.float32),
+           "w2": rng.normal(size=(3, 6)).astype(np.float32)} if gated else None)
+    ref = ref_engine.plan_chain(Ls, 3, backend="tree", gate=gated)
+    kw = {"gate_params": {k: jnp.asarray(v) for k, v in gp.items()}} if gated else {}
+    want = ref.apply([RefRep.from_sh(jnp.asarray(a), 2).to_fourier("half"), jnp.asarray(b)],
+                     out_basis="fourier", **kw)
+    cp = port_engine.plan_chain(Ls, 3, backend=backend, gate=gated)
+    kw = {"gate_params": {k: torch.as_tensor(v) for k, v in gp.items()}} if gated else {}
+    got = cp.apply([Rep.from_sh(torch.as_tensor(a), 2).to_fourier("half"),
+                    torch.as_tensor(b)], out_basis="fourier", **kw)
+    assert got.is_fourier and got.form == "half" and got.L == 3
+    assert_close(_as_real(got.data.numpy()),
+                 _as_real(np.asarray(want.with_form("half").data)), dtype="float32")
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("Ls,Lout,entries,n_distinct", [
+    ((2, 2, 2), 2, ("sh",) * 3, 86),
+    ((1, 2, 1, 2), 4, ("sh",) * 4, 86),
+    ((1, 1), 2, ("sh", "sh"), 14),
+    ((2, 1, 2), 3, ("grid", "sh", "sh"), 144),
+])
+def test_bound_counts_distinct_sphere_points(Ls, Lout, entries, n_distinct):
+    """The smoke test's bound counts one sample per distinct sphere point:
+    one column per class with the class's rows of P summed gives the same
+    output as the full grid."""
+    from repro_torch.core import constants as port_c
+
+    Ts, P = port_c.chain_matrices(Ls, Lout, entries, "sh", pad_lanes=False,
+                                  dtype="float64")
+    cls = _chip_smoke().sample_classes(Ts)
+    assert int(cls.max()) + 1 == n_distinct
+    first = np.array([np.flatnonzero(cls == k)[0] for k in range(n_distinct)])
+    Pd = np.zeros((n_distinct, P.shape[1]))
+    np.add.at(Pd, cls, P)
+    rng = np.random.default_rng(0)
+    flat = [torch.as_tensor(rng.normal(size=(7, T.shape[0]))) for T in Ts]
+    gs, gb = (torch.as_tensor(rng.normal(size=(7, 1))) for _ in range(2))
+    full = chain_plain(flat, [torch.as_tensor(T) for T in Ts], torch.as_tensor(P), gs, gb)
+    less = chain_plain(flat, [torch.as_tensor(T[:, first]) for T in Ts],
+                       torch.as_tensor(Pd), gs, gb)
+    assert float((full - less).abs().max()) <= 1e-10 * max(1.0, float(full.abs().max()))

@@ -1,0 +1,57 @@
+"""Rules of the port: it imports neither JAX nor the reference package, and
+its entry points run on CUDA unless the caller asks for the CPU."""
+import dataclasses
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.configs.gaunt_ff import gaunt_mace_ff
+from repro_torch.device import resolve_device
+from repro_torch.kernels.gaunt_fused import gaunt_chain_fused_hopper
+from repro_torch.models.equivariant import MaceGaunt
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+
+
+def test_port_imports_no_jax_and_no_reference():
+    mods = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
+    assert "repro_torch.kernels.gaunt_fused" in mods and "repro_torch.serve.engine" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
+        " or m == 'repro' or m.startswith('repro.'))\n"
+        "print('BAD', bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_default_device_is_cuda():
+    small = dataclasses.replace(gaunt_mace_ff, channels=2, n_layers=1)
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert MaceGaunt(small).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve_device()
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            MaceGaunt(small)
+    assert MaceGaunt(small, device="cpu").device.type == "cpu"
+
+
+def test_kernel_wrapper_runs_plain_version_only_for_cpu_tensors():
+    x = torch.randn(3, 9)
+    out = gaunt_chain_fused_hopper([x, x, x], (2, 2, 2), 2)
+    assert out.shape == (3, 9) and out.device.type == "cpu"
+    with pytest.raises(ValueError):
+        gaunt_chain_fused_hopper([x.to("meta")] * 3, (2, 2, 2), 2)
