@@ -12,6 +12,11 @@ reference rounds the sample axis G up to a multiple of 128, a TPU lane rule.
 The port keeps the option for parity tests, but its consumers call with
 ``pad_lanes=False``: the Hopper chain kernel walks G itself and needs no
 padded columns (main path: G = 196 instead of 256, 23% less work).
+
+The pairwise collocation product goes further (`pair_matrices`): its torus
+grid covers the sphere twice, so it keeps one sample per distinct sphere
+point and sums the projection rows of the repeats — the same function at
+about half the samples (L=6 x 6: 314 of 676).
 """
 from __future__ import annotations
 
@@ -23,14 +28,17 @@ import torch
 
 from . import fourier as _fx
 from .irreps import idx
-from .so3 import real_clebsch_gordan_block, real_sph_harm
+from .so3 import real_clebsch_gordan_block, real_gaunt_tensor, real_sph_harm
 
 __all__ = [
     "y_dense",
     "z_dense",
+    "y_packed",
+    "z_packed",
     "y_half",
     "z_half",
     "z_half_l0",
+    "pack_index",
     "filter_fourier_col",
     "conv_u_index",
     "cg_11_blocks",
@@ -40,6 +48,10 @@ __all__ = [
     "chain_project_grid",
     "chain_matrices",
     "chain_l0",
+    "fused_matrices",
+    "sphere_point_classes",
+    "pair_matrices",
+    "gaunt_dense",
     "to_torch",
 ]
 
@@ -72,6 +84,20 @@ def z_dense(Lf: int, Lout: int, cdtype: str = "complex64") -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
+def y_packed(L: int, cdtype: str = "complex64") -> tuple[np.ndarray, np.ndarray]:
+    """Packed (per-|m| block-sparse) sh->Fourier matrices (yp, yn)."""
+    yp, yn = _fx.sh_to_fourier_packed(L, y=_y_raw(L))
+    return yp.astype(cdtype), yn.astype(cdtype)
+
+
+@lru_cache(maxsize=None)
+def z_packed(Lf: int, Lout: int, cdtype: str = "complex64") -> tuple[np.ndarray, np.ndarray]:
+    """Packed Fourier->sh matrices (zp, zn)."""
+    zp, zn = _fx.fourier_to_sh_packed(Lf, Lout, z=_z_raw(Lf, Lout))
+    return zp.astype(cdtype), zn.astype(cdtype)
+
+
+@lru_cache(maxsize=None)
 def y_half(L: int, cdtype: str = "complex64") -> np.ndarray:
     """Half (Hermitian / real-input) sh->Fourier tensor: v >= 0 columns only."""
     return _fx.sh_to_fourier_half(L, y=_y_raw(L)).astype(cdtype)
@@ -87,6 +113,21 @@ def z_half(Lf: int, Lout: int, cdtype: str = "complex64") -> np.ndarray:
 def z_half_l0(Lf: int, cdtype: str = "complex64") -> np.ndarray:
     """The l = 0 row of `z_half` [2Lf+1, Lf+1]: half grid -> SH coefficient 0."""
     return np.ascontiguousarray(z_half(Lf, 0, cdtype)[:, :, 0])
+
+
+@lru_cache(maxsize=None)
+def pack_index(L: int) -> tuple[np.ndarray, np.ndarray]:
+    """Gather map packed[plane, mm, l] <- flat idx(l, +-mm); mask for valid."""
+    gidx = np.zeros((2, L + 1, L + 1), dtype=np.int32)
+    mask = np.zeros((2, L + 1, L + 1), dtype=np.float32)
+    for mm in range(L + 1):
+        for l in range(mm, L + 1):
+            gidx[0, mm, l] = l * l + l + mm
+            mask[0, mm, l] = 1.0
+            if mm > 0:
+                gidx[1, mm, l] = l * l + l - mm
+                mask[1, mm, l] = 1.0
+    return gidx, mask
 
 
 # --------------------------------------------------------------------------
@@ -257,6 +298,71 @@ def chain_l0(Ls: tuple, entries: tuple = None) -> np.ndarray:
     letters = "abcdefghij"[: len(Ls)]
     expr = ",".join(c + "z" for c in letters) + ",z->" + letters
     return np.einsum(expr, *Ts, p0, optimize=True)
+
+
+@lru_cache(maxsize=None)
+def fused_matrices(L1: int, L2: int, Lout: int, pad_lanes: bool = True,
+                   dtype: str = "float32"):
+    """Pairwise collocation matrices (T1 [d1,G], T2 [d2,G], P [G,dout]) on
+    the full torus grid: the n=2 case of `chain_matrices` (the reference's
+    builder, kept for parity; the port's pairwise routes use
+    `pair_matrices`)."""
+    (T1, T2), P = chain_matrices((L1, L2), Lout, ("sh", "sh"), "sh",
+                                 pad_lanes=pad_lanes, dtype=dtype)
+    return T1, T2, P
+
+
+@lru_cache(maxsize=None)
+def sphere_point_classes(Ltot: int) -> tuple[np.ndarray, np.ndarray]:
+    """(reps, cls) for the degree-Ltot product grid (N = 2*Ltot + 2, sample
+    g = a*N + b at (t_a, p_b) = (2 pi a/N, 2 pi b/N)).
+
+    The torus is a double cover of the sphere: (t, p) and (2 pi - t, p + pi)
+    are one point, and each pole row (t = 0, t = pi) is one point.
+    ``cls[g]`` numbers the distinct points in order of first appearance and
+    ``reps[c]`` is the first sample of class c.  Exact index arithmetic, no
+    tolerance: the classes are where SH samples agree for every degree.
+    """
+    N = 2 * Ltot + 2
+    h = N // 2
+    canon = {}
+    cls = np.empty(N * N, dtype=np.int64)
+    for a in range(N):
+        for b in range(N):
+            if a == 0 or a == h:
+                point = (a, 0)
+            elif a < h:
+                point = (a, b)
+            else:
+                point = (N - a, (b + h) % N)
+            cls[a * N + b] = canon.setdefault(point, len(canon))
+    reps = np.array([int(np.argmax(cls == c)) for c in range(len(canon))])
+    return reps, cls
+
+
+@lru_cache(maxsize=None)
+def pair_matrices(L1: int, L2: int, Lout: int, dtype: str = "float32"):
+    """The port's pairwise collocation matrices (T1 [d1,Gd], T2 [d2,Gd],
+    P [Gd,dout]) at the Gd distinct sphere points of the product grid.
+
+    Two samples at one sphere point have the same product value in every
+    row, so one sample per point, with the projection rows of its class
+    summed, computes the same output as `fused_matrices` (exact up to the
+    order of float sums; folded in float64, cast once).
+    """
+    (T1, T2), P = chain_matrices((L1, L2), Lout, ("sh", "sh"), "sh",
+                                 pad_lanes=False, dtype="float64")
+    reps, cls = sphere_point_classes(L1 + L2)
+    Pf = np.zeros((len(reps), P.shape[1]))
+    np.add.at(Pf, cls, P)
+    return (np.ascontiguousarray(T1[:, reps]).astype(dtype),
+            np.ascontiguousarray(T2[:, reps]).astype(dtype), Pf.astype(dtype))
+
+
+@lru_cache(maxsize=None)
+def gaunt_dense(L1: int, L2: int, Lout: int, dtype: str = "float32") -> np.ndarray:
+    """The exact dense real-Gaunt tensor [(L1+1)^2, (L2+1)^2, (Lout+1)^2]."""
+    return real_gaunt_tensor(L1, L2, Lout).astype(dtype)
 
 
 # --------------------------------------------------------------------------

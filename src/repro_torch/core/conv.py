@@ -54,7 +54,14 @@ def wigner_blocks_from_rotmat(L: int, R: torch.Tensor) -> list:
     Ds.append(D1)
     for l in range(2, L + 1):
         C = _const.to_torch(_const.cg_11_blocks(L)[l - 2], R.device, R.dtype)
-        Ds.append(torch.einsum("ijk,...ia,...jb,abm->...km", C, Ds[l - 1], D1, C))
+        # C^T (D^{l-1} (x) D^1) C one operand at a time: a 4-operand
+        # torch.einsum searches for a contraction path on the host at every call
+        Cf = C.reshape(-1, C.shape[-1])                     # [(2l-1)*3, 2l+1]
+        prev = Ds[l - 1]
+        n = prev.shape[-1]
+        kron = (prev[..., :, None, :, None] * D1[..., None, :, None, :]).reshape(
+            *prev.shape[:-2], n * 3, n * 3)
+        Ds.append(Cf.T @ kron @ Cf)
     return Ds
 
 

@@ -1,23 +1,44 @@
-"""The Gaunt engine, main-path subset: chain plans, the measured chain
-autotuner, the eSCN conv backend and the affine-gate helpers.
+"""The Gaunt engine: one plan/dispatch layer over the realizations of the
+Gaunt tensor product (the reference's ``repro.core.engine``).
 
-Chain backends (`CHAIN_BACKENDS`):
+Pairwise plans (``plan``):
+
+    p   = plan(L1, L2, Lout, kind="pairwise", batch_hint=4096)
+    out = p.apply(x1, x2, w1=w1)        # the paper's w_{l1} w_{l2} w_l hooks
+
+    kind         backends
+    pairwise     dense_einsum | fft | direct | packed | rfft | fused_torch | fused_hopper
+    conv_filter  escn_aligned + every pairwise backend (filter materialized)
+    channel_mix  dense_einsum | fused_torch
+
+A plan is keyed by `PlanKey` ``(L1, L2, Lout, kind, batch_hint, dtype,
+options, device)`` and resolved to a registered `Backend`, by the
+reference's cost model (``tune='heuristic'``) or by timing the eligible
+backends on the plan's device (``tune='measure'``).  ``fused_torch`` and
+``fused_hopper`` are the reference's ``fused_xla`` and ``fused_pallas``:
+the collocation product in torch ops and on the hand-written sm_90a kernel
+(`kernels.gaunt_fused.gaunt_fused_hopper`, no gradient).
+
+Chain plans (``plan_chain``), the main path's many-body stage:
 
 * ``tree`` — the resident spectral pass: each distinct operand converts to
   a Hermitian half grid once (degree-resolved when the same tensor enters
   under different per-degree weights), grids combine by a divide-and-conquer
   tree of `conv2d_herm` (rfft), and one projection runs at the exit.
-* ``fused_torch`` — the n-way collocation product in plain torch ops (the
-  reference's ``fused_xla``).
-* ``fused_hopper`` — the same product on the hand-written sm_90a kernel
-  (`kernels.gaunt_fused.gaunt_chain_fused_hopper`; the reference's
-  ``fused_pallas``).
+* ``fused_torch`` — the n-way collocation product in plain torch ops.
+* ``fused_hopper`` — the same product on the chain kernel
+  (`kernels.gaunt_fused.gaunt_chain_fused_hopper`).
 
 ``plan_chain(tune='measure')`` times the candidates on the caller's device
 — ``tree`` and ``fused_hopper`` on CUDA, ``tree`` and ``fused_torch`` on the
-CPU — and caches the winner per (chain shape, rows, gate, device).  A
-candidate that raises is not skipped: a kernel that fails to build or
-launch must surface, not quietly lose the measurement.
+CPU — and caches the winner per (chain shape, rows, gate, device).  In both
+measured selections a kernel candidate that raises is not skipped: a kernel
+that fails to build or launch must surface, not quietly lose the
+measurement.
+
+Not ported yet: the manybody plan kind (the port's many-body route is
+``plan_chain``), Fourier-boundary (``Rep``) operands of pairwise plans,
+``plan_batch``, bf16 storage and ``dtype='auto'``, and ``calibrate_fused``.
 """
 from __future__ import annotations
 
@@ -36,11 +57,22 @@ from .gaunt import expand_degree_weights
 from .irreps import num_coeffs
 
 __all__ = [
+    "KINDS",
+    "PlanKey",
+    "Backend",
+    "GauntPlan",
     "CHAIN_BACKENDS",
     "ChainPlan",
     "GauntEngine",
+    "register_backend",
+    "available_backends",
+    "get_calibration",
+    "set_calibration",
+    "reset_calibration",
+    "spectral_default",
     "build_escn",
     "get_engine",
+    "plan",
     "plan_chain",
 ]
 
@@ -51,7 +83,10 @@ _CDTYPE = {"float32": torch.complex64, "float64": torch.complex128}
 
 
 def _dtype_str(dtype) -> str:
+    """A plan key's storage dtype from a dtype spec (complex dtypes name
+    their real width, as the wrappers' cdtype does)."""
     s = dtype if isinstance(dtype, str) else str(dtype).replace("torch.", "")
+    s = {"complex64": "float32", "complex128": "float64"}.get(s, s)
     if s == "bfloat16":
         raise NotImplementedError("bfloat16 storage is not ported yet")
     if s not in _RDTYPE:
@@ -112,6 +147,102 @@ def _gate_rep(p, rep):
     bump = torch.zeros_like(Fh)
     bump[..., L, 0] = (beta * _GATE_C0).to(Fh.dtype)
     return Rep(Fh + bump, L, "fourier", "half")
+
+
+# --------------------------------------------------------------------------
+# plan keys and the backend registry
+# --------------------------------------------------------------------------
+
+KINDS = ("pairwise", "conv_filter", "channel_mix")
+
+
+def spectral_default(*Ls: int) -> str:
+    """The dense-spectral conv crossover: shift-and-add 'direct' on small
+    grids, 'fft' above (the reference's one home of ``conv='auto'``)."""
+    return "direct" if max(Ls) <= 4 else "fft"
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanKey:
+    """Identity of a planned Gaunt op (hashable; the plan-cache key).
+
+    ``dtype`` is the storage and accumulation dtype ('float32' |
+    'float64'); ``extra`` holds kind/backend options as sorted (name, value)
+    pairs (packed and rfft take ("conv", ...), conv_filter ("geometry",
+    "wigner")); ``device`` is the device type the plan is selected and
+    measured for ('cuda' | 'cpu').
+    """
+
+    L1: int
+    L2: int
+    Lout: int
+    kind: str = "pairwise"
+    batch_hint: int | None = None
+    dtype: str = "float32"
+    extra: tuple = ()
+    device: str = "cuda"
+
+    def opt(self, name: str, default=None):
+        return dict(self.extra).get(name, default)
+
+
+@dataclasses.dataclass(frozen=True)
+class Backend:
+    """A registered Gaunt realization with capability flags.
+
+    ``kernel`` marks a backend that runs a hand-written CUDA kernel: the
+    measured selection times it only on the card (on the CPU it would time
+    the kernel's plain version, which is not the candidate)."""
+
+    name: str
+    kinds: frozenset
+    build: Callable = dataclasses.field(repr=False, compare=False, default=None)
+    cost: Callable = dataclasses.field(repr=False, compare=False, default=None)
+    supports_grad: bool = True
+    dtypes: frozenset = frozenset({"float32", "float64"})
+    kernel: bool = False
+    # conv_filter backends that accept precomputed WignerBlocks geometry
+    wigner_geometry: bool = False
+
+    def eligible(self, key: PlanKey, requires_grad: bool) -> bool:
+        if key.dtype not in self.dtypes:
+            return False
+        if requires_grad and not self.supports_grad:
+            return False
+        if key.opt("geometry") and not self.wigner_geometry:
+            return False
+        if key.kind in self.kinds:
+            return True
+        # any pairwise backend can serve conv_filter by materializing Y(rhat)
+        return key.kind == "conv_filter" and "pairwise" in self.kinds
+
+
+_REGISTRY: dict[str, Backend] = {}
+
+
+def register_backend(backend: Backend) -> Backend:
+    _REGISTRY[backend.name] = backend
+    return backend
+
+
+def available_backends(kind: str = "pairwise", dtype: str = "float32",
+                       requires_grad: bool = True) -> list[str]:
+    key = PlanKey(1, 1, 2, kind=kind, dtype=_dtype_str(dtype))
+    return [b.name for b in _REGISTRY.values() if b.eligible(key, requires_grad)]
+
+
+@dataclasses.dataclass(frozen=True)
+class GauntPlan:
+    """A resolved (key, backend) pair; ``apply`` runs the op."""
+
+    key: PlanKey
+    backend: str
+    apply: Callable = dataclasses.field(repr=False, compare=False)
+
+    def describe(self) -> str:
+        k = self.key
+        return (f"{k.kind}(L1={k.L1}, L2={k.L2}, Lout={k.Lout}, dtype={k.dtype}, "
+                f"batch_hint={k.batch_hint}, device={k.device}) -> {self.backend}")
 
 
 # --------------------------------------------------------------------------
@@ -346,19 +477,434 @@ def build_escn(L1: int, L2: int, Lout: int, geometry: str | None = None,
 
 
 # --------------------------------------------------------------------------
+# cost model (relative real-MAC counts), as the reference's
+# --------------------------------------------------------------------------
+
+_C_CPLX = 4.0        # complex MAC = 4 real MACs
+_C_FFT = 10.0        # per point per log2 level: tiny-grid FFTs vectorize poorly
+_OVERHEAD = 3e4      # per dispatched op: favors fewer, denser ops at small sizes
+_INTERPRET_PENALTY = 1e4   # a kernel backend off the card runs its plain version
+
+# 'fused_skinny' scales the collocation backends' per-element cost (their
+# matmuls are skinny, G >> d).  4.0 is the reference's never-calibrated
+# default; the per-dtype entries inherit it (None).  Measuring it
+# (the reference's `calibrate_fused`) is not ported yet.
+_CALIB = {
+    "fused_skinny": 4.0, "fused_skinny_measured": False,
+    "fused_skinny:bfloat16": None, "fused_skinny:bfloat16_measured": False,
+    "fused_skinny:float64": None, "fused_skinny:float64_measured": False,
+}
+_CALIB_DEFAULTS = dict(_CALIB)
+
+
+def _calib_key(dtype: str) -> str:
+    return "fused_skinny" if dtype == "float32" else f"fused_skinny:{dtype}"
+
+
+def _calib_factor(dtype: str) -> float:
+    v = _CALIB.get(_calib_key(dtype))
+    return _CALIB["fused_skinny"] if v is None else v
+
+
+def get_calibration() -> dict:
+    """The cost model's calibration constants (see `_CALIB`)."""
+    return dict(_CALIB)
+
+
+def set_calibration(**kw) -> None:
+    """Override calibration constants (tests / cross-host replay).  Per-dtype
+    entries use the key 'fused_skinny:<dtype>' (pass them by dict-splat)."""
+    unknown = set(kw) - set(_CALIB)
+    if unknown:
+        raise ValueError(f"unknown calibration constants {sorted(unknown)}")
+    _CALIB.update(kw)
+
+
+def reset_calibration() -> None:
+    """Restore the default calibration constants (``GauntEngine.clear``
+    calls it, so a cleared engine ranks backends like a fresh one)."""
+    _CALIB.clear()
+    _CALIB.update(_CALIB_DEFAULTS)
+
+
+def _dims(key: PlanKey):
+    B = key.batch_hint or 1
+    n1, n2 = 2 * key.L1 + 1, 2 * key.L2 + 1
+    N = n1 + n2 - 1
+    return B, num_coeffs(key.L1), num_coeffs(key.L2), num_coeffs(key.Lout), n1, n2, N
+
+
+def _cost_dense_einsum(key: PlanKey) -> float:
+    B, d1, d2, do, *_ = _dims(key)
+    if key.kind == "channel_mix":
+        return 16.0 * B * d1 * d2 * do + _OVERHEAD  # x C1*C2 (unknown): scaled proxy
+    return B * d1 * d2 * do + _OVERHEAD
+
+
+def _spectral_common(key: PlanKey, conv: str, packed: bool) -> float:
+    B, d1, d2, do, n1, n2, N = _dims(key)
+    if packed:  # O(L^3) stacked matmuls
+        conv_in = 4.0 * B * (key.L1 + 1) ** 3 + 4.0 * B * (key.L2 + 1) ** 3
+        proj = 8.0 * B * (key.Lout + 1) ** 2 * N
+    else:  # O(L^4) dense einsum conversions
+        conv_in = 2.0 * B * (d1 * n1 * n1 + d2 * n2 * n2)
+        proj = _C_CPLX * B * N * N * do
+    if conv == "fft":
+        c = 3.0 * _C_FFT * B * N * N * max(1.0, math.log2(N * N)) + _C_CPLX * B * N * N
+    else:
+        c = _C_CPLX * B * N * N * n2 * n2
+    n_ops = 8 if not packed else 14
+    return conv_in + c + proj + _OVERHEAD * n_ops
+
+
+def _cost_rfft(key: PlanKey) -> float:
+    """Half (Hermitian) conversions + real spatial rfft convolution."""
+    B, d1, d2, do, n1, n2, N = _dims(key)
+    Nr = N + 1  # the even alias-free spatial grid 2(L1+L2)+2
+    conv_in = 2.0 * B * (d1 * n1 * (key.L1 + 1) + d2 * n2 * (key.L2 + 1))
+    c = 1.5 * _C_FFT * B * Nr * Nr * max(1.0, math.log2(Nr * Nr)) + B * Nr * Nr
+    proj = _C_CPLX * B * N * (key.L1 + key.L2 + 1) * do / 2
+    return conv_in + c + proj + _OVERHEAD * 9
+
+
+def _cost_fused(key: PlanKey, kernel: bool) -> float:
+    """The reference's collocation cost, G padded to 128 lanes as there (the
+    port's kernels run G unpadded and folded; the cost model keeps the
+    reference's ranking).  The kernel backend costs half on the card and
+    the interpret penalty off it."""
+    B, d1, d2, do, n1, n2, N = _dims(key)
+    Nf = 2 * (key.L1 + key.L2) + 2
+    G = ((Nf * Nf + 127) // 128) * 128
+    f = _calib_factor(key.dtype)
+    c = f * B * G * (d1 + d2 + do) + _OVERHEAD * 4
+    if key.kind == "channel_mix":
+        c = 4.0 * f * B * G * (d1 + d2 + do) + _OVERHEAD * 4
+    if kernel:
+        c *= 0.5 if key.device == "cuda" else _INTERPRET_PENALTY
+    return c
+
+
+def _cost_escn(key: PlanKey) -> float:
+    B, d1, d2, do, n1, n2, N = _dims(key)
+    Lw = max(key.L1, key.Lout)
+    wigner = B * sum((2 * l + 1) ** 4 for l in range(2, Lw + 1)) + \
+        2.0 * B * sum((2 * l + 1) ** 2 for l in range(Lw + 1))
+    s2f = 2.0 * B * d1 * n1 * n1
+    banded = _C_CPLX * B * N * n1 * n1
+    proj = _C_CPLX * B * N * N * do
+    return wigner + s2f + banded + proj + _OVERHEAD * 10
+
+
+# --------------------------------------------------------------------------
+# pairwise backend builders
+# --------------------------------------------------------------------------
+
+
+def _gaunt_contract(x1, x2, G):
+    """sum_ij x1[..., i] x2[..., j] G[i, j, k], one operand at a time (a
+    3-operand torch.einsum searches for a contraction path on the host at
+    every call).  Leading dims broadcast."""
+    d1, d2, do = G.shape
+    t = (x1 @ G.reshape(d1, d2 * do)).reshape(*x1.shape[:-1], d2, do)
+    return (x2.unsqueeze(-2) @ t).squeeze(-2)
+
+
+def _build_dense_einsum(key: PlanKey) -> Callable:
+    rd = _RDTYPE[key.dtype]
+    G = constants.gaunt_dense(key.L1, key.L2, key.Lout, key.dtype)
+    if key.kind == "channel_mix":
+
+        def apply_mix(x1, x2, w_mix):
+            # y[..., e, k] = sum_{c,d} w[c,d,e] sum_ij x1[..., c, i] x2[..., d, j] G[i,j,k]
+            Gt = constants.to_torch(G, x1.device)
+            d1, d2, do = Gt.shape
+            t = (x1.to(rd) @ Gt.reshape(d1, d2 * do)).reshape(*x1.shape[:-1], d2, do)
+            W = x2.to(rd).unsqueeze(-3) @ t                      # [..., C1, C2, do]
+            C1, C2, E = w_mix.shape
+            return w_mix.to(rd).reshape(C1 * C2, E).T @ W.reshape(*W.shape[:-3], C1 * C2, do)
+
+        return apply_mix
+
+    def apply_pair(x1, x2, w1=None, w2=None, w3=None):
+        Gt = constants.to_torch(G, x1.device)
+        out = _gaunt_contract(_wmul(x1, w1, key.L1).to(rd),
+                              _wmul(x2, w2, key.L2).to(rd), Gt)
+        return _wmul(out, w3, key.Lout)
+
+    return apply_pair
+
+
+def _build_spectral(key: PlanKey, conversion: str, conv: str) -> Callable:
+    from .gaunt import conv2d_full, conv2d_herm, fourier_to_sh, sh_to_fourier
+
+    cd, rd = _CDTYPE[key.dtype], _RDTYPE[key.dtype]
+    conv_fn = conv2d_herm if conversion == "half" else conv2d_full
+    L1, L2, Lout = key.L1, key.L2, key.Lout
+
+    def apply_pair(x1, x2, w1=None, w2=None, w3=None):
+        F1 = sh_to_fourier(_wmul(x1, w1, L1), L1, conversion, cd)
+        F2 = sh_to_fourier(_wmul(x2, w2, L2), L2, conversion, cd)
+        out = fourier_to_sh(conv_fn(F1, F2, conv), L1 + L2, Lout, conversion, rd)
+        return _wmul(out, w3, Lout)
+
+    return apply_pair
+
+
+def _build_fused(key: PlanKey, kernel: bool) -> Callable:
+    """The collocation product on the folded pair matrices
+    (`constants.pair_matrices`): ``fused_torch`` in torch ops,
+    ``fused_hopper`` on the pair kernel.  f32 storage and accumulation."""
+    from ..kernels.gaunt_fused import gaunt_fused_hopper, gaunt_fused_torch
+
+    rd = _RDTYPE[key.dtype]
+    L1, L2, Lout = key.L1, key.L2, key.Lout
+    mats = constants.pair_matrices(L1, L2, Lout)
+    if key.kind == "channel_mix":
+
+        def apply_mix(x1, x2, w_mix):
+            # y = (sum_{c,d} w[c,d,e] V1[c] * V2[d]) @ P,  V_i = x_i @ T_i:
+            # the channel mix commutes with the basis change
+            T1, T2, P = (constants.to_torch(a, x1.device) for a in mats)
+            V1 = x1.to(torch.float32) @ T1                       # [..., C1, G]
+            V2 = x2.to(torch.float32) @ T2                       # [..., C2, G]
+            C1, C2, E = w_mix.shape
+            U = w_mix.to(torch.float32).reshape(C1, C2 * E).T @ V1
+            U = U.reshape(*U.shape[:-2], C2, E, U.shape[-1])     # [..., C2, E, G]
+            V = (V2.unsqueeze(-2) * U).sum(-3)                   # [..., E, G]
+            return (V @ P).to(rd)
+
+        return apply_mix
+    fn = gaunt_fused_hopper if kernel else gaunt_fused_torch
+
+    def apply_pair(x1, x2, w1=None, w2=None, w3=None):
+        out = fn(_wmul(x1, w1, L1), _wmul(x2, w2, L2), L1, L2, Lout)
+        return _wmul(out.to(rd), w3, Lout)
+
+    return apply_pair
+
+
+def _wrap_conv_filter(key: PlanKey, pair_apply: Callable) -> Callable:
+    """Serve kind='conv_filter' on a pairwise backend: materialize Y(rhat)."""
+    from .so3 import real_sph_harm_torch
+
+    def apply_conv(x, rhat, w1=None, w2=None, w3=None):
+        filt = real_sph_harm_torch(key.L2, rhat).to(x.dtype)
+        return pair_apply(x, filt, w1, w2, w3)
+
+    return apply_conv
+
+
+def _build_plan_apply(spec: Backend, key: PlanKey) -> Callable:
+    apply = spec.build(key)
+    if key.kind == "conv_filter" and spec.name != "escn_aligned":
+        apply = _wrap_conv_filter(key, apply)
+    return apply
+
+
+register_backend(Backend(
+    name="dense_einsum",
+    kinds=frozenset({"pairwise", "conv_filter", "channel_mix"}),
+    build=_build_dense_einsum,
+    cost=_cost_dense_einsum,
+))
+register_backend(Backend(
+    name="fft",
+    kinds=frozenset({"pairwise", "conv_filter"}),
+    build=lambda key: _build_spectral(key, "dense", "fft"),
+    cost=lambda key: _spectral_common(key, "fft", packed=False),
+))
+register_backend(Backend(
+    name="direct",
+    kinds=frozenset({"pairwise", "conv_filter"}),
+    build=lambda key: _build_spectral(key, "dense", "direct"),
+    cost=lambda key: _spectral_common(key, "direct", packed=False),
+))
+register_backend(Backend(
+    name="packed",
+    kinds=frozenset({"pairwise", "conv_filter"}),
+    build=lambda key: _build_spectral(key, "packed", key.opt("conv", "fft")),
+    cost=lambda key: _spectral_common(key, key.opt("conv", "fft"), packed=True),
+))
+register_backend(Backend(
+    name="rfft",
+    kinds=frozenset({"pairwise", "conv_filter"}),
+    build=lambda key: _build_spectral(key, "half", key.opt("conv", "rfft")),
+    cost=_cost_rfft,
+))
+register_backend(Backend(
+    name="fused_torch",
+    kinds=frozenset({"pairwise", "conv_filter", "channel_mix"}),
+    build=lambda key: _build_fused(key, kernel=False),
+    cost=lambda key: _cost_fused(key, kernel=False),
+    dtypes=frozenset({"float32"}),
+))
+register_backend(Backend(
+    name="fused_hopper",
+    kinds=frozenset({"pairwise", "conv_filter"}),
+    build=lambda key: _build_fused(key, kernel=True),
+    cost=lambda key: _cost_fused(key, kernel=True),
+    supports_grad=False,  # the pair kernel has no backward, as the reference's
+    dtypes=frozenset({"float32"}),
+    kernel=True,
+))
+register_backend(Backend(
+    name="escn_aligned",
+    kinds=frozenset({"conv_filter"}),
+    build=lambda key: build_escn(key.L1, key.L2, key.Lout, geometry=key.opt("geometry"),
+                                 dtype=key.dtype),
+    cost=_cost_escn,
+    wigner_geometry=True,
+))
+
+
+# --------------------------------------------------------------------------
 # the engine
 # --------------------------------------------------------------------------
 
 
 class GauntEngine:
-    """Caches chain plans and the measured chain-backend selections."""
+    """Plans, caches and autotunes Gaunt ops: pairwise/conv_filter/
+    channel_mix plans over the backend registry, and chain plans."""
 
     def __init__(self):
+        self._plans: dict = {}
         self._chains: dict = {}
+        # measured picks, keyed by PlanKey (plans) or the chain tuple
         self._measured: dict = {}
         self.measured_times: dict = {}   # key -> {backend: median seconds}
         self.measured_spread: dict = {}  # key -> {backend: (min, max) seconds}
+        self.measure_errors: dict = {}   # PlanKey -> {backend: error} (non-kernel)
         self.timing_runs = 0
+
+    # -- pairwise plans ----------------------------------------------------
+
+    def plan(self, L1: int | None = None, L2: int | None = None,
+             Lout: int | None = None, *, kind: str = "pairwise",
+             batch_hint: int | None = None, dtype="float32",
+             backend: str | None = None, options: dict | None = None,
+             tune: str = "heuristic", requires_grad: bool = True,
+             device=None) -> GauntPlan:
+        """Resolve (and cache) a plan.  ``backend=None`` -> engine selection:
+        ``tune='heuristic'`` (cost model) or ``'measure'`` (timed on
+        ``device`` at ``batch_hint`` rows).  ``dtype`` is the storage dtype
+        ('float32' | 'float64').  ``device`` is the device the plan is
+        selected for: None means cuda, and raises without a GPU (pass
+        ``device="cpu"``).  ``requires_grad=False`` admits gradless backends
+        (``fused_hopper``)."""
+        if kind == "manybody":
+            raise NotImplementedError("manybody plans are not ported; the port's "
+                                      "many-body route is plan_chain")
+        if kind not in KINDS:
+            raise ValueError(f"unknown kind {kind!r} (expected one of {KINDS})")
+        if tune not in ("heuristic", "measure"):
+            raise ValueError(f"unknown tune {tune!r} (expected 'heuristic'|'measure')")
+        options = dict(options or {})
+        bound = options.pop("boundary", None)
+        if bound is not None and tuple(bound) != ("sh", "sh", "sh"):
+            raise NotImplementedError("Fourier-boundary operands of pairwise plans "
+                                      "are not ported yet")
+        geom = options.get("geometry")
+        if geom is not None:
+            if kind != "conv_filter":
+                raise ValueError("geometry options only apply to conv_filter "
+                                 "plans (precomputed Wigner alignment)")
+            if geom != "wigner":
+                raise ValueError(f"unknown geometry {geom!r} (expected 'wigner')")
+        if L1 is None or L2 is None:
+            raise ValueError(f"kind={kind!r} plans need L1 and L2")
+        Lout = L1 + L2 if Lout is None else Lout
+        if Lout > L1 + L2:
+            raise ValueError("Lout cannot exceed the total degree (Gaunt selection rule)")
+        if isinstance(dtype, str) and dtype == "auto":
+            raise NotImplementedError("dtype='auto' is not ported yet")
+        key = PlanKey(L1, L2, Lout, kind, batch_hint, _dtype_str(dtype),
+                      tuple(sorted(options.items())), resolve_device(device).type)
+        cache_key = (key, backend, tune, requires_grad)
+        hit = self._plans.get(cache_key)
+        if hit is not None:
+            return hit
+        name = backend or self.select(key, tune=tune, requires_grad=requires_grad)
+        spec = _REGISTRY.get(name)
+        if spec is None:
+            raise ValueError(f"unknown backend {name!r}; registered: {sorted(_REGISTRY)}")
+        if not spec.eligible(key, requires_grad):
+            raise ValueError(f"backend {name!r} cannot serve {key} "
+                             f"(requires_grad={requires_grad})")
+        p = self._plans[cache_key] = GauntPlan(key, name, _build_plan_apply(spec, key))
+        return p
+
+    def select(self, key: PlanKey, tune: str = "heuristic",
+               requires_grad: bool = True) -> str:
+        """Pick the backend for ``key`` by cost model or measurement."""
+        eligible = [b for b in _REGISTRY.values() if b.eligible(key, requires_grad)]
+        if not eligible:
+            raise ValueError(f"no eligible backend for {key}")
+        if tune == "measure":
+            hit = self._measured.get(key)
+            # a pick measured under requires_grad=False may be gradless
+            if hit is not None and any(b.name == hit for b in eligible):
+                return hit
+            name = self._measure(key, eligible)
+            if name is not None:
+                self._measured[key] = name
+                return name
+        return min(eligible, key=lambda b: b.cost(key)).name
+
+    def _measure(self, key: PlanKey, eligible: list) -> str | None:
+        """Time the eligible backends on synthetic inputs on the key's device
+        (`_time_calls`: CUDA events on the card, median of 20) -> the
+        fastest, or None when nothing was timed (the caller falls back to
+        the cost model and caches nothing).
+
+        A kernel backend is timed only on CUDA, and an error from it
+        propagates: a kernel that fails to build or launch must not hide
+        behind a plain backend.  Any other backend that raises loses the
+        measurement, as in the reference; its error is kept in
+        ``measure_errors``."""
+        dev = torch.device(key.device)
+        args = _synthetic_inputs(key, dev)
+        self.timing_runs += 1
+        times, spread, errors = {}, {}, {}
+        with torch.no_grad():
+            for spec in eligible:
+                if spec.kernel and dev.type != "cuda":
+                    continue
+                if spec.kernel:
+                    apply = _build_plan_apply(spec, key)
+                    ts = _time_calls(lambda: apply(*args), dev)
+                else:
+                    try:
+                        apply = _build_plan_apply(spec, key)
+                        ts = _time_calls(lambda: apply(*args), dev)
+                    except Exception as e:  # noqa: BLE001 — a broken plain backend loses
+                        errors[spec.name] = f"{type(e).__name__}: {e}"
+                        continue
+                times[spec.name] = float(np.median(ts))
+                spread[spec.name] = (min(ts), max(ts))
+        if errors:
+            self.measure_errors[key] = errors
+        if not times:
+            return None
+        self.measured_times[key] = times
+        self.measured_spread[key] = spread
+        return min(times, key=times.get)
+
+    def plans(self) -> list:
+        return list(self._plans.values())
+
+    def clear(self) -> None:
+        """Drop every plan and measurement and restore the default cost
+        calibration: a cleared engine behaves like a fresh one."""
+        self._plans.clear()
+        self._chains.clear()
+        self._measured.clear()
+        self.measured_times.clear()
+        self.measured_spread.clear()
+        self.measure_errors.clear()
+        reset_calibration()
+        self.timing_runs = 0
+
+    # -- chain plans -------------------------------------------------------
 
     def plan_chain(self, Ls, Lout: int | None = None, *, dtype="float32",
                    backend: str | None = None, tune: str = "heuristic",
@@ -484,12 +1030,40 @@ def _time_calls(fn, device, reps: int = _MEASURE_REPS) -> list[float]:
     return ts
 
 
+def _synthetic_inputs(key: PlanKey, device) -> tuple:
+    """Seeded operands for timing ``key`` at ``batch_hint`` rows (256 when
+    unset), as the reference makes them."""
+    B = key.batch_hint or 256
+    rd = _RDTYPE[key.dtype]
+    rng = np.random.default_rng(0)
+
+    def r(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=rd, device=device)
+
+    if key.kind == "pairwise":
+        return r(B, num_coeffs(key.L1)), r(B, num_coeffs(key.L2))
+    if key.kind == "conv_filter":
+        v = rng.normal(size=(B, 3))
+        v /= np.linalg.norm(v, axis=-1, keepdims=True)
+        return r(B, num_coeffs(key.L1)), torch.as_tensor(v, dtype=torch.float32,
+                                                         device=device)
+    # channel_mix: small representative channel counts
+    C1 = C2 = E = 4
+    return (r(B, C1, num_coeffs(key.L1)), r(B, C2, num_coeffs(key.L2)),
+            r(C1, C2, E))
+
+
 _ENGINE = GauntEngine()
 
 
 def get_engine() -> GauntEngine:
     """The process-wide engine (plans and measurements are cached on it)."""
     return _ENGINE
+
+
+def plan(*args, **kw) -> GauntPlan:
+    """Module-level shorthand for ``get_engine().plan(...)``."""
+    return _ENGINE.plan(*args, **kw)
 
 
 def plan_chain(*args, **kw) -> ChainPlan:

@@ -13,8 +13,10 @@ torus Fourier series come from sphere-domain projection
 which separates into a closed-form azimuthal delta and an exact theta
 integral (finite trig expansion, int_0^pi e^{int} dt in closed form).
 
-The `half` forms keep only the v >= 0 columns, which determine the whole
-grid of a real spherical function through F[-u,-v] = conj(F[u,v]).
+The `packed` forms expose the v = +-m block sparsity as stacked per-|m|
+matmuls (the paper's O(L^3) conversion).  The `half` forms keep only the
+v >= 0 columns, which determine the whole grid of a real spherical function
+through F[-u,-v] = conj(F[u,v]); `pack_hermitian` is that cut on a grid.
 
 These builders are pure float64/complex128 numpy and match the reference
 ``repro.core.fourier`` bit for bit; caching lives in `core.constants`.
@@ -32,8 +34,11 @@ from .so3 import _legendre_sinm_poly, _sh_norms, real_sph_harm
 __all__ = [
     "sh_to_fourier_dense",
     "fourier_to_sh_dense",
+    "sh_to_fourier_packed",
+    "fourier_to_sh_packed",
     "sh_to_fourier_half",
     "fourier_to_sh_half",
+    "pack_hermitian",
 ]
 
 
@@ -128,6 +133,64 @@ def fourier_to_sh_dense(Lf: int, Lout: int) -> np.ndarray:
     return z
 
 
+# --------------------------------------------------------------------------
+# packed (block-sparse, O(L^3)) forms
+# --------------------------------------------------------------------------
+
+
+def sh_to_fourier_packed(L: int, y: np.ndarray | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """Exploit v = +-m sparsity as per-|m| stacked matmuls.
+
+    Returns (yp, yn), each [L+1 (mm), 2 (plane), L+1 (l), 2L+1 (u)] complex:
+    yp[mm, 0, l] is the v = +mm column of y for input idx(l, +mm), and
+    yp[mm, 1, l] the same column for input idx(l, -mm) (zero for l < mm and
+    for plane 1 at mm = 0); yn likewise for the v = -mm column.  With the
+    input packed as xb[plane, mm, l] (`constants.pack_index`), the grid's
+    v = +-mm columns are  sum_{plane, l} xb * y{p,n}.
+    """
+    y = sh_to_fourier_dense(L) if y is None else y
+    n = 2 * L + 1
+    yp = np.zeros((L + 1, 2, L + 1, n), dtype=np.complex128)  # [mm, plane, l, u]
+    for mm in range(L + 1):
+        for l in range(mm, L + 1):
+            yp[mm, 0, l] = y[idx(l, mm), :, L + mm]
+            if mm > 0:
+                yp[mm, 1, l] = y[idx(l, -mm), :, L + mm]
+    yn = np.zeros((L + 1, 2, L + 1, n), dtype=np.complex128)
+    for mm in range(L + 1):
+        for l in range(mm, L + 1):
+            yn[mm, 0, l] = y[idx(l, mm), :, L - mm]
+            if mm > 0:
+                yn[mm, 1, l] = y[idx(l, -mm), :, L - mm]
+    return yp, yn
+
+
+def fourier_to_sh_packed(Lf: int, Lout: int, z: np.ndarray | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """Packed z: per-|m| matrices over u for the v=+m and v=-m columns.
+
+    zp[mm, plane, l, u]: x[idx(l, +-mm)] += Re( F[:, Lf+mm] . zp[mm, plane, l] )
+    zn likewise for the v = -mm column.
+    """
+    z = fourier_to_sh_dense(Lf, Lout) if z is None else z
+    n = 2 * Lf + 1
+    zp = np.zeros((Lout + 1, 2, Lout + 1, n), dtype=np.complex128)
+    zn = np.zeros((Lout + 1, 2, Lout + 1, n), dtype=np.complex128)
+    for mm in range(min(Lf, Lout) + 1):
+        for l in range(mm, Lout + 1):
+            zp[mm, 0, l] = z[:, Lf + mm, idx(l, mm)]
+            if mm > 0:
+                # mm = 0 would duplicate the v=0 column already in zp
+                zn[mm, 0, l] = z[:, Lf - mm, idx(l, mm)]
+                zp[mm, 1, l] = z[:, Lf + mm, idx(l, -mm)]
+                zn[mm, 1, l] = z[:, Lf - mm, idx(l, -mm)]
+    return zp, zn
+
+
+# --------------------------------------------------------------------------
+# half (Hermitian, real-input) forms
+# --------------------------------------------------------------------------
+
+
 def sh_to_fourier_half(L: int, y: np.ndarray | None = None) -> np.ndarray:
     """yh[(L+1)^2, 2L+1 (u), L+1 (v >= 0)]: the v >= 0 columns of `y`."""
     y = sh_to_fourier_dense(L) if y is None else y
@@ -146,3 +209,13 @@ def fourier_to_sh_half(Lf: int, Lout: int, z: np.ndarray | None = None) -> np.nd
     zh = z[:, Lf:, :].copy()
     zh[:, 1:, :] += np.conj(z[::-1, Lf - 1 :: -1, :])
     return zh
+
+
+def pack_hermitian(F, L: int):
+    """Full centered grid [..., 2L+1, 2L+1] -> half form [..., 2L+1, L+1].
+
+    Keeps the v >= 0 columns; lossless only for grids of *real* spherical
+    functions (every grid `sh_to_fourier` makes of real SH coefficients,
+    and every convolution of such grids).
+    """
+    return F[..., L:]

@@ -17,13 +17,15 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["SOURCES", "BuildResult", "build", "build_all", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {"gaunt_chain": _CSRC / "gaunt_chain.cu"}
+SOURCES = {"gaunt_chain": _CSRC / "gaunt_chain.cu",
+           "gaunt_pair": _CSRC / "gaunt_pair.cu"}
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -73,8 +75,10 @@ def build(name: str) -> BuildResult:
 
 
 def build_all() -> list[BuildResult]:
-    """Build every source (one today; start them together once there are more)."""
-    return [build(name) for name in SOURCES]
+    """Build every source, one nvcc per source, all started together."""
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        futures = [pool.submit(build, name) for name in SOURCES]
+        return [f.result() for f in futures]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,5 +1,24 @@
-"""The n-way Gaunt chain collocation product: plain version, Hopper kernel
-wrapper, and the autograd Function around the kernel.
+"""The Gaunt collocation products — the n-way chain and the pairwise
+product — each with its plain version and its Hopper kernel wrapper.
+
+Pairwise (the reference's ``gaunt_fused_pallas``):
+
+    out = ((x1 @ T1) * (x2 @ T2)) @ P
+
+on the distinct sphere points of the product grid
+(`core.constants.pair_matrices`):
+
+* `pair_plain` — the kernel's plain PyTorch version (matmuls);
+  `gaunt_fused_torch` runs it behind the ``fused_torch`` pairwise backend.
+* `launch_pair_kernel` — the wrapper of ``csrc/gaunt_pair.cu`` (sm_90a,
+  f32): checks its inputs, launches on the current stream, raises on a
+  launch error, and counts launches (`kernel_stats()['gaunt_pair']`).
+* `gaunt_fused_hopper` — the ``fused_hopper`` pairwise backend: the kernel
+  on CUDA tensors, the plain version on CPU tensors (only there).  Like the
+  reference's Pallas kernel it has no gradient: off the CPU, an input that
+  requires grad (with grad mode on) raises.
+
+Chain:
 
     out = ((x_1 @ T_1) * (x_2 @ T_2) * ... * (x_n @ T_n)  [* gs + gb]) @ P
 
@@ -34,6 +53,11 @@ import torch
 from ..core import constants as _const
 
 __all__ = [
+    "gaunt_fused_matrices",
+    "pair_plain",
+    "launch_pair_kernel",
+    "gaunt_fused_torch",
+    "gaunt_fused_hopper",
     "chain_plain",
     "launch_chain_kernel",
     "gaunt_chain_fused_torch",
@@ -42,13 +66,13 @@ __all__ = [
     "reset_kernel_stats",
 ]
 
-# launches of the CUDA chain kernel since the last reset (ticked in
-# `launch_chain_kernel` only, once per kernel launch)
-_STATS = {"gaunt_chain": 0}
+# launches of each CUDA kernel since the last reset (ticked in
+# `launch_chain_kernel` / `launch_pair_kernel` only, once per kernel launch)
+_STATS = {"gaunt_chain": 0, "gaunt_pair": 0}
 
 
 def kernel_stats() -> dict:
-    """{'gaunt_chain': launches} since the last reset."""
+    """{'gaunt_chain': launches, 'gaunt_pair': launches} since the last reset."""
     return dict(_STATS)
 
 
@@ -58,7 +82,120 @@ def reset_kernel_stats() -> None:
 
 
 # --------------------------------------------------------------------------
-# the plain version and the kernel wrapper (row layout [B, d])
+# pairwise: matrices, plain version, kernel wrapper, entry points
+# --------------------------------------------------------------------------
+
+
+def gaunt_fused_matrices(L1: int, L2: int, Lout: int, pad_lanes: bool = True,
+                         dtype: str = "float32"):
+    """Numpy (T1 [d1,G], T2 [d2,G], P [G,dout]) on the full torus grid, as
+    the reference builds them (`core.constants.fused_matrices`).  The
+    port's routes use the folded `core.constants.pair_matrices`."""
+    return _const.fused_matrices(L1, L2, Lout, pad_lanes, dtype=dtype)
+
+
+def pair_plain(x1, x2, T1, T2, P) -> torch.Tensor:
+    """The pairwise collocation product in torch ops: rows [B, d1], [B, d2]
+    -> [B, dout]."""
+    return ((x1 @ T1) * (x2 @ T2)) @ P
+
+
+def _declare_pair(lib) -> None:
+    fn = lib.gaunt_pair_forward
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.gaunt_pair_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.gaunt_pair_smem_bytes.restype = ctypes.c_size_t
+
+
+def launch_pair_kernel(x1, x2, T1, T2, P) -> torch.Tensor:
+    """Run the CUDA pairwise kernel: rows x1 [B, d1], x2 [B, d2] with
+    T1 [d1, G], T2 [d2, G], P [G, dout] (f32, contiguous, on one CUDA
+    device) -> [B, dout] f32.  Raises on anything the kernel does not take
+    and on a launch error; never falls back."""
+    dev = x1.device
+    for t in (x1, x2, T1, T2, P):
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"the pair kernel needs every tensor on one CUDA "
+                             f"device, got {t.device} beside {dev}")
+        if t.dtype != torch.float32:
+            raise NotImplementedError(f"the pair kernel takes float32 storage, "
+                                      f"got {t.dtype}")
+        if not t.is_contiguous() or t.dim() != 2:
+            raise ValueError("the pair kernel takes contiguous 2-D tensors")
+    B, d1 = x1.shape
+    d2 = x2.shape[1]
+    G, dout = P.shape
+    if x2.shape[0] != B or T1.shape != (d1, G) or T2.shape != (d2, G):
+        raise ValueError(f"operands {tuple(x1.shape)}, {tuple(x2.shape)} and matrices "
+                         f"{tuple(T1.shape)}, {tuple(T2.shape)}, {tuple(P.shape)} "
+                         "do not fit")
+    lib = _load("gaunt_pair", _declare_pair)
+    if lib.gaunt_pair_smem_bytes(d1, d2, dout) == 0:
+        raise ValueError(f"the pair kernel does not take d1={d1}, d2={d2}, "
+                         f"dout={dout} (d up to 81 and dout up to 304 fit)")
+    out = torch.empty((B, dout), device=dev, dtype=torch.float32)
+    if B == 0:
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.gaunt_pair_forward(x1.data_ptr(), x2.data_ptr(), T1.data_ptr(),
+                                    T2.data_ptr(), P.data_ptr(), out.data_ptr(),
+                                    B, d1, d2, G, dout, stream)
+    if rc != 0:
+        raise RuntimeError(f"gaunt_pair kernel launch failed: CUDA error {rc} "
+                           f"(d1={d1}, d2={d2}, G={G}, dout={dout}, B={B})")
+    _STATS["gaunt_pair"] += 1
+    return out
+
+
+def _pair_setup(x1, x2, L1: int, L2: int, Lout):
+    """Rows [B, d] in f32 (the kernel's storage; leading dims broadcast) and
+    the folded matrices on the operands' device."""
+    Lout = L1 + L2 if Lout is None else int(Lout)
+    if x1.device != x2.device:
+        raise ValueError(f"operands on {x1.device} and {x2.device}")
+    dev = x1.device
+    T1, T2, P = (_const.to_torch(a, dev) for a in _const.pair_matrices(L1, L2, Lout))
+    lead = torch.broadcast_shapes(x1.shape[:-1], x2.shape[:-1])
+    B = int(np.prod(lead)) if lead else 1
+    rows = [a.to(torch.float32).expand(*lead, a.shape[-1]).reshape(B, a.shape[-1])
+            for a in (x1, x2)]
+    return rows, (T1, T2, P), lead
+
+
+def gaunt_fused_torch(x1, x2, L1: int, L2: int, Lout: int | None = None) -> torch.Tensor:
+    """The pairwise collocation product as plain torch ops (the twin of the
+    reference's ``fused_xla`` route): x1 [..., (L1+1)^2], x2 [...,
+    (L2+1)^2] -> [..., (Lout+1)^2] f32, differentiable."""
+    (a1, a2), (T1, T2, P), lead = _pair_setup(x1, x2, L1, L2, Lout)
+    out = pair_plain(a1, a2, T1, T2, P)
+    return out.reshape(*lead, P.shape[1])
+
+
+def gaunt_fused_hopper(x1, x2, L1: int, L2: int, Lout: int | None = None) -> torch.Tensor:
+    """The pairwise collocation product on the Hopper kernel (same arguments
+    as `gaunt_fused_torch`; Lout defaults to L1 + L2).
+
+    CUDA operands launch the kernel; CPU operands run the plain version.
+    The kernel route has no gradient, like the reference's Pallas kernel:
+    with grad mode on, a CUDA input that requires grad raises rather than
+    return a result cut off from the graph."""
+    kernel = x1.device.type != "cpu" or x2.device.type != "cpu"
+    if kernel and torch.is_grad_enabled() and (x1.requires_grad or x2.requires_grad):
+        raise RuntimeError("the gaunt_pair kernel has no gradient: call it under "
+                           "torch.no_grad() or on inputs that do not require "
+                           "grad, or plan a differentiable backend")
+    (a1, a2), (T1, T2, P), lead = _pair_setup(x1, x2, L1, L2, Lout)
+    if kernel:
+        out = launch_pair_kernel(a1.contiguous(), a2.contiguous(), T1, T2, P)
+    else:
+        out = pair_plain(a1, a2, T1, T2, P)
+    return out.reshape(*lead, P.shape[1])
+
+
+# --------------------------------------------------------------------------
+# chain: the plain version and the kernel wrapper (row layout [B, d])
 # --------------------------------------------------------------------------
 
 
@@ -72,22 +209,27 @@ def chain_plain(flat, Ts, P, gs=None, gb=None) -> torch.Tensor:
     return v @ P
 
 
-_LIB = None
+_LIBS: dict = {}
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
+def _load(name: str, declare):
+    """The kernel library ``name``, built at first use; ``declare(lib)``
+    sets its C signatures once."""
+    lib = _LIBS.get(name)
+    if lib is None:
         from . import build
 
-        lib = build.load("gaunt_chain")
-        fn = lib.gaunt_chain_forward
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+        lib = build.load(name)
+        declare(lib)
+        _LIBS[name] = lib
+    return lib
+
+
+def _declare_chain(lib) -> None:
+    fn = lib.gaunt_chain_forward
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
 
 
 def launch_chain_kernel(flat, Ts, P, gs=None, gb=None) -> torch.Tensor:
@@ -125,7 +267,7 @@ def launch_chain_kernel(flat, Ts, P, gs=None, gb=None) -> torch.Tensor:
     dims = [a.shape[1] for a in flat] + [0] * (4 - n)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().gaunt_chain_forward(
+        rc = _load("gaunt_chain", _declare_chain).gaunt_chain_forward(
             *ptrs, *tptrs, *dims, n, P.data_ptr(),
             gs.data_ptr() if gs is not None else None,
             gb.data_ptr() if gb is not None else None,

@@ -1,12 +1,16 @@
-"""The Hopper chain kernel on the card against its plain version.  Marked
+"""The Hopper chain and pair kernels on the card against their plain
+versions.  Marked
 ``cuda``: these skip without an sm_90 GPU (run them on the card with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``)."""
 import pytest
 import torch
 
+from repro_torch.core import constants
 from repro_torch.kernels.gaunt_fused import (gaunt_chain_fused_hopper,
-                                             gaunt_chain_fused_torch,
-                                             kernel_stats, reset_kernel_stats)
+                                             gaunt_chain_fused_torch, gaunt_fused_hopper,
+                                             kernel_stats, launch_pair_kernel, pair_plain,
+                                             reset_kernel_stats)
+from repro_torch.kernels.ops import gaunt_tp_fused
 
 pytestmark = pytest.mark.cuda
 
@@ -35,3 +39,32 @@ def test_kernel_matches_plain_on_card(cuda_device, Ls, Lout, gated):
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     assert err <= 3e-4 * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.parametrize("B", [1, 7, 300, 4099])
+@pytest.mark.parametrize("L1,L2,Lout", [(1, 1, 2), (3, 2, 3), (6, 6, 6), (8, 8, 16)])
+def test_pair_kernel_matches_plain_on_card(cuda_device, L1, L2, Lout, B):
+    g = torch.Generator(device="cuda").manual_seed(B)
+    x1 = torch.randn(B, (L1 + 1) ** 2, device=cuda_device, generator=g)
+    x2 = torch.randn(B, (L2 + 1) ** 2, device=cuda_device, generator=g)
+    T1, T2, P = (constants.to_torch(a, cuda_device)
+                 for a in constants.pair_matrices(L1, L2, Lout))
+    reset_kernel_stats()
+    got = launch_pair_kernel(x1, x2, T1, T2, P)
+    assert kernel_stats()["gaunt_pair"] == 1
+    want = pair_plain(x1, x2, T1, T2, P)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    # both are f32 sums of the same products in another order
+    assert err <= 1e-5 * max(1.0, want.abs().max().item()), err
+
+
+def test_pair_kernel_route_has_no_gradient_on_card(cuda_device):
+    x = torch.randn(5, 9, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        gaunt_fused_hopper(x, x, 2, 2)
+    reset_kernel_stats()
+    with torch.no_grad():
+        out = gaunt_tp_fused(x, x, 2, 2)
+    assert out.shape == (5, 25) and not out.requires_grad
+    assert kernel_stats()["gaunt_pair"] == 1

@@ -12,7 +12,10 @@ import torch
 import repro_torch
 from repro_torch.configs.gaunt_ff import gaunt_mace_ff
 from repro_torch.device import resolve_device
-from repro_torch.kernels.gaunt_fused import gaunt_chain_fused_hopper
+from repro_torch.core.engine import plan
+from repro_torch.core.gaunt import GauntTensorProduct
+from repro_torch.kernels.gaunt_fused import gaunt_chain_fused_hopper, gaunt_fused_hopper
+from repro_torch.kernels.ops import gaunt_tp_fused
 from repro_torch.models.equivariant import MaceGaunt
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
@@ -21,6 +24,8 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 
 def test_port_imports_no_jax_and_no_reference():
     mods = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
     assert "repro_torch.kernels.gaunt_fused" in mods and "repro_torch.serve.engine" in mods
+    assert {"repro_torch.core.cg", "repro_torch.core.engine", "repro_torch.core.so3",
+            "repro_torch.kernels.ops", "repro_torch.kernels.build"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -49,9 +54,38 @@ def test_default_device_is_cuda():
     assert MaceGaunt(small, device="cpu").device.type == "cpu"
 
 
+def test_pairwise_entry_points_default_to_cuda():
+    x = torch.randn(3, 9)
+    if torch.cuda.is_available():
+        assert plan(2, 2, 4).key.device == "cuda"
+        assert GauntTensorProduct(2, 2, 4).plan.key.device == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            plan(2, 2, 4)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            GauntTensorProduct(2, 2, 4)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            gaunt_tp_fused(x, x, 2, 2)
+    assert plan(2, 2, 4, device="cpu").key.device == "cpu"
+    assert gaunt_tp_fused(x, x, 2, 2, device="cpu").shape == (3, 25)
+
+
 def test_kernel_wrapper_runs_plain_version_only_for_cpu_tensors():
     x = torch.randn(3, 9)
     out = gaunt_chain_fused_hopper([x, x, x], (2, 2, 2), 2)
     assert out.shape == (3, 9) and out.device.type == "cpu"
     with pytest.raises(ValueError):
         gaunt_chain_fused_hopper([x.to("meta")] * 3, (2, 2, 2), 2)
+
+
+def test_pair_kernel_wrapper_runs_plain_version_only_for_cpu_tensors():
+    x = torch.randn(3, 9)
+    out = gaunt_fused_hopper(x, x, 2, 2)
+    assert out.shape == (3, 25) and out.device.type == "cpu"
+    with pytest.raises(ValueError, match="CUDA device"):
+        gaunt_fused_hopper(x.to("meta"), x.to("meta"), 2, 2)
+    # off the CPU the route is the kernel, which has no gradient
+    with pytest.raises(RuntimeError, match="no gradient"):
+        gaunt_fused_hopper(x.to("meta").requires_grad_(True), x.to("meta"), 2, 2)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA device"):
+        gaunt_fused_hopper(x.to("meta").requires_grad_(True), x.to("meta"), 2, 2)
