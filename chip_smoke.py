@@ -32,7 +32,20 @@ result line):
      `ops.gaunt_tp_fused`, each against its dense oracle;
   7. conv_filter sweep — the measured `conv_filter` pick for L in 1..6 at
      1024 edges, and a plan pinned to the pair kernel against
-     `escn_aligned`.
+     `escn_aligned`;
+  8. WKV6 kernel vs plain — `wkv6_hopper` against `wkv6_chunked`, output
+     and final state, at the reference's kernel-test shapes, T < 64, K = V =
+     64, decay 0.999 and 1e-6, and the full-width shape [4, 2048, 40, 64];
+  9. the RWKV6 slice — `rwkv6-3b` at its published widths and full depth
+     (32 layers, 3.1e9 f32 parameters, bf16 compute) on random weights from
+     a seeded generator on the card: prefill 4 x 2048 tokens (the WKV kernel
+     launched once per layer), 16 greedy decode steps, finite logits and
+     state, decode after a 256-token prefill against forward's logits at
+     the next position (f32 compute at full depth, bf16 at 2 layers), and
+     the kernel against its plain version on the first layer's WKV inputs;
+  10. RWKV6 times — the WKV kernel and its plain version at full width
+     (bound: the sequential recurrence's operations, f32 bytes), prefill
+     and decode per token on the host clock, and a profiled prefill.
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs no network and imports no JAX.
 """
@@ -54,6 +67,7 @@ PEAK_BYTES = 3.35e12
 F32_IDENTITY_TOL = 3e-4   # the repo's f32 "identity" tier (same math, two routes)
 F32_TRANSFORM_TOL = 5e-4  # f32 "transform" tier (rotate -> evaluate -> compare)
 F32_LOOSE_TOL = 2e-3      # f32 "loose" tier (gradients)
+BF16_IDENTITY_TOL = 5e-2  # bf16 "identity" tier (the LM path computes in bf16)
 # the pair kernel against its plain version: both are f32 sums of the same
 # products, only in another order, so they agree to a few f32 roundings
 PAIR_VS_PLAIN_TOL = 1e-5
@@ -799,6 +813,325 @@ def phase_conv_filter(device, Ls=(1, 2, 3, 4, 5, 6), edges: int = 1024, pinned_L
         check(launches > 0, "the pinned conv_filter plan did not launch the pair kernel")
 
 
+# --------------------------------------------------------------------------
+# phases 8-10: the WKV6 kernel and the RWKV6 slice at full width
+# --------------------------------------------------------------------------
+
+# (name, B, T, H, K, V, chunk, decay): the reference's kernel tests
+# (tests/test_kernels.py, K = 8 and 16), a prompt shorter than the chunk
+# (C = T), the model's head size, decay near 1 and near-total forgetting
+WKV_CASES = ([(f"K={K} T={T} chunk={c}", 2, T, 3, K, K, c, "uniform")
+              for K in (8, 16) for T, c in ((32, 8), (64, 16), (48, 16))]
+             + [("T<64 (C=T=40)", 2, 40, 3, 64, 64, 64, "uniform"),
+                ("K=V=64", 2, 256, 4, 64, 64, 64, "uniform"),
+                ("w=0.999", 2, 256, 4, 64, 64, 64, "near_one"),
+                ("w=1e-6 K=8", 1, 64, 1, 8, 8, 64, "extreme"),
+                ("w=1e-6 K=64", 2, 128, 4, 64, 64, 64, "extreme")])
+WKV_FULL = (4, 2048, 40, 64)  # rwkv6-3b prefill: 4 prompts x 2048 tokens, 40 heads of 64
+
+
+def _wkv_inputs(B, T, H, K, V, decay, device, seed):
+    """r, k, v, w, u as the reference's kernel tests draw them (seeded
+    numpy, f32): r, k ~ N(0, 0.25), v ~ N(0, 1), u ~ N(0, 0.09), w by
+    ``decay``; the extreme case takes unit r, k and u = 0 as
+    test_wkv6_extreme_decay_stable does."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    scale = 1.0 if decay == "extreme" else 0.5
+    r = rng.normal(size=(B, T, H, K)) * scale
+    k = rng.normal(size=(B, T, H, K)) * scale
+    v = rng.normal(size=(B, T, H, V))
+    if decay == "uniform":
+        w = rng.uniform(0.2, 0.999, size=(B, T, H, K))
+    else:
+        w = np.full((B, T, H, K), 0.999 if decay == "near_one" else 1e-6)
+    u = np.zeros((H, K)) if decay == "extreme" else rng.normal(size=(H, K)) * 0.3
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
+                 for a in (r, k, v, w, u))
+
+
+def compare_wkv6(r, k, v, w, u, chunk: int = 64):
+    """The kernel route against the plain version on the same inputs ->
+    (output abs err, output rel err, state rel err, both finite)."""
+    import torch
+    from repro_torch.kernels.wkv6 import wkv6_chunked, wkv6_hopper
+
+    with torch.no_grad():
+        o_k, S_k = wkv6_hopper(r, k, v, w, u, chunk=chunk, return_state=True)
+        o_p, S_p = wkv6_chunked(r, k, v, w, u, chunk=chunk, return_state=True)
+    if r.device.type == "cuda":
+        torch.cuda.synchronize()
+    err, rel = rel_err(o_k, o_p)
+    finite = bool(torch.isfinite(o_k).all()) and bool(torch.isfinite(S_k).all())
+    return err, rel, rel_err(S_k, S_p)[1], finite
+
+
+def phase_wkv6_vs_plain(device, full=WKV_FULL) -> float:
+    """The WKV6 kernel (`wkv6_hopper` on the card) against `wkv6_chunked`,
+    output and final state, at the reference's test shapes, the edge cases
+    and the full-width shape; -> max abs error at the full-width shape."""
+    import torch
+
+    cases = WKV_CASES + [(f"full width {full}", *full, full[3], 64, "uniform")]
+    full_err = 0.0
+    for i, (name, B, T, H, K, V, chunk, decay) in enumerate(cases):
+        r, k, v, w, u = _wkv_inputs(B, T, H, K, V, decay, device, seed=10 + i)
+        err, rel, srel, finite = compare_wkv6(r, k, v, w, u, chunk)
+        ok = finite and rel <= F32_IDENTITY_TOL and srel <= F32_IDENTITY_TOL
+        print(f"[wkv6] {name} [B={B},T={T},H={H},K={K},V={V}] chunk {min(chunk, T)}: "
+              f"o max_abs_err {err:.3e} rel {rel:.3e}, state rel {srel:.3e} (tol "
+              f"{F32_IDENTITY_TOL}: f32, the same chunked sums in another order), "
+              f"finite {finite} {'ok' if ok else 'FAIL'}")
+        check(ok, f"the wkv6 kernel disagrees with its plain version ({name})")
+        if name.startswith("full width"):
+            full_err = err
+        del r, k, v, w, u
+    return full_err
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def host_ms(fn, device, reps: int) -> tuple[float, list[float]]:
+    """Median host-clock time of ``fn`` (each call ends in a synchronize)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2], times
+
+
+def phase_rwkv6(device, cfg, batch: int, seq: int, n_decode: int, check_seq: int,
+                generator):
+    """rwkv6-3b on random weights from ``generator``: prefill ``batch`` x
+    ``seq`` tokens (the WKV kernel launched once per layer, counted over
+    this run alone), then ``n_decode`` greedy decode steps; finite logits
+    and state; decode after a ``check_seq``-token prefill against forward's
+    logits at the next position (f32 at full depth, bf16 at 2 layers); the
+    kernel against its plain
+    version on the first layer's WKV inputs.  -> (launches, model, params,
+    prompt tokens, layer-0 WKV inputs, their max abs error)."""
+    import torch
+    from repro_torch.kernels.wkv6 import kernel_stats, reset_kernel_stats
+    from repro_torch.models import ssm, transformer
+    from repro_torch.models.api import build_model, count_params
+    from repro_torch.models.layers import norm_apply
+
+    model = build_model(cfg, device=device)
+    t0 = time.perf_counter()
+    params = model.init(generator)
+    _sync(device)
+    n_params = count_params(cfg)
+    print(f"[rwkv6] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.d_model // cfg.rwkv_head_k} heads of {cfg.rwkv_head_k}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, {cfg.dtype} compute, {n_params:,} {cfg.param_dtype} "
+          f"parameters ({n_params * 4 / 1e9:.2f} GB), random init in "
+          f"{time.perf_counter() - t0:.2f} s")
+    gen_dev = generator.device
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=generator,
+                           device=gen_dev).to(device)
+    # the slice's main path: one prefill, then greedy decode
+    reset_kernel_stats()
+    t0 = time.perf_counter()
+    last, cache = model.prefill(params, {"tokens": tokens}, seq + n_decode)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+    tok = last[:, -1].argmax(-1, keepdim=True)
+    decoded = [tok]
+    for i in range(n_decode):
+        logits, cache = model.decode_step(params, cache, tok,
+                                          torch.full((batch,), seq + i, device=device))
+        check(logits.shape == (batch, 1, cfg.vocab), "decode logits shape")
+        check(bool(torch.isfinite(logits).all()), f"decode step {i}: non-finite logits")
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        decoded.append(tok)
+    _sync(device)
+    launches = kernel_stats()["wkv6"]
+    H, K = cfg.d_model // cfg.rwkv_head_k, cfg.rwkv_head_k
+    print(f"[rwkv6] prefill {batch} x {seq} tokens (first call, {t_prefill:.3f} s) + "
+          f"{n_decode} greedy decode steps: wkv6 kernel launches {launches} "
+          f"(expected {cfg.n_layers}, one per layer of the prefill, the WKV input "
+          f"[{batch}, {seq}, {H}, {K}]); tokens of prompt 0: "
+          f"{[int(t[0]) for t in decoded]}")
+    check(last.shape == (batch, 1, cfg.vocab), "prefill logits shape")
+    check(bool(torch.isfinite(last).all()), "prefill logits are not finite")
+    shapes = {"last_x": (cfg.n_layers, batch, cfg.d_model),
+              "wkv": (cfg.n_layers, batch, H, K, K),
+              "cm_last_x": (cfg.n_layers, batch, cfg.d_model)}
+    for name, a in cache.items():
+        check(tuple(a.shape) == shapes[name], f"cache {name} shape {tuple(a.shape)}")
+        check(bool(torch.isfinite(a.float()).all()), f"cache {name} is not finite")
+    if device.type == "cuda":
+        check(launches == cfg.n_layers, f"the wkv6 kernel launched {launches} times "
+                                        f"in one prefill, not {cfg.n_layers}")
+    # prefill -> decode against forward.  The random-weight model amplifies
+    # bf16 rounding with depth (the scan below prints how far its bf16 and
+    # f32 forward logits drift apart), so the paths are held to the f32 tier
+    # at full depth and to the bf16 tier at the reference test's depth of 2;
+    # bf16 at full depth is printed.
+    toks2 = torch.randint(0, cfg.vocab, (batch, check_seq + 64), generator=generator,
+                          device=gen_dev).to(device)
+    for dtype, n_layers, tol in (("float32", cfg.n_layers, F32_IDENTITY_TOL),
+                                 (cfg.dtype, 2, BF16_IDENTITY_TOL),
+                                 (cfg.dtype, cfg.n_layers, None)):
+        rel_p, err_d, rel_d = prefill_decode_vs_forward(
+            dataclasses.replace(cfg, dtype=dtype, n_layers=n_layers),
+            dict(params, layers=params["layers"][:n_layers]), toks2, check_seq, device)
+        print(f"[rwkv6] consistency, {dtype} compute, {n_layers} layers, {check_seq} tokens "
+              f"(forward over {check_seq + 64}): prefill last logits vs forward rel "
+              f"{rel_p:.3e}, decode_step after prefill vs forward at position {check_seq}: "
+              f"max_abs_err {err_d:.3e} rel {rel_d:.3e} "
+              + (f"(tol {tol}) {'ok' if max(rel_p, rel_d) <= tol else 'FAIL'}"
+                 if tol is not None else "(not held to a tier: see above)"))
+        if tol is not None:
+            check(max(rel_p, rel_d) <= tol, f"prefill/decode differ from forward "
+                                            f"({dtype}, {n_layers} layers)")
+    # what the bf16 tier is measured against: bf16 vs f32 forward logits of
+    # these weights, by depth
+    gaps = []
+    for n_layers in sorted({min(n, cfg.n_layers) for n in (1, 2, 4, 8, 16, cfg.n_layers)}):
+        sub = dict(params, layers=params["layers"][:n_layers])
+        logits = [build_model(dataclasses.replace(cfg, dtype=dt, n_layers=n_layers),
+                              device=device).forward(sub, {"tokens": toks2})[0]
+                  for dt in (cfg.dtype, "float32")]
+        gaps.append(f"{n_layers} layers {rel_err(*logits)[1]:.3e}")
+        del logits
+    print(f"[rwkv6] {cfg.dtype} vs float32 forward logits of these random weights "
+          f"({check_seq + 64} tokens), scale-relative, by depth: " + ", ".join(gaps))
+    # the first layer's WKV inputs of this run's prompts
+    p0 = params["layers"][0]
+    hn = norm_apply(p0["ln1"], transformer._embed_tokens(params, cfg, tokens), "layernorm")
+    r, k, v, w, _ = ssm.rwkv6_projections(p0["tm"], hn, cfg, ssm._shift(hn))
+    wkv_in = (r, k, v, w, p0["tm"]["u"])
+    err, rel, srel, finite = compare_wkv6(*wkv_in)
+    ok = finite and rel <= F32_IDENTITY_TOL and srel <= F32_IDENTITY_TOL
+    print(f"[rwkv6] layer 0 WKV inputs of this run {tuple(r.shape)} ({r.dtype} r, k, v; "
+          f"{w.dtype} w): kernel vs plain o max_abs_err {err:.3e} rel {rel:.3e}, state rel "
+          f"{srel:.3e} (tol {F32_IDENTITY_TOL}) {'ok' if ok else 'FAIL'}")
+    check(ok, "the wkv6 kernel disagrees with its plain version on layer 0's inputs")
+    return launches, model, params, tokens, wkv_in, err
+
+
+def prefill_decode_vs_forward(cfg, params, tokens, n: int, device):
+    """Forward over ``tokens`` [B, S]; prefill of the first ``n``, then one
+    decode_step of token n -> (prefill last logits vs forward at n - 1: rel
+    err, decode vs forward at n: abs err, rel err)."""
+    import torch
+    from repro_torch.models.api import build_model
+
+    model = build_model(cfg, device=device)
+    logits_all, _ = model.forward(params, {"tokens": tokens})
+    check(bool(torch.isfinite(logits_all).all()), "forward logits are not finite")
+    last, cache = model.prefill(params, {"tokens": tokens[:, :n]}, n + 1)
+    step, _ = model.decode_step(params, cache, tokens[:, n:n + 1],
+                                torch.full((tokens.shape[0],), n, device=device))
+    rel_p = rel_err(last[:, 0], logits_all[:, n - 1])[1]
+    return (rel_p, *rel_err(step[:, 0], logits_all[:, n]))
+
+
+def wkv6_work(B: int, T: int, H: int, K: int, V: int):
+    """(FLOPs, bytes) of the WKV6 function: the sequential recurrence in
+    rescaled form (S~ = S / prod w: one FMA per state entry to add k v^T,
+    one per entry for r^T S~), 4 K V per (token, head), is the exact
+    algorithm with the fewest operations; r, k, w, v and u read once and o
+    and the final S written once, in f32."""
+    flops = 4 * K * V * B * T * H
+    nbytes = 4 * (B * T * H * (3 * K + 2 * V) + H * K + B * H * K * V)
+    return flops, nbytes
+
+
+def phase_wkv6_times(device, r, k, v, w, u):
+    """Kernel and plain version on the layer-0 inputs at full width, in turns
+    (plain, kernel, kernel, plain), device times from torch.profiler, and
+    the bound."""
+    import torch
+    from repro_torch.kernels.wkv6 import launch_wkv6_kernel, wkv6_chunked
+
+    r, k, v, w, u = (a.float().contiguous() for a in (r, k, v, w, u))
+    B, T, H, K = r.shape
+    V = v.shape[3]
+    with torch.no_grad():
+        p1 = event_ms(lambda: wkv6_chunked(r, k, v, w, u, return_state=True), reps=10)
+        k1 = event_ms(lambda: launch_wkv6_kernel(r, k, v, w, u))
+        k2 = event_ms(lambda: launch_wkv6_kernel(r, k, v, w, u))
+        p2 = event_ms(lambda: wkv6_chunked(r, k, v, w, u, return_state=True), reps=10)
+        kd = device_ms(lambda: launch_wkv6_kernel(r, k, v, w, u))
+        pd = device_ms(lambda: wkv6_chunked(r, k, v, w, u, return_state=True), reps=5)
+    print(f"[times] wkv6 [{B},{T},{H},{K}] V={V} chunk 64: kernel {k1:.4f}/{k2:.4f} ms, "
+          f"plain {p1:.4f}/{p2:.4f} ms per call (CUDA events around one call from "
+          f"Python, median of 50 and 10)")
+    if kd is not None and pd is not None:
+        kernel_ms, plain_ms = kd, pd
+        print(f"[times] wkv6 device time per call (torch.profiler, 20 and 5 calls): "
+              f"kernel {kd:.5f} ms, plain {pd:.5f} ms")
+    else:
+        kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
+        print("[times] wkv6 device time per call: not measured (the profiler saw no "
+              "device time); the event times stand")
+    flops, nbytes = wkv6_work(B, T, H, K, V)
+    bound_ms, bound_by = bound_of(flops, nbytes)
+    print(f"[times] wkv6 work: {flops / 1e9:.3f} GFLOP (sequential recurrence, 4 K V per "
+          f"(token, head)), {nbytes / 1e6:.1f} MB (f32 in and out) -> bound {bound_ms:.5f} ms "
+          f"by {bound_by} (67 TFLOP/s f32, 3.35 TB/s); kernel at "
+          f"{bound_ms / kernel_ms * 100:.1f}% of bound")
+    print("[times] wkv6 library_ms: none — no single PyTorch call computes the WKV6 "
+          "recurrence")
+    return kernel_ms, plain_ms, bound_ms, bound_by
+
+
+def phase_rwkv6_times(device, model, params, tokens, n_decode: int, reps: int = 3):
+    """Prefill and decode per token on the host clock, then one profiled
+    prefill (device busy time, idle share, top kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batch, seq = tokens.shape
+    pre_ms, pre_all = host_ms(lambda: model.prefill(params, {"tokens": tokens}, seq), device,
+                              reps)
+    _, cache = model.prefill(params, {"tokens": tokens}, seq + n_decode)
+    tok = tokens[:, -1:]
+    step_times = []
+    for i in range(n_decode):
+        pos = torch.full((batch,), seq + i, device=device)
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, tok, pos)
+        _sync(device)
+        step_times.append((time.perf_counter() - t0) * 1e3)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    dec_ms = sorted(step_times)[len(step_times) // 2]
+    print(f"[times] rwkv6 prefill {batch} x {seq}: {pre_ms:.2f} ms host clock, median of "
+          f"{reps} ({', '.join(f'{t:.2f}' for t in pre_all)}), "
+          f"{batch * seq / pre_ms * 1e3:.0f} tokens/s; decode_step ({batch} sequences): "
+          f"{dec_ms:.2f} ms per token, median of {n_decode}")
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": tokens}, seq)
+        _sync(device)
+        wall = (time.perf_counter() - t0) * 1e3
+    events = sorted(_kernel_events(prof), key=_device_us, reverse=True)
+    busy = sum(_device_us(e) for e in events) / 1e3
+    if busy <= 0:
+        print("[profile] the profiler saw no device time; prefill breakdown not measured")
+        return pre_ms, dec_ms
+    wkv = sum(_device_us(e) for e in events if "wkv6" in e.key) / 1e3
+    print(f"[profile] rwkv6 prefill (profiled): wall {wall:.2f} ms, device busy "
+          f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / wall):.3f}, "
+          f"{sum(e.count for e in events)} GPU events; wkv6 kernel {wkv:.3f} ms "
+          f"({wkv / busy * 100:.1f}% of busy)")
+    for e in events[:10]:
+        print(f"[profile]   {_device_us(e) / 1e3:8.3f} ms {e.count:5d}x  {e.key[:90]}")
+    return pre_ms, dec_ms
+
+
 def main() -> int:
     try:
         import torch
@@ -814,6 +1147,7 @@ def main() -> int:
               "run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    from repro_torch.config import get_config
     from repro_torch.configs.gaunt_ff import gaunt_mace_ff
 
     device = torch.device("cuda")
@@ -839,6 +1173,14 @@ def main() -> int:
         del x1, x2
         phase_fig1a(device)
         phase_conv_filter(device)
+        wkv_err = phase_wkv6_vs_plain(device)
+        lm_cfg = get_config("rwkv6-3b")
+        (wkv_launches, lm, lm_params, lm_tokens, wkv_in, wkv_err0) = phase_rwkv6(
+            device, lm_cfg, batch=4, seq=2048, n_decode=16, check_seq=256,
+            generator=torch.Generator(device=device).manual_seed(0))
+        wkv_ms, wkv_plain_ms, wkv_bound_ms, wkv_bound_by = phase_wkv6_times(device, *wkv_in)
+        del wkv_in
+        phase_rwkv6_times(device, lm, lm_params, lm_tokens, n_decode=16)
         check("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -869,6 +1211,18 @@ def main() -> int:
         "bound_ms": pair_bound_ms,
         "bound_by": pair_bound_by,
         "library_ms": pair_library_ms,
+    }, {
+        "name": "wkv6",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv6.py:91",
+        "launches": wkv_launches,
+        "max_abs_err": max(wkv_err, wkv_err0),
+        "ms": wkv_ms,
+        "plain_ms": wkv_plain_ms,
+        "bound_ms": wkv_bound_ms,
+        "bound_by": wkv_bound_by,
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

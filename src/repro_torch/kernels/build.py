@@ -25,7 +25,8 @@ __all__ = ["SOURCES", "BuildResult", "build", "build_all", "load"]
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"gaunt_chain": _CSRC / "gaunt_chain.cu",
-           "gaunt_pair": _CSRC / "gaunt_pair.cu"}
+           "gaunt_pair": _CSRC / "gaunt_pair.cu",
+           "wkv6": _CSRC / "wkv6.cu"}
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -81,9 +82,12 @@ def build_all() -> list[BuildResult]:
         return [f.result() for f in futures]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``name``, building it first if needed."""
+def load(name: str, declare) -> ctypes.CDLL:
+    """The loaded library for ``name``, building it first if needed;
+    ``declare(lib)`` sets its C signatures once, when it is loaded."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = _LOADED[name] = ctypes.CDLL(str(build(name).path))
+        lib = ctypes.CDLL(str(build(name).path))
+        declare(lib)
+        _LOADED[name] = lib
     return lib

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ..core import constants as _const
+from .build import load as _load
 
 __all__ = [
     "gaunt_fused_matrices",
@@ -207,22 +208,6 @@ def chain_plain(flat, Ts, P, gs=None, gb=None) -> torch.Tensor:
     if gs is not None:
         v = v * gs + gb
     return v @ P
-
-
-_LIBS: dict = {}
-
-
-def _load(name: str, declare):
-    """The kernel library ``name``, built at first use; ``declare(lib)``
-    sets its C signatures once."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        from . import build
-
-        lib = build.load(name)
-        declare(lib)
-        _LIBS[name] = lib
-    return lib
 
 
 def _declare_chain(lib) -> None:

@@ -1,6 +1,7 @@
-"""Public wrappers of the Gaunt collocation kernels: thin calls that resolve
-a plan on the engine (`repro_torch.core.engine`) pinned to the fused
-backends, as the reference's ``repro.kernels.ops`` does.
+"""Public wrappers of the port's kernels.  The Gaunt wrappers are thin calls
+that resolve a plan on the engine (`repro_torch.core.engine`) pinned to the
+fused backends, as the reference's ``repro.kernels.ops`` does; `wkv6` is the
+RWKV6 scan on its Hopper kernel.
 
 ``device`` is the plan's device: None means cuda, and raises without a GPU
 (pass ``device="cpu"`` to run the plain versions on the CPU).
@@ -8,8 +9,9 @@ backends, as the reference's ``repro.kernels.ops`` does.
 from __future__ import annotations
 
 from ..core import engine as _engine
+from .wkv6 import wkv6_hopper
 
-__all__ = ["gaunt_tp_fused", "gaunt_tp_fused_torch", "gaunt_tp_channel_mix"]
+__all__ = ["gaunt_tp_fused", "gaunt_tp_fused_torch", "gaunt_tp_channel_mix", "wkv6"]
 
 
 def gaunt_tp_fused(x1, x2, L1: int, L2: int, Lout: int | None = None, *, device=None):
@@ -44,3 +46,10 @@ def gaunt_tp_channel_mix(x1, x2, w_mix, L1: int, L2: int, Lout: int | None = Non
     p = _engine.plan(L1, L2, Lout, kind="channel_mix", backend="fused_torch",
                      device=device)
     return p.apply(x1, x2, w_mix)
+
+
+def wkv6(r, k, v, w, u, chunk: int = 64):
+    """RWKV6 linear attention with data-dependent decay: the chunked scan on
+    the Hopper kernel for CUDA tensors, its plain version for CPU tensors
+    (no gradient on the kernel route)."""
+    return wkv6_hopper(r, k, v, w, u, chunk=chunk)

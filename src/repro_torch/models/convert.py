@@ -1,7 +1,8 @@
-"""Convert reference (JAX) MaceGaunt parameters into the port's state dict.
+"""Convert reference (JAX) parameters into the port's: MaceGaunt's state
+dict, and the language model's parameter tree.
 
 ``jax.random`` and torch generators give different numbers from one seed,
-so parity runs convert the reference's ``MaceGaunt.init`` pytree (as numpy
+so parity runs convert the reference's ``init`` pytrees (as numpy
 arrays) instead of re-initialising.  Nothing here imports JAX: the caller
 hands over plain arrays.
 """
@@ -10,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "lm_params_from_jax"]
 
 
 def _t(a) -> torch.Tensor:
@@ -33,3 +34,20 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
         sd[p + "gate_w1"] = _t(lp["gate"]["w1"])
         sd[p + "gate_w2"] = _t(lp["gate"]["w2"])
     return sd
+
+
+def _tree_t(tree, layer: int | None = None):
+    """numpy tree -> torch tree; with ``layer``, that slice of axis 0."""
+    if isinstance(tree, dict):
+        return {k: _tree_t(v, layer) for k, v in tree.items()}
+    return _t(tree if layer is None else np.asarray(tree)[layer])
+
+
+def lm_params_from_jax(tree: dict) -> dict:
+    """Reference ``init_params`` tree (numpy leaves; the layers stacked on
+    axis 0 under "layers") -> the port's parameters: the same names, with
+    "layers" a list of per-layer trees."""
+    out = {k: _tree_t(v) for k, v in tree.items() if k != "layers"}
+    n_layers = len(tree["layers"]["ln1"]["scale"])
+    out["layers"] = [_tree_t(tree["layers"], i) for i in range(n_layers)]
+    return out

@@ -1,4 +1,4 @@
-"""The Hopper chain and pair kernels on the card against their plain
+"""The Hopper chain, pair and WKV6 kernels on the card against their plain
 versions.  Marked
 ``cuda``: these skip without an sm_90 GPU (run them on the card with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``)."""
@@ -11,6 +11,7 @@ from repro_torch.kernels.gaunt_fused import (gaunt_chain_fused_hopper,
                                              kernel_stats, launch_pair_kernel, pair_plain,
                                              reset_kernel_stats)
 from repro_torch.kernels.ops import gaunt_tp_fused
+from repro_torch.kernels import wkv6 as wkv6_mod
 
 pytestmark = pytest.mark.cuda
 
@@ -68,3 +69,39 @@ def test_pair_kernel_route_has_no_gradient_on_card(cuda_device):
         out = gaunt_tp_fused(x, x, 2, 2)
     assert out.shape == (5, 25) and not out.requires_grad
     assert kernel_stats()["gaunt_pair"] == 1
+
+
+@pytest.mark.parametrize("B,T,H,K,chunk,decay", [(2, 32, 3, 8, 8, "uniform"),
+                                                 (2, 48, 3, 16, 16, "uniform"),
+                                                 (2, 40, 3, 64, 64, "uniform"),
+                                                 (2, 256, 4, 64, 64, "uniform"),
+                                                 (2, 128, 4, 64, 64, "extreme")])
+def test_wkv6_kernel_matches_plain_on_card(cuda_device, B, T, H, K, chunk, decay):
+    g = torch.Generator(device="cuda").manual_seed(T + K)
+    r, k, v = (torch.randn(B, T, H, K, device=cuda_device, generator=g) * 0.5
+               for _ in range(3))
+    if decay == "extreme":
+        w = torch.full((B, T, H, K), 1e-6, device=cuda_device)
+    else:
+        w = 0.2 + 0.799 * torch.rand(B, T, H, K, device=cuda_device, generator=g)
+    u = torch.randn(H, K, device=cuda_device, generator=g) * 0.3
+    wkv6_mod.reset_kernel_stats()
+    o, S = wkv6_mod.wkv6_hopper(r, k, v, w, u, chunk=chunk, return_state=True)
+    assert wkv6_mod.kernel_stats()["wkv6"] == 1
+    want_o, want_S = wkv6_mod.wkv6_chunked(r, k, v, w, u, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all() and torch.isfinite(S).all()
+    for got, want in ((o, want_o), (S, want_S)):
+        err = (got - want).abs().max().item()
+        # f32, the same chunked sums in another order: the f32 identity tier
+        assert err <= 3e-4 * max(1.0, want.abs().max().item()), err
+
+
+def test_wkv6_kernel_route_has_no_gradient_on_card(cuda_device):
+    r = torch.randn(1, 16, 2, 8, device=cuda_device, requires_grad=True)
+    w = torch.full((1, 16, 2, 8), 0.9, device=cuda_device)
+    u = torch.zeros(2, 8, device=cuda_device)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        wkv6_mod.wkv6_hopper(r, r, r, w, u)
+    with torch.no_grad():
+        assert wkv6_mod.wkv6_hopper(r, r, r, w, u).shape == (1, 16, 2, 8)

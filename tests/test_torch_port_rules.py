@@ -10,12 +10,15 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.config import get_config
 from repro_torch.configs.gaunt_ff import gaunt_mace_ff
 from repro_torch.device import resolve_device
 from repro_torch.core.engine import plan
 from repro_torch.core.gaunt import GauntTensorProduct
 from repro_torch.kernels.gaunt_fused import gaunt_chain_fused_hopper, gaunt_fused_hopper
 from repro_torch.kernels.ops import gaunt_tp_fused
+from repro_torch.kernels.wkv6 import wkv6_hopper
+from repro_torch.models.api import build_model
 from repro_torch.models.equivariant import MaceGaunt
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
@@ -26,6 +29,10 @@ def test_port_imports_no_jax_and_no_reference():
     assert "repro_torch.kernels.gaunt_fused" in mods and "repro_torch.serve.engine" in mods
     assert {"repro_torch.core.cg", "repro_torch.core.engine", "repro_torch.core.so3",
             "repro_torch.kernels.ops", "repro_torch.kernels.build"} <= set(mods)
+    assert {"repro_torch.config", "repro_torch.configs.rwkv6_3b", "repro_torch.models.layers",
+            "repro_torch.models.ssm", "repro_torch.models.transformer",
+            "repro_torch.models.api", "repro_torch.models.convert",
+            "repro_torch.kernels.ref", "repro_torch.kernels.wkv6"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -89,3 +96,21 @@ def test_pair_kernel_wrapper_runs_plain_version_only_for_cpu_tensors():
         gaunt_fused_hopper(x.to("meta").requires_grad_(True), x.to("meta"), 2, 2)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA device"):
         gaunt_fused_hopper(x.to("meta").requires_grad_(True), x.to("meta"), 2, 2)
+
+
+def test_language_model_defaults_to_cuda():
+    cfg = get_config("rwkv6-3b").reduced()
+    if torch.cuda.is_available():
+        assert build_model(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_model(cfg)
+    assert build_model(cfg, device="cpu").device.type == "cpu"
+
+
+def test_wkv6_wrapper_runs_plain_version_only_for_cpu_tensors():
+    x = torch.rand(1, 8, 2, 4)
+    u = torch.zeros(2, 4)
+    assert wkv6_hopper(x, x, x, x, u).device.type == "cpu"
+    with pytest.raises(ValueError, match="CUDA device"):
+        wkv6_hopper(x.to("meta"), x, x, x, u)
