@@ -45,7 +45,25 @@ result line):
      the kernel against its plain version on the first layer's WKV inputs;
   10. RWKV6 times — the WKV kernel and its plain version at full width
      (bound: the sequential recurrence's operations, f32 bytes), prefill
-     and decode per token on the host clock, and a profiled prefill.
+     and decode per token on the host clock, and a profiled prefill;
+  11. SSD kernel vs plain — `mamba2_ssd_hopper` against
+     `mamba2_ssd_chunked`, output and final state, at the reference's
+     kernel-test shapes (G = 2), T < 64, strong (A = -8, dt up to 5) and
+     weak (A dt ~ -1e-4) decay, and the full-width shape [4, 2048, 80, 64]
+     (N 64, G 1, bf16 x, B and C as the model feeds them);
+  12. the Zamba2 slice — `zamba2-2.7b` at its published widths and full
+     depth (54 Mamba-2 layers in 9 stages of 6 plus the shared attention
+     block, 2.44e9 f32 parameters, bf16 compute) on random weights from a
+     seeded generator on the card, after the RWKV6 parameters are freed:
+     prefill 4 x 2048 tokens (the SSD kernel launched once per Mamba-2
+     layer: 54), 16 greedy decode steps, finite logits and state, decode
+     after a 256-token prefill against forward over 320 tokens read at 256
+     (f32 compute at 54 layers, bf16 at one stage of 6; bf16 at 54
+     printed), and the kernel against its plain version on the first
+     layer's SSD inputs;
+  13. Zamba2 times — the SSD kernel and its plain version at full width
+     (bound: the step recurrence's operations), prefill and decode per
+     token on the host clock, and a profiled prefill.
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs no network and imports no JAX.
 """
@@ -72,6 +90,9 @@ BF16_IDENTITY_TOL = 5e-2  # bf16 "identity" tier (the LM path computes in bf16)
 # products, only in another order, so they agree to a few f32 roundings
 PAIR_VS_PLAIN_TOL = 1e-5
 PAIR_EQUIVARIANCE_TOL = 1e-5
+# the SSD kernel against its plain version: both are f32 chunked sums with
+# la summed in the same order, so they agree far inside the f32 tier
+SSD_VS_PLAIN_TOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -1087,16 +1108,29 @@ def phase_wkv6_times(device, r, k, v, w, u):
     return kernel_ms, plain_ms, bound_ms, bound_by
 
 
-def phase_rwkv6_times(device, model, params, tokens, n_decode: int, reps: int = 3):
+def phase_lm_times(device, name: str, kernel_key: str, model, params, tokens,
+                   n_decode: int, reps: int = 3):
     """Prefill and decode per token on the host clock, then one profiled
-    prefill (device busy time, idle share, top kernels)."""
+    prefill (device busy time, idle share, the scan kernel's share — the
+    kernels whose name holds ``kernel_key`` — and the top kernels) and one
+    profiled decode step (busy time, idle share, copies, top kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    def profiled(fn):  # -> (wall ms, kernel events by device time, busy ms)
+        _sync(device)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            _sync(device)
+            wall = (time.perf_counter() - t0) * 1e3
+        events = sorted(_kernel_events(prof), key=_device_us, reverse=True)
+        return wall, events, sum(_device_us(e) for e in events) / 1e3
 
     batch, seq = tokens.shape
     pre_ms, pre_all = host_ms(lambda: model.prefill(params, {"tokens": tokens}, seq), device,
                               reps)
-    _, cache = model.prefill(params, {"tokens": tokens}, seq + n_decode)
+    _, cache = model.prefill(params, {"tokens": tokens}, seq + n_decode + 1)
     tok = tokens[:, -1:]
     step_times = []
     for i in range(n_decode):
@@ -1107,29 +1141,291 @@ def phase_rwkv6_times(device, model, params, tokens, n_decode: int, reps: int = 
         step_times.append((time.perf_counter() - t0) * 1e3)
         tok = logits[:, -1].argmax(-1, keepdim=True)
     dec_ms = sorted(step_times)[len(step_times) // 2]
-    print(f"[times] rwkv6 prefill {batch} x {seq}: {pre_ms:.2f} ms host clock, median of "
+    print(f"[times] {name} prefill {batch} x {seq}: {pre_ms:.2f} ms host clock, median of "
           f"{reps} ({', '.join(f'{t:.2f}' for t in pre_all)}), "
           f"{batch * seq / pre_ms * 1e3:.0f} tokens/s; decode_step ({batch} sequences): "
           f"{dec_ms:.2f} ms per token, median of {n_decode}")
-    _sync(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.prefill(params, {"tokens": tokens}, seq)
-        _sync(device)
-        wall = (time.perf_counter() - t0) * 1e3
-    events = sorted(_kernel_events(prof), key=_device_us, reverse=True)
-    busy = sum(_device_us(e) for e in events) / 1e3
+    pos = torch.full((batch,), seq + n_decode, device=device)
+    wall, events, busy = profiled(lambda: model.decode_step(params, cache, tok, pos))
+    del cache
+    if busy > 0:
+        keys = [(e.key.lower(), _device_us(e) / 1e3) for e in events]
+        casts = sum(t for k, t in keys if "bfloat16_copy" in k)
+        copies = sum(t for k, t in keys if "memcpy" in k
+                     or ("copy" in k and "bfloat16_copy" not in k))
+        print(f"[profile] {name} decode step (profiled): wall {wall:.2f} ms, device busy "
+              f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / wall):.3f}, "
+              f"{sum(e.count for e in events)} GPU events; casts to bf16 {casts:.3f} ms, "
+              f"other copies {copies:.3f} ms")
+        for e in events[:5]:
+            print(f"[profile]   {_device_us(e) / 1e3:8.3f} ms {e.count:5d}x  {e.key[:90]}")
+    wall, events, busy = profiled(lambda: model.prefill(params, {"tokens": tokens}, seq))
     if busy <= 0:
         print("[profile] the profiler saw no device time; prefill breakdown not measured")
         return pre_ms, dec_ms
-    wkv = sum(_device_us(e) for e in events if "wkv6" in e.key) / 1e3
-    print(f"[profile] rwkv6 prefill (profiled): wall {wall:.2f} ms, device busy "
+    scan = sum(_device_us(e) for e in events if kernel_key in e.key) / 1e3
+    print(f"[profile] {name} prefill (profiled): wall {wall:.2f} ms, device busy "
           f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / wall):.3f}, "
-          f"{sum(e.count for e in events)} GPU events; wkv6 kernel {wkv:.3f} ms "
-          f"({wkv / busy * 100:.1f}% of busy)")
+          f"{sum(e.count for e in events)} GPU events; {kernel_key} kernel {scan:.3f} ms "
+          f"({scan / busy * 100:.1f}% of busy)")
     for e in events[:10]:
         print(f"[profile]   {_device_us(e) / 1e3:8.3f} ms {e.count:5d}x  {e.key[:90]}")
     return pre_ms, dec_ms
+
+
+# --------------------------------------------------------------------------
+# phases 11-13: the SSD kernel and the Zamba2 slice at full width
+# --------------------------------------------------------------------------
+
+# (name, Bt, T, H, P, G, N, chunk, decay, dtype): the reference's kernel
+# tests (tests/test_kernels.py: Bt 2, H 4, P 8, G 2, N 16), a prompt
+# shorter than the chunk (C = T), strong and weak decay at the model's head
+# size, and the model's own head, state and dtype
+SSD_CASES = [("ref T=32 chunk=8", 2, 32, 4, 8, 2, 16, 8, "ref", "float32"),
+             ("ref T=64 chunk=32", 2, 64, 4, 8, 2, 16, 32, "ref", "float32"),
+             ("T<64 (C=T=40)", 2, 40, 4, 8, 2, 16, 64, "ref", "float32"),
+             ("strong A=-8 dt<=5", 2, 256, 8, 64, 2, 64, 64, "strong", "float32"),
+             ("weak A dt~-1e-4", 2, 256, 8, 64, 2, 64, 64, "weak", "float32"),
+             ("P=N=64 bf16", 2, 256, 8, 64, 1, 64, 64, "model", "bfloat16")]
+# zamba2-2.7b prefill: 4 prompts x 2048 tokens, 80 SSD heads of 64, N 64, G 1
+SSD_FULL = (4, 2048, 80, 64, 1, 64)
+# (dt range, -A range) by decay: the reference's test draw; strong, weak;
+# and roughly the model's (softplus of N(0, 1) logits, A_log over [1, 8])
+_SSD_DECAY = {"ref": ((0.01, 0.2), (0.5, 2.0)), "strong": ((0.01, 5.0), (8.0, 8.0)),
+              "weak": ((0.5, 1.5), (1e-4, 1e-4)), "model": ((0.1, 3.0), (1.0, 8.0))}
+
+
+def _ssd_inputs(Bt, T, H, P, G, N, decay, dtype, device, seed):
+    """x, dt, A, B, C, D (seeded numpy; x, B, C in ``dtype``, the rest f32):
+    x, B, C, D ~ N(0, 1), dt and -A uniform over the ``decay`` ranges."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    (dt_lo, dt_hi), (a_lo, a_hi) = _SSD_DECAY[decay]
+    arrs = (rng.normal(size=(Bt, T, H, P)), rng.uniform(dt_lo, dt_hi, size=(Bt, T, H)),
+            -rng.uniform(a_lo, a_hi, size=(H,)), rng.normal(size=(Bt, T, G, N)),
+            rng.normal(size=(Bt, T, G, N)), rng.normal(size=(H,)))
+    out = [torch.as_tensor(a, dtype=torch.float32, device=device) for a in arrs]
+    for i in (0, 3, 4):
+        out[i] = out[i].to(getattr(torch, dtype))
+    return tuple(out)
+
+
+def compare_mamba2(x, dt, A, B, C, D, chunk: int = 64):
+    """The kernel route against the plain version on the same inputs ->
+    (output abs err, output rel err, state rel err, both finite)."""
+    import torch
+    from repro_torch.kernels.mamba2 import mamba2_ssd_chunked, mamba2_ssd_hopper
+
+    with torch.no_grad():
+        y_k, h_k = mamba2_ssd_hopper(x, dt, A, B, C, D, chunk=chunk, return_state=True)
+        y_p, h_p = mamba2_ssd_chunked(x, dt, A, B, C, D, chunk=chunk, return_state=True)
+    if x.device.type == "cuda":
+        torch.cuda.synchronize()
+    err, rel = rel_err(y_k, y_p)
+    finite = bool(torch.isfinite(y_k).all()) and bool(torch.isfinite(h_k).all())
+    return err, rel, rel_err(h_k, h_p)[1], finite
+
+
+def phase_mamba2_vs_plain(device, full=SSD_FULL) -> float:
+    """The SSD kernel (`mamba2_ssd_hopper` on the card) against
+    `mamba2_ssd_chunked`, output and final state, at the reference's test
+    shapes, the edge cases and the full-width shape; -> max abs error at
+    the full-width shape."""
+    cases = SSD_CASES + [(f"full width {full}", *full, 64, "model", "bfloat16")]
+    full_err = 0.0
+    for i, (name, Bt, T, H, P, G, N, chunk, decay, dtype) in enumerate(cases):
+        ins = _ssd_inputs(Bt, T, H, P, G, N, decay, dtype, device, seed=40 + i)
+        err, rel, hrel, finite = compare_mamba2(*ins, chunk=chunk)
+        ok = finite and rel <= SSD_VS_PLAIN_TOL and hrel <= SSD_VS_PLAIN_TOL
+        print(f"[mamba2] {name} [Bt={Bt},T={T},H={H},P={P},G={G},N={N}] {dtype} x/B/C, "
+              f"chunk {min(chunk, T)}: y max_abs_err {err:.3e} rel {rel:.3e}, state rel "
+              f"{hrel:.3e} (tol {SSD_VS_PLAIN_TOL}: f32, the same chunked sums in another "
+              f"order, la summed in the same order), finite {finite} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"the mamba2_ssd kernel disagrees with its plain version ({name})")
+        if name.startswith("full width"):
+            full_err = err
+        del ins
+    return full_err
+
+
+def phase_zamba2(device, cfg, batch: int, seq: int, n_decode: int, check_seq: int,
+                 generator):
+    """zamba2-2.7b on random weights from ``generator``: prefill ``batch`` x
+    ``seq`` tokens (the SSD kernel launched once per Mamba-2 layer, counted
+    over this run alone), then ``n_decode`` greedy decode steps; finite
+    logits and state; decode after a ``check_seq``-token prefill against
+    forward over ``check_seq`` + 64 tokens (whole chunks) read at
+    ``check_seq`` (f32 at full depth, bf16 at one stage); the kernel against
+    its plain version on the first layer's SSD inputs.  -> (launches, model,
+    params, prompt tokens, layer-0 SSD inputs, their max abs error)."""
+    import torch
+    from repro_torch.kernels.mamba2 import kernel_stats, reset_kernel_stats
+    from repro_torch.models import ssm, transformer
+    from repro_torch.models.api import build_model, count_params
+    from repro_torch.models.layers import norm_apply
+
+    model = build_model(cfg, device=device)
+    t0 = time.perf_counter()
+    params = model.init(generator)
+    _sync(device)
+    n_params = count_params(cfg)
+    d_in = cfg.ssm_expand * cfg.d_model
+    H, P, N = d_in // cfg.ssm_headdim, cfg.ssm_headdim, cfg.ssm_state
+    n_stages = cfg.n_layers // cfg.attn_every
+    print(f"[zamba2] {cfg.name}: {cfg.n_layers} Mamba-2 layers in {n_stages} stages of "
+          f"{cfg.attn_every} + a shared attention block ({cfg.n_heads} heads of {cfg.hd}, "
+          f"{cfg.act} MLP d_ff {cfg.d_ff}), d_model {cfg.d_model}, {H} SSD heads of {P}, "
+          f"state {N}, vocab {cfg.vocab}, {cfg.dtype} compute, {n_params:,} "
+          f"{cfg.param_dtype} parameters ({n_params * 4 / 1e9:.2f} GB), random init in "
+          f"{time.perf_counter() - t0:.2f} s")
+    gen_dev = generator.device
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=generator,
+                           device=gen_dev).to(device)
+    # the slice's main path: one prefill, then greedy decode
+    reset_kernel_stats()
+    t0 = time.perf_counter()
+    last, cache = model.prefill(params, {"tokens": tokens}, seq + n_decode)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+    tok = last[:, -1].argmax(-1, keepdim=True)
+    decoded = [tok]
+    for i in range(n_decode):
+        logits, cache = model.decode_step(params, cache, tok,
+                                          torch.full((batch,), seq + i, device=device))
+        check(logits.shape == (batch, 1, cfg.vocab), "decode logits shape")
+        check(bool(torch.isfinite(logits).all()), f"decode step {i}: non-finite logits")
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        decoded.append(tok)
+    _sync(device)
+    launches = kernel_stats()["mamba2_ssd"]
+    print(f"[zamba2] prefill {batch} x {seq} tokens (first call, {t_prefill:.3f} s) + "
+          f"{n_decode} greedy decode steps: mamba2_ssd kernel launches {launches} "
+          f"(expected {cfg.n_layers}, one per Mamba-2 layer of the prefill, the scan input "
+          f"[{batch}, {seq}, {H}, {P}]); tokens of prompt 0: "
+          f"{[int(t[0]) for t in decoded]}")
+    check(last.shape == (batch, 1, cfg.vocab), "prefill logits shape")
+    check(bool(torch.isfinite(last).all()), "prefill logits are not finite")
+    kv = (n_stages, batch, seq + n_decode, cfg.kv_heads, cfg.hd)
+    shapes = {"mamba.conv": (cfg.n_layers, batch, cfg.ssm_conv - 1, d_in + 2 * N),
+              "mamba.ssm": (cfg.n_layers, batch, H, P, N), "k": kv, "v": kv}
+    leaves = {"mamba.conv": cache["mamba"]["conv"], "mamba.ssm": cache["mamba"]["ssm"],
+              "k": cache["k"], "v": cache["v"]}
+    for name, a in leaves.items():
+        check(tuple(a.shape) == shapes[name], f"cache {name} shape {tuple(a.shape)}")
+        check(bool(torch.isfinite(a.float()).all()), f"cache {name} is not finite")
+    del cache, leaves
+    if device.type == "cuda":
+        check(launches == cfg.n_layers, f"the mamba2_ssd kernel launched {launches} times "
+                                        f"in one prefill, not {cfg.n_layers}")
+    # prefill -> decode against forward.  Forward takes whole chunks of 64
+    # past one chunk, so it runs over check_seq + 64 tokens and is read at
+    # check_seq (causality makes the two equal).  As for RWKV6, the paths
+    # are held to the f32 tier at full depth and to the bf16 tier at one
+    # stage; bf16 at full depth is printed, with a depth scan of bf16 vs
+    # f32 forward logits.
+    toks2 = torch.randint(0, cfg.vocab, (batch, check_seq + 64), generator=generator,
+                          device=gen_dev).to(device)
+
+    def sub(n_layers):
+        return (dataclasses.replace(cfg, n_layers=n_layers),
+                dict(params, mamba=params["mamba"][:n_layers]))
+
+    for dtype, n_layers, tol in (("float32", cfg.n_layers, F32_IDENTITY_TOL),
+                                 (cfg.dtype, cfg.attn_every, BF16_IDENTITY_TOL),
+                                 (cfg.dtype, cfg.n_layers, None)):
+        c, p = sub(n_layers)
+        rel_p, err_d, rel_d = prefill_decode_vs_forward(
+            dataclasses.replace(c, dtype=dtype), p, toks2, check_seq, device)
+        print(f"[zamba2] consistency, {dtype} compute, {n_layers} layers, {check_seq} tokens "
+              f"(forward over {check_seq + 64}, read at {check_seq}): prefill last logits vs "
+              f"forward rel {rel_p:.3e}, decode_step after prefill vs forward at position "
+              f"{check_seq}: max_abs_err {err_d:.3e} rel {rel_d:.3e} "
+              + (f"(tol {tol}) {'ok' if max(rel_p, rel_d) <= tol else 'FAIL'}"
+                 if tol is not None else "(not held to a tier: see below)"))
+        if tol is not None:
+            check(max(rel_p, rel_d) <= tol, f"prefill/decode differ from forward "
+                                            f"({dtype}, {n_layers} layers)")
+    gaps = []
+    for n_layers in sorted({min(n, cfg.n_layers) for n in (6, 12, 24, cfg.n_layers)}):
+        c, p = sub(n_layers)
+        logits = [build_model(dataclasses.replace(c, dtype=dt), device=device)
+                  .forward(p, {"tokens": toks2})[0] for dt in (cfg.dtype, "float32")]
+        gaps.append(f"{n_layers} layers {rel_err(*logits)[1]:.3e}")
+        del logits
+    print(f"[zamba2] {cfg.dtype} vs float32 forward logits of these random weights "
+          f"({check_seq + 64} tokens), scale-relative, by depth: " + ", ".join(gaps))
+    # the first layer's SSD inputs of this run's prompts
+    p0 = params["mamba"][0]
+    hn = norm_apply(p0["ln"], transformer._embed_tokens(params, cfg, tokens), cfg.norm)
+    with torch.no_grad():
+        _, _, scan = ssm.mamba2_scan_inputs(p0["m"], hn, cfg)
+    err, rel, hrel, finite = compare_mamba2(*scan)
+    ok = finite and rel <= SSD_VS_PLAIN_TOL and hrel <= SSD_VS_PLAIN_TOL
+    print(f"[zamba2] layer 0 SSD inputs of this run {tuple(scan[0].shape)} ({scan[0].dtype} "
+          f"x, B, C; {scan[1].dtype} dt, A dt down to {float((scan[2] * scan[1]).min()):.2f} "
+          f"a step): kernel vs plain y max_abs_err {err:.3e} rel {rel:.3e}, state rel "
+          f"{hrel:.3e} (tol {SSD_VS_PLAIN_TOL}) {'ok' if ok else 'FAIL'}")
+    check(ok, "the mamba2_ssd kernel disagrees with its plain version on layer 0's inputs")
+    return launches, model, params, tokens, scan, err
+
+
+def mamba2_work(x, B):
+    """(FLOPs, bytes) of the SSD function: the step recurrence in rescaled
+    form, as `wkv6_work` counts it (the decay is one scalar per head and
+    step, so h~ = h / prod a costs O(P) a token: one FMA per state entry to
+    add (dt x) B^T, one per entry for y = h C), 4 P N per (token, head), is
+    the exact algorithm with the fewest operations; x, B, C (in their
+    dtype), dt, A and D read once, y and the final h written once in
+    f32."""
+    Bt, T, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    flops = 4 * P * N * Bt * T * H
+    nbytes = (x.element_size() * (Bt * T * H * P + 2 * Bt * T * G * N)
+              + 4 * (Bt * T * H + 2 * H + Bt * T * H * P + Bt * H * P * N))
+    return flops, nbytes
+
+
+def phase_mamba2_times(device, x, dt, A, B, C, D, launches: int):
+    """Kernel and plain version on the layer-0 inputs at full width, in turns
+    (plain, kernel, kernel, plain), device times from torch.profiler, the
+    bound and the launches per prefill."""
+    import torch
+    from repro_torch.kernels.mamba2 import launch_mamba2_kernel, mamba2_ssd_chunked
+
+    # x, B and C as the model hands them over: views of one conv output
+    ins = (x, dt.contiguous(), A.contiguous(), B, C, D.contiguous())
+    Bt, T, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    with torch.no_grad():
+        p1 = event_ms(lambda: mamba2_ssd_chunked(*ins, return_state=True), reps=10)
+        k1 = event_ms(lambda: launch_mamba2_kernel(*ins))
+        k2 = event_ms(lambda: launch_mamba2_kernel(*ins))
+        p2 = event_ms(lambda: mamba2_ssd_chunked(*ins, return_state=True), reps=10)
+        kd = device_ms(lambda: launch_mamba2_kernel(*ins))
+        pd = device_ms(lambda: mamba2_ssd_chunked(*ins, return_state=True), reps=5)
+    print(f"[times] mamba2 [{Bt},{T},{H},{P}] G={G} N={N} {x.dtype} x/B/C chunk 64: kernel "
+          f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms per call (CUDA events around "
+          f"one call from Python, median of 50 and 10)")
+    if kd is not None and pd is not None:
+        kernel_ms, plain_ms = kd, pd
+        print(f"[times] mamba2 device time per call (torch.profiler, 20 and 5 calls): "
+              f"kernel {kd:.5f} ms, plain {pd:.5f} ms")
+    else:
+        kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
+        print("[times] mamba2 device time per call: not measured (the profiler saw no "
+              "device time); the event times stand")
+    flops, nbytes = mamba2_work(x, B)
+    bound_ms, bound_by = bound_of(flops, nbytes)
+    print(f"[times] mamba2 work: {flops / 1e9:.3f} GFLOP (rescaled step recurrence, 4 P N per "
+          f"(token, head)), {nbytes / 1e6:.1f} MB ({x.dtype} x, B, C in; f32 dt, y, h) -> "
+          f"bound {bound_ms:.5f} ms by {bound_by} (67 TFLOP/s f32, 3.35 TB/s); kernel at "
+          f"{bound_ms / kernel_ms * 100:.1f}% of bound; {launches} launches per prefill "
+          f"({launches * kernel_ms:.2f} ms of kernel time)")
+    print("[times] mamba2 library_ms: none — no single PyTorch call computes the SSD scan")
+    return kernel_ms, plain_ms, bound_ms, bound_by
 
 
 def main() -> int:
@@ -1180,7 +1476,18 @@ def main() -> int:
             generator=torch.Generator(device=device).manual_seed(0))
         wkv_ms, wkv_plain_ms, wkv_bound_ms, wkv_bound_by = phase_wkv6_times(device, *wkv_in)
         del wkv_in
-        phase_rwkv6_times(device, lm, lm_params, lm_tokens, n_decode=16)
+        phase_lm_times(device, "rwkv6", "wkv6", lm, lm_params, lm_tokens, n_decode=16)
+        # free the RWKV6 parameters (12.4 GB) before the Zamba2 phases
+        del lm, lm_params, lm_tokens
+        torch.cuda.empty_cache()
+        ssd_err = phase_mamba2_vs_plain(device)
+        (ssd_launches, zm, zm_params, zm_tokens, ssd_in, ssd_err0) = phase_zamba2(
+            device, get_config("zamba2-2.7b"), batch=4, seq=2048, n_decode=16,
+            check_seq=256, generator=torch.Generator(device=device).manual_seed(0))
+        ssd_ms, ssd_plain_ms, ssd_bound_ms, ssd_bound_by = phase_mamba2_times(
+            device, *ssd_in, launches=ssd_launches)
+        del ssd_in
+        phase_lm_times(device, "zamba2", "ssd_kernel", zm, zm_params, zm_tokens, n_decode=16)
         check("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -1222,6 +1529,18 @@ def main() -> int:
         "plain_ms": wkv_plain_ms,
         "bound_ms": wkv_bound_ms,
         "bound_by": wkv_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "mamba2_ssd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
+        "replaces": "src/repro/kernels/mamba2.py:86",
+        "launches": ssd_launches,
+        "max_abs_err": max(ssd_err, ssd_err0),
+        "ms": ssd_ms,
+        "plain_ms": ssd_plain_ms,
+        "bound_ms": ssd_bound_ms,
+        "bound_by": ssd_bound_by,
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

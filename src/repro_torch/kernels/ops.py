@@ -1,7 +1,7 @@
 """Public wrappers of the port's kernels.  The Gaunt wrappers are thin calls
 that resolve a plan on the engine (`repro_torch.core.engine`) pinned to the
 fused backends, as the reference's ``repro.kernels.ops`` does; `wkv6` is the
-RWKV6 scan on its Hopper kernel.
+RWKV6 scan and `mamba2_ssd` the Mamba-2 SSD scan, each on its Hopper kernel.
 
 ``device`` is the plan's device: None means cuda, and raises without a GPU
 (pass ``device="cpu"`` to run the plain versions on the CPU).
@@ -9,9 +9,11 @@ RWKV6 scan on its Hopper kernel.
 from __future__ import annotations
 
 from ..core import engine as _engine
+from .mamba2 import mamba2_ssd_hopper
 from .wkv6 import wkv6_hopper
 
-__all__ = ["gaunt_tp_fused", "gaunt_tp_fused_torch", "gaunt_tp_channel_mix", "wkv6"]
+__all__ = ["gaunt_tp_fused", "gaunt_tp_fused_torch", "gaunt_tp_channel_mix", "wkv6",
+           "mamba2_ssd"]
 
 
 def gaunt_tp_fused(x1, x2, L1: int, L2: int, Lout: int | None = None, *, device=None):
@@ -53,3 +55,11 @@ def wkv6(r, k, v, w, u, chunk: int = 64):
     the Hopper kernel for CUDA tensors, its plain version for CPU tensors
     (no gradient on the kernel route)."""
     return wkv6_hopper(r, k, v, w, u, chunk=chunk)
+
+
+def mamba2_ssd(x, dt, A, B, C, D, chunk: int = 64):
+    """Mamba-2 SSD: the chunked scan on the Hopper kernel for CUDA tensors,
+    its plain version for CPU tensors (no gradient on the kernel route).
+    x [Bt,T,H,P], dt [Bt,T,H], A [H], B, C [Bt,T,G,N], D [H] -> y [Bt,T,H,P]
+    float32."""
+    return mamba2_ssd_hopper(x, dt, A, B, C, D, chunk=chunk)

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["wkv6_ref"]
+__all__ = ["wkv6_ref", "mamba2_ssd_ref"]
 
 
 def wkv6_ref(r, k, v, w, u):
@@ -23,3 +23,28 @@ def wkv6_ref(r, k, v, w, u):
         outs.append(torch.einsum("bhk,bhkv->bhv", rt, S + u[None, :, :, None] * kv))
         S = wt[..., :, None] * S + kv
     return torch.stack(outs, dim=1)  # [B, T, H, V]
+
+
+def mamba2_ssd_ref(x, dt, A, B, C, D):
+    """Naive Mamba-2 SSD recurrence in float32, the oracle of the chunked scan.
+
+    x [Bt, T, H, P] (heads x headdim), dt [Bt, T, H] (after softplus),
+    A [H] (negative), B, C [Bt, T, G, N] (G groups, each shared by H/G
+    heads), D [H] -> y [Bt, T, H, P].
+    h_t = exp(A dt_t) h_{t-1} + dt_t x_t B_t^T ;  y_t = h_t C_t + D x_t
+    """
+    x, dt, A, B, C, D = (a.float() for a in (x, dt, A, B, C, D))
+    Bt, T, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    hpg = H // G
+    h = torch.zeros((Bt, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(T):
+        dts = dt[:, t][..., None, None]  # [Bt,H,1,1]
+        decay = torch.exp(A[None, :, None, None] * dts)
+        Bg = B[:, t].repeat_interleave(hpg, dim=1)  # [Bt,H,N]
+        Cg = C[:, t].repeat_interleave(hpg, dim=1)
+        xt = x[:, t]  # [Bt,H,P]
+        h = decay * h + dts * xt[..., :, None] * Bg[..., None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Cg) + D[None, :, None] * xt)
+    return torch.stack(ys, dim=1)

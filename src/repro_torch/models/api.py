@@ -3,10 +3,13 @@
 `count_params`.
 
 A copy of the reference's ``repro.models.api`` for the inference path.
+Families: ssm (RWKV6, ``rwkv6-3b``) and hybrid (Zamba2, ``zamba2-2.7b``).
 The model runs on CUDA unless given ``device="cpu"`` (``None`` means cuda
-and raises without a GPU); there the WKV scan of every layer runs on the
-Hopper kernel.  ``Model.loss`` and the cross-entropy belong to the training
-slice (ROADMAP Queue 1 item 12d) and are not here yet.
+and raises without a GPU); there the sequence path's scan of every layer
+runs on its Hopper kernel (WKV6 for RWKV6, the SSD scan for Zamba2's
+Mamba-2 layers; decode runs the one-step recurrences in torch ops).
+``Model.loss`` and the cross-entropy belong to the training slice (ROADMAP
+Queue 1 item 12d) and are not here yet.
 """
 from __future__ import annotations
 

@@ -43,11 +43,19 @@ def _tree_t(tree, layer: int | None = None):
     return _t(tree if layer is None else np.asarray(tree)[layer])
 
 
+def _n_stacked(tree) -> int:
+    """Length of axis 0 of a stacked tree's leaves."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return len(tree)
+
+
 def lm_params_from_jax(tree: dict) -> dict:
-    """Reference ``init_params`` tree (numpy leaves; the layers stacked on
-    axis 0 under "layers") -> the port's parameters: the same names, with
-    "layers" a list of per-layer trees."""
-    out = {k: _tree_t(v) for k, v in tree.items() if k != "layers"}
-    n_layers = len(tree["layers"]["ln1"]["scale"])
-    out["layers"] = [_tree_t(tree["layers"], i) for i in range(n_layers)]
+    """Reference ``init_params`` tree (numpy leaves) -> the port's
+    parameters: the same names, with the stacked per-layer tree ("layers"
+    for ssm, "mamba" for hybrid, stacked on axis 0) a list of per-layer
+    trees; the rest ("shared", "cat_proj", ...) as they are."""
+    stacked = "layers" if "layers" in tree else "mamba"
+    out = {k: _tree_t(v) for k, v in tree.items() if k != stacked}
+    out[stacked] = [_tree_t(tree[stacked], i) for i in range(_n_stacked(tree[stacked]))]
     return out

@@ -1,20 +1,23 @@
-"""Shared layers of the language-model path: dense, norms, embeddings.
+"""Shared layers of the language-model path: dense, norms, embeddings, RoPE
+and the MLPs.
 
 A copy of the part of the reference's ``repro.models.layers`` that the ssm
-family (RWKV6) needs.  Parameters are plain dicts of tensors under the
+(RWKV6) and hybrid (Zamba2) families need.  Parameters are plain dicts of tensors under the
 reference's names.  Initialisers draw from an explicit ``torch.Generator``
 on the generator's own device and move the result to ``device``; with
 ``generator=None`` they draw from the global generator, which is how
 `api.count_params` sizes a model on the ``meta`` device without allocating.
-RoPE and the MLPs come with the attention families.
+M-RoPE comes with the vlm family (ROADMAP Queue 1 item 12d).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["normal", "dense_init", "dense", "norm_init", "norm_apply", "embed_init"]
+__all__ = ["normal", "dense_init", "dense", "norm_init", "norm_apply", "embed_init",
+           "rope", "mlp_init", "mlp_apply"]
 
 
 def normal(generator, shape, std: float, dtype=torch.float32, device="cpu") -> torch.Tensor:
@@ -69,3 +72,48 @@ def norm_apply(p, x, kind: str = "rmsnorm", eps: float = 1e-6, one_offset: bool 
 
 def embed_init(generator, vocab: int, d: int, dtype=torch.float32, device="cpu"):
     return {"embedding": normal(generator, (vocab, d), 0.02, dtype, device)}
+
+
+def _rope_angles(positions, dim: int, theta: float):
+    """positions [...] -> cos, sin [..., dim/2] (float32)."""
+    half = dim // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rope(x, positions, theta: float = 10000.0, rotary_frac: float = 1.0):
+    """x [B, T, H, hd]; positions [B, T].  Half-split (GPT-NeoX style) rotary
+    on the first rotary_frac * hd dims, in float32, cast back to x's dtype."""
+    hd = x.shape[-1]
+    rot = int(hd * rotary_frac)
+    if rot == 0:
+        return x
+    rot -= rot % 2
+    xr, xp = x[..., :rot], x[..., rot:]
+    cos, sin = _rope_angles(positions, rot, theta)  # [B,T,rot/2]
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    x1, x2 = xr[..., : rot // 2], xr[..., rot // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+    return torch.cat([out, xp], dim=-1) if rot < hd else out
+
+
+def mlp_init(generator, d: int, ff: int, act: str, dtype=torch.float32, device="cpu"):
+    p = {"w_up": dense_init(generator, d, ff, dtype=dtype, device=device),
+         "w_down": dense_init(generator, ff, d, dtype=dtype, device=device)}
+    if act in ("swiglu", "geglu"):
+        p["w_gate"] = dense_init(generator, d, ff, dtype=dtype, device=device)
+    return p
+
+
+def mlp_apply(p, x, act: str, dtype=None):
+    """SwiGLU, GeGLU (tanh GELU) or a plain GELU MLP."""
+    up = dense(p["w_up"], x, dtype)
+    if act == "swiglu":
+        h = F.silu(dense(p["w_gate"], x, dtype)) * up
+    elif act == "geglu":
+        h = F.gelu(dense(p["w_gate"], x, dtype), approximate="tanh") * up
+    else:  # gelu_mlp
+        h = F.gelu(up, approximate="tanh")
+    return dense(p["w_down"], h, dtype)

@@ -1,24 +1,150 @@
-"""RWKV6 (Finch) time mix and channel mix: the state-space block of the ssm
+"""State-space blocks: Mamba-2 (SSD), the mixer of the hybrid family
+(Zamba2), and RWKV6 (Finch) time mix and channel mix, the block of the ssm
 family.
 
-A copy of the RWKV6 half of the reference's ``repro.models.ssm``, as plain
-functions over parameter dicts under the reference's names.  Each block has
-a sequence path (the chunked WKV scan, `kernels.wkv6.wkv6_hopper`: the
-Hopper kernel on CUDA tensors) and a single-step decode path carrying an
-explicit recurrent state, O(1) per token.  The casts to the activation
-dtype sit where the reference puts them, so the bfloat16 path rounds at the
-same places.  The Mamba-2 half comes with the hybrid family.
+A copy of the reference's ``repro.models.ssm``, as plain functions over
+parameter dicts under the reference's names.  Each block has a sequence
+path (the chunked scans `kernels.mamba2.mamba2_ssd_hopper` and
+`kernels.wkv6.wkv6_hopper`: the Hopper kernels on CUDA tensors) and a
+single-step decode path carrying an explicit recurrent state, O(1) per
+token, in torch ops.  The casts to the activation dtype sit where the
+reference puts them, so the bfloat16 path rounds at the same places.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..kernels.mamba2 import mamba2_ssd_hopper
 from ..kernels.wkv6 import wkv6_hopper
 from .layers import dense, dense_init, norm_apply, norm_init, normal
 
-__all__ = ["rwkv6_init", "rwkv6_projections", "rwkv6_time_mix", "rwkv6_channel_mix",
-           "rwkv6_state_init", "rwkv6_apply", "rwkv6_decode_step", "rwkv6_block_init"]
+__all__ = ["mamba2_init", "mamba2_scan_inputs", "mamba2_apply", "mamba2_state_init",
+           "mamba2_decode_step", "rwkv6_init", "rwkv6_projections", "rwkv6_time_mix",
+           "rwkv6_channel_mix", "rwkv6_state_init", "rwkv6_apply", "rwkv6_decode_step",
+           "rwkv6_block_init"]
+
+
+# ---------------------------------------------------------------- Mamba-2
+
+
+def _m2_dims(cfg):
+    d_in = cfg.ssm_expand * cfg.d_model
+    H = d_in // cfg.ssm_headdim
+    return d_in, H, cfg.ssm_state, cfg.ssm_groups
+
+
+def mamba2_init(generator, cfg, dtype=torch.float32, device="cpu"):
+    d = cfg.d_model
+    d_in, H, N, G = _m2_dims(cfg)
+    conv_ch = d_in + 2 * G * N
+    f32 = torch.float32
+    return {
+        "in_proj": dense_init(generator, d, 2 * d_in + 2 * G * N + H, dtype=dtype,
+                              device=device),
+        "conv_w": normal(generator, (cfg.ssm_conv, conv_ch), 0.2, dtype, device),
+        "conv_b": torch.zeros((conv_ch,), dtype=dtype, device=device),
+        "dt_bias": torch.zeros((H,), dtype=f32, device=device),
+        "A_log": torch.log(torch.linspace(1.0, 8.0, H, dtype=f32, device=device)),
+        "D": torch.ones((H,), dtype=f32, device=device),
+        "out_norm": norm_init(d_in, "rmsnorm", dtype, device),
+        "out_proj": dense_init(generator, d_in, d, dtype=dtype, device=device),
+    }
+
+
+def _split_in_proj(y, cfg):
+    """in_proj's output -> z, x, B, C, dt (views)."""
+    d_in, H, N, G = _m2_dims(cfg)
+    return torch.split(y, [d_in, d_in, G * N, G * N, H], dim=-1)
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv.  x [B,T,Ch], w [K,Ch] -> [B,T,Ch]: the sum of K
+    shifted taps in x's dtype, in the reference's order."""
+    K = w.shape[0]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = sum(xp[:, i: i + x.shape[1]] * w[i] for i in range(K))
+    return out + b
+
+
+def mamba2_scan_inputs(p, x, cfg):
+    """The mixer up to the scan.  x [B,T,d] (normed) -> (z [B,T,d_in],
+    conv_in [B,T,Ch] (the pre-activation conv input, whose last K-1 rows
+    are the decode state), and the scan's inputs x [B,T,H,P], dt [B,T,H]
+    (float32, after softplus), A [H], B, C [B,T,G,N], D [H])."""
+    d_in, H, N, G = _m2_dims(cfg)
+    dt_c = getattr(torch, cfg.dtype)
+    Bt, T, _ = x.shape
+    z, xc, Bm, Cm, dt = _split_in_proj(dense(p["in_proj"], x, dt_c), cfg)
+    conv_in = torch.cat([xc, Bm, Cm], dim=-1)
+    conv_out = F.silu(_causal_conv(conv_in, p["conv_w"].to(dt_c), p["conv_b"].to(dt_c)))
+    xc, Bm, Cm = torch.split(conv_out, [d_in, G * N, G * N], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])  # [B,T,H]
+    A = -torch.exp(p["A_log"])  # [H] < 0
+    scan = (xc.reshape(Bt, T, H, cfg.ssm_headdim), dt, A, Bm.reshape(Bt, T, G, N),
+            Cm.reshape(Bt, T, G, N), p["D"])
+    return z, conv_in, scan
+
+
+def mamba2_apply(p, x, cfg, return_state: bool = False):
+    """x [B,T,d] (normed) -> [B,T,d] (sequence path).  With return_state,
+    also the decode state {"conv": the last K-1 pre-activation conv inputs,
+    "ssm": the final h [B,H,P,N] float32}, as the reference's prefill
+    takes them."""
+    d_in = _m2_dims(cfg)[0]
+    dt_c = getattr(torch, cfg.dtype)
+    Bt, T, _ = x.shape
+    z, conv_in, scan = mamba2_scan_inputs(p, x, cfg)
+    ych, h = mamba2_ssd_hopper(*scan, chunk=min(64, T), return_state=True)
+    yc = ych.reshape(Bt, T, d_in).to(x.dtype)
+    yc = norm_apply(p["out_norm"], yc * F.silu(z), "rmsnorm")
+    out = dense(p["out_proj"], yc, dt_c)
+    if not return_state:
+        return out
+    return out, {"conv": conv_in[:, T - (cfg.ssm_conv - 1):], "ssm": h}
+
+
+def mamba2_state_init(cfg, batch: int, dtype=torch.float32, device="cpu"):
+    d_in, H, N, G = _m2_dims(cfg)
+    conv_ch = d_in + 2 * G * N
+    return {
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, conv_ch), dtype=dtype, device=device),
+        "ssm": torch.zeros((batch, H, cfg.ssm_headdim, N), dtype=torch.float32,
+                           device=device),
+    }
+
+
+def mamba2_decode_step(p, x, state, cfg):
+    """x [B,1,d] (normed) -> ([B,1,d], new state).  O(1) per token.  The
+    reference mixes float32 (dt, h, D) with the compute dtype (x, B, C) and
+    lets jnp promote to float32; torch's einsum takes one dtype, so C is
+    cast explicitly."""
+    d_in, H, N, G = _m2_dims(cfg)
+    dt_c = getattr(torch, cfg.dtype)
+    Bt = x.shape[0]
+    z, xc, Bm, Cm, dt = _split_in_proj(dense(p["in_proj"], x[:, 0], dt_c), cfg)
+    conv_in = torch.cat([xc, Bm, Cm], dim=-1)  # [B,Ch]
+    buf = torch.cat([state["conv"], conv_in[:, None]], dim=1)  # [B,K,Ch]
+    # the K taps as one float32-accumulated dot, rounded once (as the
+    # reference's einsum)
+    taps = (buf.float() * p["conv_w"].to(dt_c).float()[None]).sum(dim=1).to(dt_c)
+    conv_out = F.silu(taps + p["conv_b"].to(dt_c))
+    xc, Bm, Cm = torch.split(conv_out, [d_in, G * N, G * N], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])  # [B,H]
+    A = -torch.exp(p["A_log"])
+    xh = xc.reshape(Bt, H, cfg.ssm_headdim)
+    Bg = Bm.reshape(Bt, G, N).repeat_interleave(H // G, dim=1)
+    Cg = Cm.reshape(Bt, G, N).repeat_interleave(H // G, dim=1)
+    decay = torch.exp(A[None, :, None, None] * dt[..., None, None])
+    h = decay * state["ssm"] + dt[..., None, None] * xh[..., None] * Bg[:, :, None, :]
+    yh = torch.einsum("bhpn,bhn->bhp", h, Cg.float()) + p["D"][None, :, None] * xh
+    yc = yh.reshape(Bt, d_in).to(x.dtype)
+    yc = norm_apply(p["out_norm"], yc * F.silu(z), "rmsnorm")
+    out = dense(p["out_proj"], yc, dt_c)[:, None]
+    return out, {"conv": buf[:, 1:], "ssm": h}
+
+
+# ---------------------------------------------------------------- RWKV6
 
 _LORA = 32
 

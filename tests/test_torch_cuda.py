@@ -1,7 +1,10 @@
-"""The Hopper chain, pair and WKV6 kernels on the card against their plain
-versions.  Marked
+"""The Hopper chain, pair, WKV6 and Mamba-2 SSD kernels on the card against
+their plain versions.  Marked
 ``cuda``: these skip without an sm_90 GPU (run them on the card with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``)."""
+import importlib.util
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -11,9 +14,27 @@ from repro_torch.kernels.gaunt_fused import (gaunt_chain_fused_hopper,
                                              kernel_stats, launch_pair_kernel, pair_plain,
                                              reset_kernel_stats)
 from repro_torch.kernels.ops import gaunt_tp_fused
+from repro_torch.kernels import mamba2 as mamba2_mod
 from repro_torch.kernels import wkv6 as wkv6_mod
 
 pytestmark = pytest.mark.cuda
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the SSD cases and input draw of chip_smoke.py, plus odd sizes: P, N
+# below a float4 and a P tile, and P = 80 (a partial second tile) with
+# every head its own group
+_CS = _chip_smoke()
+_SSD_CASES = [c[1:] for c in _CS.SSD_CASES] + [
+    (1, 6, 2, 6, 1, 5, 64, "ref", "float32"),
+    (1, 128, 3, 80, 3, 64, 64, "ref", "float32")]
 
 
 @pytest.fixture
@@ -105,3 +126,60 @@ def test_wkv6_kernel_route_has_no_gradient_on_card(cuda_device):
         wkv6_mod.wkv6_hopper(r, r, r, w, u)
     with torch.no_grad():
         assert wkv6_mod.wkv6_hopper(r, r, r, w, u).shape == (1, 16, 2, 8)
+
+
+@pytest.mark.parametrize("Bt,T,H,P,G,N,chunk,decay,dtype", _SSD_CASES)
+def test_mamba2_kernel_matches_plain_on_card(cuda_device, Bt, T, H, P, G, N, chunk, decay,
+                                             dtype):
+    x, dt, A, B, C, D = _CS._ssd_inputs(Bt, T, H, P, G, N, decay, dtype, cuda_device,
+                                        seed=T + N)
+    mamba2_mod.reset_kernel_stats()
+    y, h = mamba2_mod.mamba2_ssd_hopper(x, dt, A, B, C, D, chunk=chunk, return_state=True)
+    assert mamba2_mod.kernel_stats()["mamba2_ssd"] == 1
+    want_y, want_h = mamba2_mod.mamba2_ssd_chunked(x, dt, A, B, C, D, chunk=chunk,
+                                                   return_state=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    for got, want in ((y, want_y), (h, want_h)):
+        err = (got - want).abs().max().item()
+        # f32, the same chunked sums in another order, la summed in the same
+        # order: well inside the f32 identity tier
+        assert err <= 1e-4 * max(1.0, want.abs().max().item()), err
+
+
+def test_mamba2_kernel_reads_split_views_on_card(cuda_device):
+    """x, B and C as the model hands them over: views of one bf16 conv
+    output row [x | B | C], read in place (no copy, one launch) and equal
+    to the kernel on contiguous copies and to the plain version."""
+    Bt, T, H, P, G, N = 2, 128, 4, 16, 2, 16
+    g = torch.Generator(device="cuda").manual_seed(7)
+    row = torch.randn(Bt, T, H * P + 2 * G * N, device=cuda_device,
+                      generator=g).bfloat16()
+    xc, Bm, Cm = torch.split(row, [H * P, G * N, G * N], dim=-1)
+    x, B, C = xc.reshape(Bt, T, H, P), Bm.reshape(Bt, T, G, N), Cm.reshape(Bt, T, G, N)
+    assert not x.is_contiguous() and x.data_ptr() == row.data_ptr()
+    dt = 0.01 + 0.19 * torch.rand(Bt, T, H, device=cuda_device, generator=g)
+    A = -(0.5 + 1.5 * torch.rand(H, device=cuda_device, generator=g))
+    D = torch.randn(H, device=cuda_device, generator=g)
+    mamba2_mod.reset_kernel_stats()
+    y, h = mamba2_mod.launch_mamba2_kernel(x, dt, A, B, C, D)
+    assert mamba2_mod.kernel_stats()["mamba2_ssd"] == 1
+    y2, h2 = mamba2_mod.launch_mamba2_kernel(x.contiguous(), dt, A, B.contiguous(),
+                                             C.contiguous(), D)
+    want_y, want_h = mamba2_mod.mamba2_ssd_chunked(x, dt, A, B, C, D, return_state=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    for got, want in ((y, want_y), (h, want_h)):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * max(1.0, want.abs().max().item()), err
+
+
+def test_mamba2_kernel_route_has_no_gradient_on_card(cuda_device):
+    x = torch.randn(1, 16, 2, 8, device=cuda_device, requires_grad=True)
+    dt = torch.full((1, 16, 2), 0.1, device=cuda_device)
+    A, D = -torch.ones(2, device=cuda_device), torch.ones(2, device=cuda_device)
+    Bm = torch.randn(1, 16, 1, 8, device=cuda_device)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        mamba2_mod.mamba2_ssd_hopper(x, dt, A, Bm, Bm, D)
+    with torch.no_grad():
+        assert mamba2_mod.mamba2_ssd_hopper(x, dt, A, Bm, Bm, D).shape == (1, 16, 2, 8)

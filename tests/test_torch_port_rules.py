@@ -16,6 +16,7 @@ from repro_torch.device import resolve_device
 from repro_torch.core.engine import plan
 from repro_torch.core.gaunt import GauntTensorProduct
 from repro_torch.kernels.gaunt_fused import gaunt_chain_fused_hopper, gaunt_fused_hopper
+from repro_torch.kernels.mamba2 import mamba2_ssd_hopper
 from repro_torch.kernels.ops import gaunt_tp_fused
 from repro_torch.kernels.wkv6 import wkv6_hopper
 from repro_torch.models.api import build_model
@@ -33,6 +34,8 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.models.ssm", "repro_torch.models.transformer",
             "repro_torch.models.api", "repro_torch.models.convert",
             "repro_torch.kernels.ref", "repro_torch.kernels.wkv6"} <= set(mods)
+    assert {"repro_torch.configs.zamba2_2p7b", "repro_torch.kernels.mamba2",
+            "repro_torch.models.attention", "repro_torch.models.flash"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -98,8 +101,9 @@ def test_pair_kernel_wrapper_runs_plain_version_only_for_cpu_tensors():
         gaunt_fused_hopper(x.to("meta").requires_grad_(True), x.to("meta"), 2, 2)
 
 
-def test_language_model_defaults_to_cuda():
-    cfg = get_config("rwkv6-3b").reduced()
+@pytest.mark.parametrize("name", ["rwkv6-3b", "zamba2-2.7b"])
+def test_language_model_defaults_to_cuda(name):
+    cfg = get_config(name).reduced()
     if torch.cuda.is_available():
         assert build_model(cfg).device.type == "cuda"
     else:
@@ -114,3 +118,11 @@ def test_wkv6_wrapper_runs_plain_version_only_for_cpu_tensors():
     assert wkv6_hopper(x, x, x, x, u).device.type == "cpu"
     with pytest.raises(ValueError, match="CUDA device"):
         wkv6_hopper(x.to("meta"), x, x, x, u)
+
+
+def test_mamba2_wrapper_runs_plain_version_only_for_cpu_tensors():
+    x, dt = torch.randn(1, 8, 2, 4), torch.rand(1, 8, 2)
+    A, D, Bm = -torch.ones(2), torch.ones(2), torch.randn(1, 8, 1, 4)
+    assert mamba2_ssd_hopper(x, dt, A, Bm, Bm, D).device.type == "cpu"
+    with pytest.raises(ValueError, match="CUDA device"):
+        mamba2_ssd_hopper(x.to("meta"), dt, A, Bm, Bm, D)
