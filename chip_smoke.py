@@ -35,7 +35,9 @@ result line):
      `escn_aligned`;
   8. WKV6 kernel vs plain — `wkv6_hopper` against `wkv6_chunked`, output
      and final state, at the reference's kernel-test shapes, T < 64, K = V =
-     64, decay 0.999 and 1e-6, and the full-width shape [4, 2048, 40, 64];
+     64 in f32 and in bf16 (r, k, v as the model feeds them), 32 chunks on
+     2 (b, h) (the state pass's loop on few blocks), decay 0.999 and 1e-6,
+     and the full-width shape [4, 2048, 40, 64];
   9. the RWKV6 slice — `rwkv6-3b` at its published widths and full depth
      (32 layers, 3.1e9 f32 parameters, bf16 compute) on random weights from
      a seeded generator on the card: prefill 4 x 2048 tokens (the WKV kernel
@@ -43,9 +45,11 @@ result line):
      state, decode after a 256-token prefill against forward's logits at
      the next position (f32 compute at full depth, bf16 at 2 layers), and
      the kernel against its plain version on the first layer's WKV inputs;
-  10. RWKV6 times — the WKV kernel and its plain version at full width
-     (bound: the sequential recurrence's operations, f32 bytes), prefill
-     and decode per token on the host clock, and a profiled prefill;
+  10. RWKV6 times — the WKV kernel (both passes, and each pass) and its
+     plain version at full width on layer 0's inputs in the model's dtypes,
+     the kernel on f32 copies of r, k, v beside (bound: the sequential
+     recurrence's operations, the bytes at the dtypes read), prefill and
+     decode per token on the host clock, and a profiled prefill;
   11. SSD kernel vs plain — `mamba2_ssd_hopper` against
      `mamba2_ssd_chunked`, output and final state, at the reference's
      kernel-test shapes (G = 2), T < 64, strong (A = -8, dt up to 5) and
@@ -468,16 +472,7 @@ def device_ms(fn, reps: int = 20):
     """GPU time per call from torch.profiler: the summed device time of the
     kernels ``fn`` launches, over ``reps`` calls; None when the profiler
     records no device time (then only the event times stand)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(_device_us(e) for e in _kernel_events(prof))
+    total = sum(_device_us(e) for e in _profiled_kernels(fn, reps))
     return total / reps / 1e3 if total > 0 else None
 
 
@@ -838,24 +833,29 @@ def phase_conv_filter(device, Ls=(1, 2, 3, 4, 5, 6), edges: int = 1024, pinned_L
 # phases 8-10: the WKV6 kernel and the RWKV6 slice at full width
 # --------------------------------------------------------------------------
 
-# (name, B, T, H, K, V, chunk, decay): the reference's kernel tests
-# (tests/test_kernels.py, K = 8 and 16), a prompt shorter than the chunk
-# (C = T), the model's head size, decay near 1 and near-total forgetting
-WKV_CASES = ([(f"K={K} T={T} chunk={c}", 2, T, 3, K, K, c, "uniform")
+# (name, B, T, H, K, V, chunk, decay, dtype of r, k, v): the reference's
+# kernel tests (tests/test_kernels.py, K = 8 and 16), a prompt shorter than
+# the chunk (C = T), the model's head size in f32 and in bf16 (as the model
+# feeds r, k, v), many chunks on few (b, h) (the state pass's sequential
+# loop: 32 chunks on 2 heads), decay near 1 and near-total forgetting
+WKV_CASES = ([(f"K={K} T={T} chunk={c}", 2, T, 3, K, K, c, "uniform", "float32")
               for K in (8, 16) for T, c in ((32, 8), (64, 16), (48, 16))]
-             + [("T<64 (C=T=40)", 2, 40, 3, 64, 64, 64, "uniform"),
-                ("K=V=64", 2, 256, 4, 64, 64, 64, "uniform"),
-                ("w=0.999", 2, 256, 4, 64, 64, 64, "near_one"),
-                ("w=1e-6 K=8", 1, 64, 1, 8, 8, 64, "extreme"),
-                ("w=1e-6 K=64", 2, 128, 4, 64, 64, 64, "extreme")])
+             + [("T<64 (C=T=40)", 2, 40, 3, 64, 64, 64, "uniform", "float32"),
+                ("K=V=64", 2, 256, 4, 64, 64, 64, "uniform", "float32"),
+                ("K=V=64 bf16", 2, 256, 4, 64, 64, 64, "uniform", "bfloat16"),
+                ("many chunks", 1, 2048, 2, 64, 64, 64, "uniform", "float32"),
+                ("w=0.999", 2, 256, 4, 64, 64, 64, "near_one", "float32"),
+                ("w=1e-6 K=8", 1, 64, 1, 8, 8, 64, "extreme", "float32"),
+                ("w=1e-6 K=64", 2, 128, 4, 64, 64, 64, "extreme", "float32")])
 WKV_FULL = (4, 2048, 40, 64)  # rwkv6-3b prefill: 4 prompts x 2048 tokens, 40 heads of 64
 
 
-def _wkv_inputs(B, T, H, K, V, decay, device, seed):
+def _wkv_inputs(B, T, H, K, V, decay, device, seed, dtype="float32"):
     """r, k, v, w, u as the reference's kernel tests draw them (seeded
-    numpy, f32): r, k ~ N(0, 0.25), v ~ N(0, 1), u ~ N(0, 0.09), w by
+    numpy): r, k ~ N(0, 0.25), v ~ N(0, 1), u ~ N(0, 0.09), w by
     ``decay``; the extreme case takes unit r, k and u = 0 as
-    test_wkv6_extreme_decay_stable does."""
+    test_wkv6_extreme_decay_stable does.  r, k, v in ``dtype``, w and u in
+    f32."""
     import numpy as np
     import torch
 
@@ -869,8 +869,9 @@ def _wkv_inputs(B, T, H, K, V, decay, device, seed):
     else:
         w = np.full((B, T, H, K), 0.999 if decay == "near_one" else 1e-6)
     u = np.zeros((H, K)) if decay == "extreme" else rng.normal(size=(H, K)) * 0.3
-    return tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
-                 for a in (r, k, v, w, u))
+    io = getattr(torch, dtype)
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=device).to(
+        io if i < 3 else torch.float32) for i, a in enumerate((r, k, v, w, u)))
 
 
 def compare_wkv6(r, k, v, w, u, chunk: int = 64):
@@ -895,13 +896,14 @@ def phase_wkv6_vs_plain(device, full=WKV_FULL) -> float:
     and the full-width shape; -> max abs error at the full-width shape."""
     import torch
 
-    cases = WKV_CASES + [(f"full width {full}", *full, full[3], 64, "uniform")]
+    cases = WKV_CASES + [(f"full width {full}", *full, full[3], 64, "uniform", "float32")]
     full_err = 0.0
-    for i, (name, B, T, H, K, V, chunk, decay) in enumerate(cases):
-        r, k, v, w, u = _wkv_inputs(B, T, H, K, V, decay, device, seed=10 + i)
+    for i, (name, B, T, H, K, V, chunk, decay, dtype) in enumerate(cases):
+        r, k, v, w, u = _wkv_inputs(B, T, H, K, V, decay, device, seed=10 + i, dtype=dtype)
         err, rel, srel, finite = compare_wkv6(r, k, v, w, u, chunk)
         ok = finite and rel <= F32_IDENTITY_TOL and srel <= F32_IDENTITY_TOL
-        print(f"[wkv6] {name} [B={B},T={T},H={H},K={K},V={V}] chunk {min(chunk, T)}: "
+        print(f"[wkv6] {name} [B={B},T={T},H={H},K={K},V={V}] {dtype} r/k/v, chunk "
+              f"{min(chunk, T)}: "
               f"o max_abs_err {err:.3e} rel {rel:.3e}, state rel {srel:.3e} (tol "
               f"{F32_IDENTITY_TOL}: f32, the same chunked sums in another order), "
               f"finite {finite} {'ok' if ok else 'FAIL'}")
@@ -1058,51 +1060,94 @@ def prefill_decode_vs_forward(cfg, params, tokens, n: int, device):
     return (rel_p, *rel_err(step[:, 0], logits_all[:, n]))
 
 
-def wkv6_work(B: int, T: int, H: int, K: int, V: int):
+def wkv6_work(B: int, T: int, H: int, K: int, V: int, rkv_bytes: int = 4):
     """(FLOPs, bytes) of the WKV6 function: the sequential recurrence in
     rescaled form (S~ = S / prod w: one FMA per state entry to add k v^T,
     one per entry for r^T S~), 4 K V per (token, head), is the exact
-    algorithm with the fewest operations; r, k, w, v and u read once and o
-    and the final S written once, in f32."""
+    algorithm with the fewest operations; r, k, v (``rkv_bytes`` an element)
+    and w, u (f32) read once, o and the final S (f32) written once."""
     flops = 4 * K * V * B * T * H
-    nbytes = 4 * (B * T * H * (3 * K + 2 * V) + H * K + B * H * K * V)
+    nbytes = (rkv_bytes * B * T * H * (2 * K + V)
+              + 4 * (B * T * H * (K + V) + H * K + B * H * K * V))
     return flops, nbytes
 
 
+def _profiled_kernels(fn, reps: int):
+    """The profiler's GPU-side events of ``reps`` calls of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return _kernel_events(prof)
+
+
+def _wkv6_pass_ms(calls: dict, reps: int = 20):
+    """Device time per call of the WKV6 kernel, both passes and each, from
+    one torch.profiler session over ``reps`` rounds of ``calls`` ({element
+    type of r, k, v as the kernels' names spell it ('__nv_bfloat16',
+    'float'): a call}) -> {type: (both, state pass, output pass)}, or None
+    when the profiler records no device time."""
+    events = _profiled_kernels(lambda: [fn() for fn in calls.values()], reps)
+    out = {}
+    for t in calls:
+        state, outp = (sum(_device_us(e) for e in events if f"{name}<{t}," in e.key)
+                       / reps / 1e3 for name in ("wkv6_state_kernel", "wkv6_out_kernel"))
+        out[t] = (state + outp, state, outp)
+    return out if all(v[0] > 0 for v in out.values()) else None
+
+
 def phase_wkv6_times(device, r, k, v, w, u):
-    """Kernel and plain version on the layer-0 inputs at full width, in turns
-    (plain, kernel, kernel, plain), device times from torch.profiler, and
-    the bound."""
+    """Kernel and plain version on the layer-0 inputs at full width in the
+    model's dtypes (r, k, v as the model makes them, w and u f32), in turns
+    (plain, kernel, kernel, plain); device times per call and per pass from
+    torch.profiler; the kernel on f32 copies of r, k, v beside (what the
+    wrapper fed it before it read bf16 in place); the bound at the dtypes
+    read."""
     import torch
     from repro_torch.kernels.wkv6 import launch_wkv6_kernel, wkv6_chunked
 
-    r, k, v, w, u = (a.float().contiguous() for a in (r, k, v, w, u))
+    ins = (r, k, v, w, u)
+    ins32 = tuple(a.float().contiguous() for a in ins)
     B, T, H, K = r.shape
     V = v.shape[3]
     with torch.no_grad():
-        p1 = event_ms(lambda: wkv6_chunked(r, k, v, w, u, return_state=True), reps=10)
-        k1 = event_ms(lambda: launch_wkv6_kernel(r, k, v, w, u))
-        k2 = event_ms(lambda: launch_wkv6_kernel(r, k, v, w, u))
-        p2 = event_ms(lambda: wkv6_chunked(r, k, v, w, u, return_state=True), reps=10)
-        kd = device_ms(lambda: launch_wkv6_kernel(r, k, v, w, u))
-        pd = device_ms(lambda: wkv6_chunked(r, k, v, w, u, return_state=True), reps=5)
-    print(f"[times] wkv6 [{B},{T},{H},{K}] V={V} chunk 64: kernel {k1:.4f}/{k2:.4f} ms, "
-          f"plain {p1:.4f}/{p2:.4f} ms per call (CUDA events around one call from "
-          f"Python, median of 50 and 10)")
-    if kd is not None and pd is not None:
-        kernel_ms, plain_ms = kd, pd
-        print(f"[times] wkv6 device time per call (torch.profiler, 20 and 5 calls): "
-              f"kernel {kd:.5f} ms, plain {pd:.5f} ms")
+        p1 = event_ms(lambda: wkv6_chunked(*ins, return_state=True), reps=10)
+        k1 = event_ms(lambda: launch_wkv6_kernel(*ins))
+        f1 = event_ms(lambda: launch_wkv6_kernel(*ins32))
+        k2 = event_ms(lambda: launch_wkv6_kernel(*ins))
+        p2 = event_ms(lambda: wkv6_chunked(*ins, return_state=True), reps=10)
+        tname = "__nv_bfloat16" if r.dtype == torch.bfloat16 else "float"
+        dev_ms = _wkv6_pass_ms({tname: lambda: launch_wkv6_kernel(*ins),
+                                "float": lambda: launch_wkv6_kernel(*ins32)})
+        pd = device_ms(lambda: wkv6_chunked(*ins, return_state=True), reps=5)
+    kd, fd = (None, None) if dev_ms is None else (dev_ms[tname], dev_ms["float"])
+    print(f"[times] wkv6 [{B},{T},{H},{K}] V={V} chunk 64, {r.dtype} r/k/v: kernel "
+          f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms per call; kernel on f32 copies "
+          f"of r/k/v {f1:.4f} ms (CUDA events around one call from Python, median of 50 "
+          f"and 10)")
+    if kd is not None and fd is not None and pd is not None:
+        kernel_ms, plain_ms = kd[0], pd
+        print(f"[times] wkv6 device time per call (torch.profiler, 20 and 5 calls): kernel "
+              f"{kd[0]:.5f} ms (state pass {kd[1]:.5f}, output pass {kd[2]:.5f}), on f32 "
+              f"copies {fd[0]:.5f} ms (state {fd[1]:.5f}, output {fd[2]:.5f}), plain "
+              f"{pd:.5f} ms")
     else:
         kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
         print("[times] wkv6 device time per call: not measured (the profiler saw no "
               "device time); the event times stand")
-    flops, nbytes = wkv6_work(B, T, H, K, V)
+    flops, nbytes = wkv6_work(B, T, H, K, V, r.element_size())
+    nbytes32 = wkv6_work(B, T, H, K, V)[1]
     bound_ms, bound_by = bound_of(flops, nbytes)
     print(f"[times] wkv6 work: {flops / 1e9:.3f} GFLOP (sequential recurrence, 4 K V per "
-          f"(token, head)), {nbytes / 1e6:.1f} MB (f32 in and out) -> bound {bound_ms:.5f} ms "
-          f"by {bound_by} (67 TFLOP/s f32, 3.35 TB/s); kernel at "
-          f"{bound_ms / kernel_ms * 100:.1f}% of bound")
+          f"(token, head)), {nbytes / 1e6:.1f} MB ({r.dtype} r, k, v in; f32 w, u in, o, S "
+          f"out) -> bound {bound_ms:.5f} ms by {bound_by} (67 TFLOP/s f32, 3.35 TB/s); "
+          f"kernel at {bound_ms / kernel_ms * 100:.1f}% of bound; with f32 r, k, v "
+          f"{nbytes32 / 1e6:.1f} MB -> {bound_of(flops, nbytes32)[0]:.5f} ms")
     print("[times] wkv6 library_ms: none — no single PyTorch call computes the WKV6 "
           "recurrence")
     return kernel_ms, plain_ms, bound_ms, bound_by

@@ -17,13 +17,20 @@ however strong, overflows.
 * `wkv6_chunked` — the plain PyTorch version: the reference's chunked scan
   (``repro.kernels.wkv6.wkv6_chunked``) as a Python loop over chunks,
   differentiable.
-* `launch_wkv6_kernel` — the wrapper of ``csrc/wkv6.cu`` (sm_90a, f32): it
-  checks its inputs, launches on the current stream, raises on a launch
-  error, and counts launches (`kernel_stats()['wkv6']`).
-* `wkv6_hopper` — the sequence path's scan: the kernel on CUDA tensors, the
-  plain version on CPU tensors (only there).  Like the reference's Pallas
-  kernel it has no gradient: off the CPU, an input that requires grad
-  (with grad mode on) raises.
+* `launch_wkv6_kernel` — the wrapper of ``csrc/wkv6.cu`` (sm_90a, f32
+  arithmetic): r, k and v float32 or bfloat16 (all three alike, read as
+  they are and upcast on load, exactly), w and u float32.  It checks its
+  inputs, allocates o, the final S and the kernel's scratch (S at every
+  chunk's start, [B*H, T/C, K, V] float32, written by the sequential state
+  pass and read by the chunk-parallel output pass), enqueues both passes
+  on the current stream, raises on a launch error, and counts one launch
+  per call (`kernel_stats()['wkv6']`), as the reference has one
+  pallas_call per call.
+* `wkv6_hopper` — the sequence path's scan: the kernel on CUDA tensors, as
+  they come (no copy: the model's r, k, v are contiguous in its compute
+  dtype, w and u float32), the plain version on CPU tensors (only there).
+  Like the reference's Pallas kernel it has no gradient: off the CPU, an
+  input that requires grad (with grad mode on) raises.
 
 The chunk length is C = min(chunk, T), and T must be a multiple of C: a
 prompt is not padded, since padding would change the state.
@@ -40,17 +47,17 @@ from .build import load as _load
 __all__ = ["wkv6_chunked", "launch_wkv6_kernel", "wkv6_hopper", "kernel_stats",
            "reset_kernel_stats"]
 
-# launches of the kernel since the last reset (ticked in `launch_wkv6_kernel`
-# only, once per launch)
+# calls of the kernel since the last reset (ticked in `launch_wkv6_kernel`
+# only, once per call: one call enqueues both passes)
 _STATS = {"wkv6": 0}
 # the kernel keeps one chunk of r, k, log w and v, the chunk's A and the
-# state in shared memory: K, V and C up to 64 fit (V a multiple of 4, for
-# its float4 stores of o)
+# state at the chunk's start in shared memory: K, V and C up to 64 fit (V a
+# multiple of 4, for its float4 loads and stores along V)
 _MAX_DIM = 64
 
 
 def kernel_stats() -> dict:
-    """{'wkv6': launches} since the last reset."""
+    """{'wkv6': kernel calls (each both passes)} since the last reset."""
     return dict(_STATS)
 
 
@@ -106,24 +113,35 @@ def wkv6_chunked(r, k, v, w, u, chunk: int = 64, return_state: bool = False):
 
 def _declare(lib) -> None:
     fn = lib.wkv6_forward
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
 def launch_wkv6_kernel(r, k, v, w, u, chunk: int = 64):
-    """Run the CUDA WKV6 kernel: r, k, w [B,T,H,K], v [B,T,H,V], u [H,K]
-    (float32, contiguous, on one CUDA device) -> (o [B,T,H,V], final
-    S [B,H,K,V]), both float32.  Raises on anything the kernel does not take
-    and on a launch error; never falls back."""
+    """Run the CUDA WKV6 kernel: r, k [B,T,H,K] and v [B,T,H,V] (all three
+    float32, or all three bfloat16), w [B,T,H,K] and u [H,K] (float32), all
+    contiguous (r, k, v and w 16-byte aligned) on one CUDA device ->
+    (o [B,T,H,V], final S [B,H,K,V]), both float32.  The two passes share
+    a scratch of S at every chunk's start, [B*H, T/C, K, V] float32,
+    allocated here.  One call is one counted launch.  Raises on anything
+    the kernel does not take and on a launch error; never falls back."""
     dev = r.device
     for t in (r, k, v, w, u):
         if t.device != dev or dev.type != "cuda":
             raise ValueError(f"the wkv6 kernel needs every tensor on one CUDA "
                              f"device, got {t.device} beside {dev}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"the wkv6 kernel takes float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the wkv6 kernel takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in (r, k, v, w)):
+        raise ValueError("the wkv6 kernel takes r, k, v and w 16-byte aligned "
+                         "(it loads four elements at a time)")
+    if r.dtype not in (torch.float32, torch.bfloat16) or k.dtype != r.dtype \
+            or v.dtype != r.dtype:
+        raise ValueError(f"the wkv6 kernel takes r, k and v all float32 or all "
+                         f"bfloat16, got {r.dtype}, {k.dtype}, {v.dtype}")
+    if w.dtype != torch.float32 or u.dtype != torch.float32:
+        raise ValueError(f"the wkv6 kernel takes w and u in float32, got {w.dtype} "
+                         f"and {u.dtype}")
     if r.dim() != 4 or v.dim() != 4:
         raise ValueError(f"r and v must be [B,T,H,K] and [B,T,H,V], got "
                          f"{tuple(r.shape)} and {tuple(v.shape)}")
@@ -141,15 +159,16 @@ def launch_wkv6_kernel(r, k, v, w, u, chunk: int = 64):
     S = torch.empty((B, H, K, V), device=dev, dtype=torch.float32)
     if B * H == 0:
         return o, S
+    S_start = torch.empty((B * H, T // C, K, V), device=dev, dtype=torch.float32)
     lib = _load("wkv6", _declare)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.wkv6_forward(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                              u.data_ptr(), o.data_ptr(), S.data_ptr(),
-                              B, T, H, K, V, C, stream)
+                              u.data_ptr(), o.data_ptr(), S.data_ptr(), S_start.data_ptr(),
+                              B, T, H, K, V, C, int(r.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {rc} "
-                           f"(B={B}, T={T}, H={H}, K={K}, V={V}, C={C})")
+                           f"(B={B}, T={T}, H={H}, K={K}, V={V}, C={C}, {r.dtype})")
     _STATS["wkv6"] += 1
     return o, S
 
@@ -158,14 +177,17 @@ def wkv6_hopper(r, k, v, w, u, chunk: int = 64, return_state: bool = False):
     """The WKV6 scan (same arguments and result as `wkv6_chunked`) on the
     Hopper kernel for CUDA tensors; CPU tensors run the plain version.
 
-    The kernel route has no gradient, like the reference's Pallas kernel:
-    with grad mode on, an input that requires grad raises rather than
-    return a result cut off from the graph."""
+    CUDA tensors go to the kernel as they come, not copied: r, k, v all
+    float32 or all bfloat16, w and u float32, all contiguous (as the model
+    makes them); anything else raises.  The kernel route has no gradient,
+    like the reference's Pallas kernel: with grad mode on, an input that
+    requires grad raises rather than return a result cut off from the
+    graph."""
     ins = (r, k, v, w, u)
     if all(a.device.type == "cpu" for a in ins):
         return wkv6_chunked(r, k, v, w, u, chunk=chunk, return_state=return_state)
     if torch.is_grad_enabled() and any(a.requires_grad for a in ins):
         raise RuntimeError("the wkv6 kernel has no gradient: call it under "
                            "torch.no_grad() or on inputs that do not require grad")
-    o, S = launch_wkv6_kernel(*(a.float().contiguous() for a in ins), chunk=chunk)
+    o, S = launch_wkv6_kernel(*ins, chunk=chunk)
     return (o, S) if return_state else o

@@ -96,7 +96,8 @@ def test_pair_kernel_route_has_no_gradient_on_card(cuda_device):
                                                  (2, 48, 3, 16, 16, "uniform"),
                                                  (2, 40, 3, 64, 64, "uniform"),
                                                  (2, 256, 4, 64, 64, "uniform"),
-                                                 (2, 128, 4, 64, 64, "extreme")])
+                                                 (2, 128, 4, 64, 64, "extreme"),
+                                                 (1, 2048, 2, 64, 64, "uniform")])
 def test_wkv6_kernel_matches_plain_on_card(cuda_device, B, T, H, K, chunk, decay):
     g = torch.Generator(device="cuda").manual_seed(T + K)
     r, k, v = (torch.randn(B, T, H, K, device=cuda_device, generator=g) * 0.5
@@ -115,6 +116,52 @@ def test_wkv6_kernel_matches_plain_on_card(cuda_device, B, T, H, K, chunk, decay
     for got, want in ((o, want_o), (S, want_S)):
         err = (got - want).abs().max().item()
         # f32, the same chunked sums in another order: the f32 identity tier
+        assert err <= 3e-4 * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.parametrize("B,T,H,K,chunk", [(2, 256, 4, 64, 64), (1, 2048, 2, 64, 64),
+                                           (2, 48, 3, 16, 16)])
+def test_wkv6_kernel_bf16_rkv_equals_f32_upcast_on_card(cuda_device, B, T, H, K, chunk):
+    """bf16 r, k, v (as the model feeds them; w, u float32) are read in place
+    and upcast exactly: the same o and S as their float32 upcasts, one
+    counted launch per call, and within the f32 tier of the plain version."""
+    g = torch.Generator(device="cuda").manual_seed(T + K + 1)
+    r, k, v = ((torch.randn(B, T, H, K, device=cuda_device, generator=g) * 0.5)
+               .to(torch.bfloat16) for _ in range(3))
+    w = 0.2 + 0.799 * torch.rand(B, T, H, K, device=cuda_device, generator=g)
+    u = torch.randn(H, K, device=cuda_device, generator=g) * 0.3
+    wkv6_mod.reset_kernel_stats()
+    o, S = wkv6_mod.wkv6_hopper(r, k, v, w, u, chunk=chunk, return_state=True)
+    assert wkv6_mod.kernel_stats()["wkv6"] == 1
+    o32, S32 = wkv6_mod.wkv6_hopper(r.float(), k.float(), v.float(), w, u, chunk=chunk,
+                                    return_state=True)
+    assert wkv6_mod.kernel_stats()["wkv6"] == 2
+    want_o, want_S = wkv6_mod.wkv6_chunked(r, k, v, w, u, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert o.dtype == S.dtype == torch.float32
+    for got, f32, want in ((o, o32, want_o), (S, S32, want_S)):
+        assert (got - f32).abs().max().item() <= 1e-6
+        err = (got - want).abs().max().item()
+        assert err <= 3e-4 * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.parametrize("dtype,V", [(torch.float32, 8), (torch.bfloat16, 12)])
+def test_wkv6_kernel_odd_sizes_on_card(cuda_device, dtype, V):
+    """The kernel's run-time-size paths: K = 6 (not a multiple of 4: r, k, w
+    staged an element at a time), C = T = 30 (pad rows in the last tile),
+    and in bf16 V = 12 (rows of v copied a quad at a time)."""
+    B, T, H, K = 1, 30, 2, 6
+    g = torch.Generator(device="cuda").manual_seed(V)
+    r, k = (torch.randn(B, T, H, K, device=cuda_device, generator=g).to(dtype) * 0.5
+            for _ in range(2))
+    v = torch.randn(B, T, H, V, device=cuda_device, generator=g).to(dtype)
+    w = 0.2 + 0.799 * torch.rand(B, T, H, K, device=cuda_device, generator=g)
+    u = torch.randn(H, K, device=cuda_device, generator=g) * 0.3
+    o, S = wkv6_mod.wkv6_hopper(r, k, v, w, u, chunk=64, return_state=True)
+    want_o, want_S = wkv6_mod.wkv6_chunked(r, k, v, w, u, chunk=64, return_state=True)
+    torch.cuda.synchronize()
+    for got, want in ((o, want_o), (S, want_S)):
+        err = (got - want).abs().max().item()
         assert err <= 3e-4 * max(1.0, want.abs().max().item()), err
 
 

@@ -1,7 +1,9 @@
 """The port's WKV6 scan (plain version and kernel wrapper) against the JAX
 reference: `wkv6_chunked`, `wkv6_pallas` in interpret mode and the naive
 recurrence `wkv6_ref`, on the shapes of the reference's kernel tests, at
-the f32 identity tier (3e-4 scale-relative)."""
+the f32 identity tier (3e-4 scale-relative).  The kernel's two-pass split
+(S at every chunk's start first, then every chunk's output on its own) is
+written out in torch here and held to the reference the same way."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -131,3 +133,77 @@ def test_wkv6_hopper_off_cpu_is_the_kernel():
     arrs[0].requires_grad_(True)
     with pytest.raises(RuntimeError, match="no gradient"):
         wkv6_hopper(*arrs, chunk=8)
+
+
+def _two_pass(r, k, v, w, u, chunk):
+    """The CUDA kernel's split of the chunked scan, in torch: the state pass
+    (sequential over chunks, no C x C work) forms S at every chunk's start
+    and the final S; the output pass then forms every chunk's output from
+    its own inputs and its S_start alone, all chunks at once.  Base-2 logs
+    and exponentials, and A's exponentials split as the kernel splits
+    them."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    C = min(chunk, T)
+    n = T // C
+
+    def to_bh(x, d):  # [B,T,H,d] -> [B*H, n, C, d]
+        return x.float().permute(0, 2, 1, 3).reshape(B * H, n, C, d)
+
+    rs, ks, vs = to_bh(r, K), to_bh(k, K), to_bh(v, V)
+    lw = torch.log2(to_bh(w, K).clamp(1e-12, 1.0)).cumsum(2)
+    # state pass
+    S = torch.zeros((B * H, K, V))
+    starts = []
+    for c in range(n):
+        starts.append(S)
+        kt = ks[:, c] * torch.exp2(lw[:, c, -1:] - lw[:, c])
+        S = torch.exp2(lw[:, c, -1])[..., None] * S + kt.transpose(1, 2) @ vs[:, c]
+    S_start = torch.stack(starts, 1)  # [B*H, n, K, V]
+    # output pass: no chunk reads another's.  Below the diagonal's 4 x 4
+    # tiles the exponential is factored through the pivot L = lw of the
+    # tile's last column (both factors <= 1); on them it is masked per entry
+    lw_prev = torch.nn.functional.pad(lw[:, :, :-1], (0, 0, 1, 0))
+    idx = torch.arange(C)
+    mask = (idx[:, None] > idx[None, :])[..., None]
+    diff = lw_prev[:, :, :, None, :] - lw[:, :, None, :, :]
+    E_own = torch.exp2(torch.where(mask, diff, float("-inf")))
+    L = lw[:, :, (4 * (idx // 4) + 3).clamp(max=C - 1)]  # [B*H, n, C (j), K]
+    E_piv = (torch.exp2((lw_prev[:, :, :, None, :] - L[:, :, None]).clamp(max=0.0))
+             * torch.exp2((L - lw).clamp(max=0.0))[:, :, None])
+    below = (idx[:, None] // 4 > idx[None, :] // 4)[..., None]
+    E = torch.where(below, E_piv, E_own)
+    A = (rs[:, :, :, None, :] * ks[:, :, None, :, :] * E).sum(-1)
+    A_diag = (rs * u.float().repeat(B, 1)[:, None, None, :] * ks).sum(-1)
+    o = A @ vs + A_diag[..., None] * vs + (rs * torch.exp2(lw_prev)) @ S_start
+    o = o.reshape(B, H, T, V).permute(0, 2, 1, 3)
+    return o, S.reshape(B, H, K, V)
+
+
+@pytest.mark.parametrize("K,T,chunk,decay", [(8, 32, 8, "uniform"), (8, 64, 16, "uniform"),
+                                             (8, 48, 16, "uniform"), (16, 32, 8, "uniform"),
+                                             (16, 64, 16, "uniform"), (16, 48, 16, "uniform"),
+                                             (16, 128, 32, "near_one"),
+                                             (8, 64, 64, "extreme"), (64, 128, 64, "extreme")])
+def test_wkv6_two_pass_split_matches_reference(K, T, chunk, decay):
+    """States at chunk starts first, then each chunk's output on its own:
+    the same sums as the chunked scan in another order (f32 identity tier),
+    finite at w = 1e-6."""
+    arrs = _inputs(2, T, 3, K, K, seed=20 + K + T, decay=decay)
+    o, S = _two_pass(*_torch(arrs), chunk=chunk)
+    assert torch.isfinite(o).all() and torch.isfinite(S).all()
+    jo, jS = jwkv6_chunked(*_jax(arrs), chunk=chunk, return_state=True)
+    assert_close(o.numpy(), np.asarray(jo))
+    assert_close(S.numpy(), np.asarray(jS))
+
+
+def test_wkv6_hopper_bf16_rkv_on_cpu_is_the_f32_upcast():
+    """bf16 r, k, v (as the model feeds them; w, u float32) give exactly what
+    their float32 upcasts give: the upcast is exact."""
+    r, k, v, w, u = _torch(_inputs(2, 64, 3, 16, 16, seed=21))
+    rb, kb, vb = (a.to(torch.bfloat16) for a in (r, k, v))
+    o, S = wkv6_hopper(rb, kb, vb, w, u, chunk=16, return_state=True)
+    want_o, want_S = wkv6_chunked(rb.float(), kb.float(), vb.float(), w, u, chunk=16,
+                                  return_state=True)
+    assert o.dtype == S.dtype == torch.float32
+    assert torch.equal(o, want_o) and torch.equal(S, want_S)
