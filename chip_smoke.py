@@ -53,7 +53,8 @@ result line):
   11. SSD kernel vs plain — `mamba2_ssd_hopper` against
      `mamba2_ssd_chunked`, output and final state, at the reference's
      kernel-test shapes (G = 2), T < 64, strong (A = -8, dt up to 5) and
-     weak (A dt ~ -1e-4) decay, and the full-width shape [4, 2048, 80, 64]
+     weak (A dt ~ -1e-4) decay, 32 chunks on 2 (b, h) (the state pass's
+     chunk chain at full depth), and the full-width shape [4, 2048, 80, 64]
      (N 64, G 1, bf16 x, B and C as the model feeds them);
   12. the Zamba2 slice — `zamba2-2.7b` at its published widths and full
      depth (54 Mamba-2 layers in 9 stages of 6 plus the shared attention
@@ -65,9 +66,11 @@ result line):
      (f32 compute at 54 layers, bf16 at one stage of 6; bf16 at 54
      printed), and the kernel against its plain version on the first
      layer's SSD inputs;
-  13. Zamba2 times — the SSD kernel and its plain version at full width
-     (bound: the step recurrence's operations), prefill and decode per
-     token on the host clock, and a profiled prefill.
+  13. Zamba2 times — the SSD kernel (both passes, and each pass: state
+     pass, output pass) and its plain version at full width on layer 0's
+     inputs (bound: the step recurrence's operations), prefill and decode
+     per token on the host clock, and a profiled prefill (its SSD share
+     sums both passes).
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs no network and imports no JAX.
 """
@@ -1086,19 +1089,25 @@ def _profiled_kernels(fn, reps: int):
     return _kernel_events(prof)
 
 
-def _wkv6_pass_ms(calls: dict, reps: int = 20):
-    """Device time per call of the WKV6 kernel, both passes and each, from
-    one torch.profiler session over ``reps`` rounds of ``calls`` ({element
-    type of r, k, v as the kernels' names spell it ('__nv_bfloat16',
-    'float'): a call}) -> {type: (both, state pass, output pass)}, or None
-    when the profiler records no device time."""
+def _pass_ms(calls: dict, kernels: tuple, reps: int = 20):
+    """Device time per call of a two-pass kernel, both passes and each,
+    from one torch.profiler session over ``reps`` rounds of ``calls``
+    ({element type of the kernels' inputs as their names spell it
+    ('__nv_bfloat16', 'float'): a call}); ``kernels`` names the two passes
+    (state pass, output pass) -> {type: (both, state pass, output pass)},
+    or None when the profiler records no device time."""
     events = _profiled_kernels(lambda: [fn() for fn in calls.values()], reps)
     out = {}
     for t in calls:
-        state, outp = (sum(_device_us(e) for e in events if f"{name}<{t}," in e.key)
-                       / reps / 1e3 for name in ("wkv6_state_kernel", "wkv6_out_kernel"))
+        state, outp = (sum(_device_us(e) for e in events
+                           if f"{name}<{t}," in e.key or f"{name}<{t}>" in e.key)
+                       / reps / 1e3 for name in kernels)
         out[t] = (state + outp, state, outp)
     return out if all(v[0] > 0 for v in out.values()) else None
+
+
+WKV6_PASSES = ("wkv6_state_kernel", "wkv6_out_kernel")
+SSD_PASSES = ("ssd_state_kernel", "ssd_out_kernel")
 
 
 def phase_wkv6_times(device, r, k, v, w, u):
@@ -1122,8 +1131,8 @@ def phase_wkv6_times(device, r, k, v, w, u):
         k2 = event_ms(lambda: launch_wkv6_kernel(*ins))
         p2 = event_ms(lambda: wkv6_chunked(*ins, return_state=True), reps=10)
         tname = "__nv_bfloat16" if r.dtype == torch.bfloat16 else "float"
-        dev_ms = _wkv6_pass_ms({tname: lambda: launch_wkv6_kernel(*ins),
-                                "float": lambda: launch_wkv6_kernel(*ins32)})
+        dev_ms = _pass_ms({tname: lambda: launch_wkv6_kernel(*ins),
+                           "float": lambda: launch_wkv6_kernel(*ins32)}, WKV6_PASSES)
         pd = device_ms(lambda: wkv6_chunked(*ins, return_state=True), reps=5)
     kd, fd = (None, None) if dev_ms is None else (dev_ms[tname], dev_ms["float"])
     print(f"[times] wkv6 [{B},{T},{H},{K}] V={V} chunk 64, {r.dtype} r/k/v: kernel "
@@ -1153,12 +1162,13 @@ def phase_wkv6_times(device, r, k, v, w, u):
     return kernel_ms, plain_ms, bound_ms, bound_by
 
 
-def phase_lm_times(device, name: str, kernel_key: str, model, params, tokens,
-                   n_decode: int, reps: int = 3):
+def phase_lm_times(device, name: str, scan_name: str, kernel_keys: tuple, model, params,
+                   tokens, n_decode: int, reps: int = 3):
     """Prefill and decode per token on the host clock, then one profiled
     prefill (device busy time, idle share, the scan kernel's share — the
-    kernels whose name holds ``kernel_key`` — and the top kernels) and one
-    profiled decode step (busy time, idle share, copies, top kernels)."""
+    kernels whose name holds one of ``kernel_keys`` — and the top kernels)
+    and one profiled decode step (busy time, idle share, copies, top
+    kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1208,10 +1218,10 @@ def phase_lm_times(device, name: str, kernel_key: str, model, params, tokens,
     if busy <= 0:
         print("[profile] the profiler saw no device time; prefill breakdown not measured")
         return pre_ms, dec_ms
-    scan = sum(_device_us(e) for e in events if kernel_key in e.key) / 1e3
+    scan = sum(_device_us(e) for e in events if any(k in e.key for k in kernel_keys)) / 1e3
     print(f"[profile] {name} prefill (profiled): wall {wall:.2f} ms, device busy "
           f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / wall):.3f}, "
-          f"{sum(e.count for e in events)} GPU events; {kernel_key} kernel {scan:.3f} ms "
+          f"{sum(e.count for e in events)} GPU events; {scan_name} kernel {scan:.3f} ms "
           f"({scan / busy * 100:.1f}% of busy)")
     for e in events[:10]:
         print(f"[profile]   {_device_us(e) / 1e3:8.3f} ms {e.count:5d}x  {e.key[:90]}")
@@ -1225,13 +1235,15 @@ def phase_lm_times(device, name: str, kernel_key: str, model, params, tokens,
 # (name, Bt, T, H, P, G, N, chunk, decay, dtype): the reference's kernel
 # tests (tests/test_kernels.py: Bt 2, H 4, P 8, G 2, N 16), a prompt
 # shorter than the chunk (C = T), strong and weak decay at the model's head
-# size, and the model's own head, state and dtype
+# size, the model's own head, state and dtype, and 32 chunks on 2 (b, h)
+# (the state pass's chunk chain at full depth on few blocks)
 SSD_CASES = [("ref T=32 chunk=8", 2, 32, 4, 8, 2, 16, 8, "ref", "float32"),
              ("ref T=64 chunk=32", 2, 64, 4, 8, 2, 16, 32, "ref", "float32"),
              ("T<64 (C=T=40)", 2, 40, 4, 8, 2, 16, 64, "ref", "float32"),
              ("strong A=-8 dt<=5", 2, 256, 8, 64, 2, 64, 64, "strong", "float32"),
              ("weak A dt~-1e-4", 2, 256, 8, 64, 2, 64, 64, "weak", "float32"),
-             ("P=N=64 bf16", 2, 256, 8, 64, 1, 64, 64, "model", "bfloat16")]
+             ("P=N=64 bf16", 2, 256, 8, 64, 1, 64, 64, "model", "bfloat16"),
+             ("32 chunks on 2 heads", 1, 2048, 2, 64, 1, 64, 64, "model", "bfloat16")]
 # zamba2-2.7b prefill: 4 prompts x 2048 tokens, 80 SSD heads of 64, N 64, G 1
 SSD_FULL = (4, 2048, 80, 64, 1, 64)
 # (dt range, -A range) by decay: the reference's test draw; strong, weak;
@@ -1435,8 +1447,9 @@ def mamba2_work(x, B):
 
 def phase_mamba2_times(device, x, dt, A, B, C, D, launches: int):
     """Kernel and plain version on the layer-0 inputs at full width, in turns
-    (plain, kernel, kernel, plain), device times from torch.profiler, the
-    bound and the launches per prefill."""
+    (plain, kernel, kernel, plain); device times per call of both passes
+    and of each, and of the plain version, from torch.profiler; the bound
+    and the launches per prefill."""
     import torch
     from repro_torch.kernels.mamba2 import launch_mamba2_kernel, mamba2_ssd_chunked
 
@@ -1449,15 +1462,18 @@ def phase_mamba2_times(device, x, dt, A, B, C, D, launches: int):
         k1 = event_ms(lambda: launch_mamba2_kernel(*ins))
         k2 = event_ms(lambda: launch_mamba2_kernel(*ins))
         p2 = event_ms(lambda: mamba2_ssd_chunked(*ins, return_state=True), reps=10)
-        kd = device_ms(lambda: launch_mamba2_kernel(*ins))
+        tname = "__nv_bfloat16" if x.dtype == torch.bfloat16 else "float"
+        dev_ms = _pass_ms({tname: lambda: launch_mamba2_kernel(*ins)}, SSD_PASSES)
         pd = device_ms(lambda: mamba2_ssd_chunked(*ins, return_state=True), reps=5)
     print(f"[times] mamba2 [{Bt},{T},{H},{P}] G={G} N={N} {x.dtype} x/B/C chunk 64: kernel "
           f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms per call (CUDA events around "
           f"one call from Python, median of 50 and 10)")
-    if kd is not None and pd is not None:
-        kernel_ms, plain_ms = kd, pd
+    if dev_ms is not None and pd is not None:
+        kd = dev_ms[tname]
+        kernel_ms, plain_ms = kd[0], pd
         print(f"[times] mamba2 device time per call (torch.profiler, 20 and 5 calls): "
-              f"kernel {kd:.5f} ms, plain {pd:.5f} ms")
+              f"kernel {kd[0]:.5f} ms (state pass {kd[1]:.5f}, output pass {kd[2]:.5f}), "
+              f"plain {pd:.5f} ms")
     else:
         kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
         print("[times] mamba2 device time per call: not measured (the profiler saw no "
@@ -1521,7 +1537,8 @@ def main() -> int:
             generator=torch.Generator(device=device).manual_seed(0))
         wkv_ms, wkv_plain_ms, wkv_bound_ms, wkv_bound_by = phase_wkv6_times(device, *wkv_in)
         del wkv_in
-        phase_lm_times(device, "rwkv6", "wkv6", lm, lm_params, lm_tokens, n_decode=16)
+        phase_lm_times(device, "rwkv6", "wkv6", WKV6_PASSES, lm, lm_params, lm_tokens,
+                       n_decode=16)
         # free the RWKV6 parameters (12.4 GB) before the Zamba2 phases
         del lm, lm_params, lm_tokens
         torch.cuda.empty_cache()
@@ -1532,7 +1549,8 @@ def main() -> int:
         ssd_ms, ssd_plain_ms, ssd_bound_ms, ssd_bound_by = phase_mamba2_times(
             device, *ssd_in, launches=ssd_launches)
         del ssd_in
-        phase_lm_times(device, "zamba2", "ssd_kernel", zm, zm_params, zm_tokens, n_decode=16)
+        phase_lm_times(device, "zamba2", "mamba2_ssd", SSD_PASSES, zm, zm_params, zm_tokens,
+                       n_decode=16)
         check("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -12,7 +12,7 @@ Chunked (chunk C, la = cumsum(A dt) within the chunk, all exponents <= 0):
 
 The heads of a group share B and C (G groups, H/G heads each).  la is a
 sequential float32 sum over the chunk's steps, in the plain version and in
-the kernel alike: at full width A dt reaches ~-16 a step, so la reaches
+the kernel alike: at full width A dt reaches -31.99 a step, so la reaches
 several hundred within a chunk and la_i - la_j cancels; two summation
 orders would round it apart.
 
@@ -21,8 +21,15 @@ orders would round it apart.
   chunks, differentiable.
 * `launch_mamba2_kernel` — the wrapper of ``csrc/mamba2_ssd.cu`` (sm_90a,
   f32 arithmetic; x, B and C in float32 or bfloat16, read as they are): it
-  checks its inputs, launches on the current stream, raises on a launch
-  error, and counts launches (`kernel_stats()['mamba2_ssd']`).
+  checks its inputs, allocates y, the final h and the scratch h_start
+  [Bt*H, T/C, N, P] (the state at every chunk's start, transposed), and
+  enqueues the kernel's two passes on the current stream: a state pass
+  sequential over the chunks (grid (Bt*H, P/32), 128 threads, the next
+  chunk copied ahead by cp.async), which writes h_start and the final h
+  and does no C x C work, then an output pass with one block per (b, h,
+  tile of 64 P columns, chunk) (256 threads, 68.1 KB of shared memory),
+  which forms y from its chunk and h_start alone.  It raises on a launch error and counts one launch per
+  call, both passes together (`kernel_stats()['mamba2_ssd']`).
 * `mamba2_ssd_hopper` — the sequence path's scan: the kernel on CUDA
   tensors, the plain version on CPU tensors (only there).  Like the
   reference's Pallas kernel it has no gradient: off the CPU, an input that
@@ -111,7 +118,7 @@ def mamba2_ssd_chunked(x, dt, A, B, C, D, chunk: int = 64, return_state: bool = 
 
 def _declare(lib) -> None:
     fn = lib.mamba2_ssd_forward
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 3
                    + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
@@ -138,9 +145,10 @@ def launch_mamba2_kernel(x, dt, A, B, C, D, chunk: int = 64):
     float32, or all three bfloat16; each a token row, dense within the
     token, that may be a view into a wider row), dt [Bt,T,H], A [H], D [H]
     (float32, contiguous), on one CUDA device -> (y [Bt,T,H,P] with D x
-    added, final h [Bt,H,P,N]), both float32.  Raises on anything the
-    kernel does not take (the C entry point refuses N or a chunk above 64)
-    and on a launch error; never falls back."""
+    added, final h [Bt,H,P,N]), both float32.  One call enqueues both
+    passes and counts one launch.  Raises on anything the kernel does not
+    take (the C entry point refuses N or a chunk above 64, and more than
+    65535 chunks) and on a launch error; never falls back."""
     dev = x.device
     for t in (x, dt, A, B, C, D):
         if t.device != dev or dev.type != "cuda":
@@ -175,12 +183,16 @@ def launch_mamba2_kernel(x, dt, A, B, C, D, chunk: int = 64):
     h = torch.empty((Bt, H, P, N), device=dev, dtype=torch.float32)
     if Bt * H * P == 0:
         return y, h
+    # the state at every chunk's start, [n][p]: written by the state pass,
+    # read by the output pass
+    h_start = torch.empty((Bt * H, T // Ck, N, P), device=dev, dtype=torch.float32)
     lib = _load("mamba2_ssd", _declare)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mamba2_ssd_forward(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                                     B.data_ptr(), C.data_ptr(), D.data_ptr(),
-                                    y.data_ptr(), h.data_ptr(), Bt, T, H, P, G, N, Ck,
+                                    y.data_ptr(), h.data_ptr(), h_start.data_ptr(),
+                                    Bt, T, H, P, G, N, Ck,
                                     *strides, int(x.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"mamba2_ssd kernel launch failed: CUDA error {rc} "

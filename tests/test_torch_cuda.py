@@ -30,11 +30,13 @@ def _chip_smoke():
 
 # the SSD cases and input draw of chip_smoke.py, plus odd sizes: P, N
 # below a float4 and a P tile, and P = 80 (a partial second tile) with
-# every head its own group
+# every head its own group; bf16 with odd N (rows the state pass cannot
+# copy 4 bytes at a time: it loads them instead)
 _CS = _chip_smoke()
 _SSD_CASES = [c[1:] for c in _CS.SSD_CASES] + [
     (1, 6, 2, 6, 1, 5, 64, "ref", "float32"),
-    (1, 128, 3, 80, 3, 64, 64, "ref", "float32")]
+    (1, 128, 3, 80, 3, 64, 64, "ref", "float32"),
+    (1, 128, 3, 6, 1, 5, 64, "ref", "bfloat16")]
 
 
 @pytest.fixture
@@ -192,6 +194,25 @@ def test_mamba2_kernel_matches_plain_on_card(cuda_device, Bt, T, H, P, G, N, chu
         # f32, the same chunked sums in another order, la summed in the same
         # order: well inside the f32 identity tier
         assert err <= 1e-4 * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.parametrize("T", [64, 2048])
+def test_mamba2_two_pass_call_is_one_launch_on_card(cuda_device, T):
+    """One chunk (T = C: the state pass writes a zero h_start, then the
+    final h) and 32 chunks (the state pass's chain at full depth): one
+    call enqueues both passes, counts one launch, and matches the plain
+    version."""
+    x, dt, A, B, C, D = _CS._ssd_inputs(1, T, 2, 64, 1, 64, "model", "bfloat16",
+                                        cuda_device, seed=T)
+    mamba2_mod.reset_kernel_stats()
+    y, h = mamba2_mod.launch_mamba2_kernel(x, dt, A, B, C, D)
+    assert mamba2_mod.kernel_stats()["mamba2_ssd"] == 1
+    want_y, want_h = mamba2_mod.mamba2_ssd_chunked(x, dt, A, B, C, D, return_state=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    for got, want in ((y, want_y), (h, want_h)):
+        err = (got - want).abs().max().item()
+        assert err <= _CS.SSD_VS_PLAIN_TOL * max(1.0, want.abs().max().item()), err
 
 
 def test_mamba2_kernel_reads_split_views_on_card(cuda_device):

@@ -15,7 +15,7 @@ from repro.kernels.mamba2 import mamba2_ssd_chunked as jmamba2_ssd_chunked
 from repro.kernels.mamba2 import mamba2_ssd_pallas
 from repro.testing import assert_close
 from repro_torch.kernels import ops
-from repro_torch.kernels.mamba2 import (kernel_stats, launch_mamba2_kernel,
+from repro_torch.kernels.mamba2 import (_cumsum_seq, kernel_stats, launch_mamba2_kernel,
                                         mamba2_ssd_chunked, mamba2_ssd_hopper)
 from repro_torch.kernels.ref import mamba2_ssd_ref
 
@@ -172,6 +172,64 @@ def test_model_scan_inputs_reach_the_kernel_uncopied():
     for t in (x.transpose(2, 3), x.transpose(0, 1), x[:, :16]):
         assert _token_stride(t) is None
         assert _token_stride(_as_rows(t)) is not None
+
+
+def _ssd_two_pass(x, dt, A, B, C, D, chunk):
+    """The CUDA kernel's split of the chunked scan, in torch: the state pass
+    (sequential over chunks, no C x C work) forms h at every chunk's start
+    and the final h; the output pass then forms every chunk's output from
+    its own inputs and its h_start alone, all chunks at once.  la is the
+    kernel's sequential sum (`_cumsum_seq`)."""
+    Bt, T, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    Ck = min(chunk, T)
+    n = T // Ck
+    R = Bt * H
+
+    def to_r(a, d):  # [Bt,T,H,d] -> [R, n, Ck, d]
+        return a.float().permute(0, 2, 1, 3).reshape(R, n, Ck, d)
+
+    xs = to_r(x, P)
+    Bs = to_r(B.repeat_interleave(H // G, dim=2), N)
+    Cs = to_r(C.repeat_interleave(H // G, dim=2), N)
+    dts = dt.float().permute(0, 2, 1).reshape(R, n, Ck)
+    la = _cumsum_seq(A.float().repeat(Bt)[:, None, None] * dts)  # [R, n, Ck]
+    # state pass: h <- exp(la_C) h + (x wd)^T B, wd_j = exp(la_C - la_j) dt_j
+    wd = torch.exp(la[..., -1:] - la) * dts
+    h = torch.zeros((R, P, N))
+    starts = []
+    for c in range(n):
+        starts.append(h)
+        xw = xs[:, c] * wd[:, c, :, None]
+        h = torch.exp(la[:, c, -1])[:, None, None] * h + xw.transpose(1, 2) @ Bs[:, c]
+    h_start = torch.stack(starts, 1)  # [R, n, P, N]
+    # output pass: every chunk from its own inputs and h_start
+    idx = torch.arange(Ck)
+    mask = idx[:, None] >= idx[None, :]
+    diff = la[..., :, None] - la[..., None, :]
+    M = (torch.exp(torch.where(mask, diff, float("-inf"))) * (Cs @ Bs.transpose(-1, -2))
+         * dts[..., None, :])
+    y = M @ xs + torch.exp(la)[..., None] * (Cs @ h_start.transpose(-1, -2))
+    y = y.reshape(Bt, H, T, P).permute(0, 2, 1, 3) + D.float()[None, None, :, None] * x.float()
+    return y, h.reshape(Bt, H, P, N)
+
+
+@pytest.mark.parametrize("Bt,T,H,P,G,N,chunk,decay",
+                         [(2, 32, 4, 8, 2, 16, 8, "ref"), (2, 64, 4, 8, 2, 16, 32, "ref"),
+                          (2, 40, 4, 8, 2, 16, 64, "ref"),
+                          (1, 128, 4, 16, 2, 16, 32, "strong"),
+                          (1, 128, 4, 16, 2, 16, 32, "weak"),
+                          (1, 256, 2, 64, 1, 64, 64, "ref")])
+def test_mamba2_two_pass_split_matches_reference(Bt, T, H, P, G, N, chunk, decay):
+    """States at chunk starts first, then each chunk's output on its own:
+    the same sums as the chunked scan in another order (f32 identity tier),
+    output and final state, finite at A dt down to -40 a step."""
+    arrs = _inputs(Bt, T, H, P, G, N, seed=30 + T + P, decay=decay)
+    y, h = _ssd_two_pass(*_torch(arrs), chunk=chunk)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    jy, jh = jmamba2_ssd_chunked(*_jax(arrs), chunk=chunk, return_state=True)
+    assert_close(y.numpy(), np.asarray(jy))
+    assert_close(h.numpy(), np.asarray(jh))
 
 
 def _chip_smoke():
