@@ -15,17 +15,19 @@ result line):
      grid_gate='on') served by `EquivariantServeEngine` (4 slots x 32 atoms)
      for seeded LJ clusters of 8-32 atoms: served == direct evaluation,
      finite, rotation invariant/equivariant, and the chain kernel launched;
-  4. times — chain kernel and plain version (CUDA events per call, median
-     of 50; device time from torch.profiler), the kernel's bound (counted
-     at the grid's distinct sphere points, `sample_classes`), one serve
-     step, and a profiled serve step (device busy time, idle share, top
-     kernels);
+  4. times — chain kernel and plain version on the folded matrices the
+     chain route uses (CUDA events per call, median of 50; device time
+     from torch.profiler), the kernel's bound (counted at the grid's
+     distinct sphere points, `sample_classes`), its registers and spills
+     (ptxas), one serve step, and a profiled serve step (device busy time,
+     idle share, top kernels);
   5. pairwise path — the pairwise tensor product `ops.gaunt_tp_fused` at
      (L1, L2, Lout) = (6, 6, 6) on 81,920 rows (EquiformerV2's OC20 width,
      lmax 6 x 128 channels, 640 nodes): the pair kernel launched, finite,
      equal to the dense oracle on a row subset, equivariant, and timed
      against its plain version, its bound (the exact algorithm with the
-     fewest operations) and the dense Gaunt contraction in library calls;
+     fewest operations) and the dense Gaunt contraction in library calls,
+     with its tensor-core rate and registers (ptxas);
   6. Fig. 1(a) sweep — `plan(L, L, L, batch_hint=512, tune='measure')` on
      [4, 128, (L+1)^2] operands for L in 1..6 and 8: every candidate's
      time and the pick, the CG baseline, `GauntTensorProduct` and
@@ -133,6 +135,10 @@ def smi_line() -> str:
 # --------------------------------------------------------------------------
 
 
+# ptxas's report of each source built in this run (`phase_device_and_build`)
+BUILD_LOGS: dict = {}
+
+
 def phase_device_and_build():
     import torch
     from repro_torch.device import set_float32_policy
@@ -147,10 +153,42 @@ def phase_device_and_build():
     results = build.build_all()
     print(f"[build] {len(results)} source(s) in {time.perf_counter() - t0:.2f} s")
     for r in results:
+        BUILD_LOGS[r.name] = r.log
         print(f"[build] {r.name}: nvcc {r.seconds:.2f} s -> {r.path.name}")
         for line in r.log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build]   {line.strip()}")
+
+
+def ptxas_report(log: str) -> list:
+    """[(entry function, registers, spill store bytes, spill load bytes)]
+    from ``nvcc -Xptxas -v`` output."""
+    import re
+
+    rows, entry, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            rows.append((entry, int(m.group(1)), *spills))
+            entry = None
+    return rows
+
+
+def print_registers(tag: str, name: str) -> None:
+    """The registers and spills ptxas reported for source ``name`` in this
+    run's build."""
+    rows = ptxas_report(BUILD_LOGS.get(name, ""))
+    if not rows:
+        print(f"[times] {tag} registers: not reported (no build log in this run)")
+    for entry, regs, st, ld in rows:
+        print(f"[times] {tag} {entry}: {regs} registers, spill stores {st} B, "
+              f"spill loads {ld} B (ptxas -v, this run's build)")
 
 
 # --------------------------------------------------------------------------
@@ -256,15 +294,18 @@ def _pair_rows(L1, L2, B, device, seed):
 
 
 def phase_pair_vs_plain(device, main_rows: int) -> float:
-    """The pair kernel (`launch_pair_kernel`) against `pair_plain` on the same
-    rows and folded matrices; -> max abs error at the full-width shape."""
+    """The pair kernel (`launch_pair_kernel`, through `gaunt_fused_hopper`)
+    against `pair_plain` on the same rows and folded matrices: every shape
+    of `PAIR_CASES` at 1, 7, 300 and 4099 rows (a ragged last block, and
+    dout split over blocks from (4, 4, 8) on), and the full-width shape at
+    ``main_rows``; -> max abs error at the full-width shape."""
     import torch
     from repro_torch.core import constants as _c
     from repro_torch.kernels.gaunt_fused import gaunt_fused_hopper, pair_plain
 
     main_err = 0.0
     for i, (L1, L2, Lout) in enumerate(PAIR_CASES):
-        rows = [1, 7, 300] + ([main_rows] if (L1, L2, Lout) == PAIR_MAIN else [])
+        rows = [1, 7, 300, 4099] + ([main_rows] if (L1, L2, Lout) == PAIR_MAIN else [])
         mats = [_c.to_torch(a, device) for a in _c.pair_matrices(L1, L2, Lout)]
         for B in rows:
             x1, x2 = _pair_rows(L1, L2, B, device, seed=10 * i + B)
@@ -276,8 +317,9 @@ def phase_pair_vs_plain(device, main_rows: int) -> float:
             err, rel = rel_err(got, want)
             ok = rel <= PAIR_VS_PLAIN_TOL and bool(torch.isfinite(got).all())
             print(f"[pair] (L1,L2,Lout)=({L1},{L2},{Lout}) B={B} G={mats[0].shape[1]}: "
-                  f"max_abs_err {err:.3e} rel {rel:.3e} (tol {PAIR_VS_PLAIN_TOL}: f32 "
-                  f"sums of the same products in another order) {'ok' if ok else 'FAIL'}")
+                  f"max_abs_err {err:.3e} rel {rel:.3e} (tol {PAIR_VS_PLAIN_TOL}: 3xTF32 "
+                  f"keeps 22 of each operand's 24 bits, sums in another order) "
+                  f"{'ok' if ok else 'FAIL'}")
             check(ok, f"pair kernel disagrees with its plain version at "
                       f"({L1},{L2},{Lout}) B={B}")
             if B == main_rows:
@@ -485,8 +527,9 @@ def phase_times(device, rows: int, Ls=(2, 2, 2), Lout: int = 2):
     from repro_torch.core import constants as _c
     from repro_torch.kernels.gaunt_fused import chain_plain, launch_chain_kernel
 
-    Ts_np, P_np = _c.chain_matrices(Ls, Lout, ("sh",) * len(Ls), "sh",
-                                    pad_lanes=False, dtype="float32")
+    # the matrices the chain route uses: folded to the distinct sphere points
+    Ts_np, P_np = _c.chain_matrices_folded(Ls, Lout, ("sh",) * len(Ls), "sh",
+                                           dtype="float32")
     Ts = [_c.to_torch(T, device) for T in Ts_np]
     P = _c.to_torch(P_np, device)
     rng = np.random.default_rng(0)
@@ -500,13 +543,16 @@ def phase_times(device, rows: int, Ls=(2, 2, 2), Lout: int = 2):
     k2 = event_ms(lambda: launch_chain_kernel(flat, Ts, P, gs, gb))
     p2 = event_ms(lambda: chain_plain(flat, Ts, P, gs, gb))
     G, dout = P.shape
-    Gd = int(sample_classes(_c.chain_matrices(Ls, Lout, ("sh",) * len(Ls), "sh",
-                                              pad_lanes=False, dtype="float64")[0]).max()) + 1
+    full = _c.chain_matrices(Ls, Lout, ("sh",) * len(Ls), "sh", pad_lanes=False,
+                             dtype="float64")[0]
+    Gd = int(sample_classes(full).max()) + 1
+    check(Gd == G, f"the folded chain grid has {G} samples, the sphere {Gd} distinct points")
     flops, nbytes = chain_work(rows, [T.shape[0] for T in Ts], Gd, dout, True)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     bound_ms = max(t_ops, t_bytes) * 1e3
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"[times] chain Ls={Ls} Lout={Lout} gated rows={rows} G={G}: kernel "
+    print(f"[times] chain Ls={Ls} Lout={Lout} gated rows={rows} G={G} folded of "
+          f"{full[0].shape[1]} torus samples: kernel "
           f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms per call (CUDA events "
           f"around one call from Python, median of 50: host overhead included)")
     kd = device_ms(lambda: launch_chain_kernel(flat, Ts, P, gs, gb))
@@ -519,10 +565,11 @@ def phase_times(device, rows: int, Ls=(2, 2, 2), Lout: int = 2):
         kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
         print("[times] device time per call: not measured (the profiler saw no "
               "device time); the event times stand")
-    print(f"[times] work at {Gd} distinct sphere points of the G={G} samples: "
+    print(f"[times] work at the {Gd} distinct sphere points: "
           f"{flops / 1e6:.2f} MFLOP, {nbytes / 1e6:.3f} MB -> bound {bound_ms:.5f} ms "
           f"by {bound_by} (67 TFLOP/s f32, 3.35 TB/s); kernel at "
-          f"{bound_ms / kernel_ms * 100:.1f}% of bound (it evaluates all {G})")
+          f"{bound_ms / kernel_ms * 100:.1f}% of bound")
+    print_registers("chain", "gaunt_chain")
     print("[times] library_ms: none — no single PyTorch call computes the chain "
           "collocation product")
     return kernel_ms, plain_ms, bound_ms, bound_by
@@ -661,10 +708,12 @@ def phase_pair_times(device, x1, x2):
     import torch
     from repro_torch.core import constants as _c
     from repro_torch.core.engine import _gaunt_contract
-    from repro_torch.kernels.gaunt_fused import launch_pair_kernel, pair_plain
+    from repro_torch.kernels.gaunt_fused import (launch_pair_kernel, pair_kernel_constants,
+                                                 pair_plain)
 
     L1, L2, Lout = PAIR_MAIN
     T1, T2, P = (_c.to_torch(a, device) for a in _c.pair_matrices(L1, L2, Lout))
+    consts = pair_kernel_constants(L1, L2, Lout, device)
     rows, (d1, d2), (G, dout) = x1.shape[0], (x1.shape[1], x2.shape[1]), P.shape
     full = _c.chain_matrices((L1, L2), Lout, ("sh", "sh"), "sh", pad_lanes=False,
                              dtype="float64")[0]
@@ -672,10 +721,10 @@ def phase_pair_times(device, x1, x2):
     check(Gd == G, f"the folded grid has {G} samples, the sphere {Gd} distinct points")
     with torch.no_grad():
         p1 = event_ms(lambda: pair_plain(x1, x2, T1, T2, P))
-        k1 = event_ms(lambda: launch_pair_kernel(x1, x2, T1, T2, P))
-        k2 = event_ms(lambda: launch_pair_kernel(x1, x2, T1, T2, P))
+        k1 = event_ms(lambda: launch_pair_kernel(x1, x2, *consts))
+        k2 = event_ms(lambda: launch_pair_kernel(x1, x2, *consts))
         p2 = event_ms(lambda: pair_plain(x1, x2, T1, T2, P))
-        kd = device_ms(lambda: launch_pair_kernel(x1, x2, T1, T2, P))
+        kd = device_ms(lambda: launch_pair_kernel(x1, x2, *consts))
         pd = device_ms(lambda: pair_plain(x1, x2, T1, T2, P))
     print(f"[times] pair ({L1},{L2},{Lout}) rows={rows} G={G} of {full[0].shape[1]} torus "
           f"samples: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms per call "
@@ -704,6 +753,12 @@ def phase_pair_times(device, x1, x2):
     bound_ms, bound_by, _, _, least = min(bounds)
     print(f"[times] pair bound {bound_ms:.5f} ms by {bound_by} ({least}); kernel at "
           f"{bound_ms / kernel_ms * 100:.1f}% of bound")
+    Gp, KT = consts[0].shape[0] * 8, consts[0].shape[1] + consts[1].shape[1]
+    mma_flops = 3 * 2 * rows * Gp * 8 * (KT + consts[2].shape[1])
+    print(f"[times] pair kernel work: 3xTF32 on tensor cores, {mma_flops / 1e9:.2f} G TF32 "
+          f"FLOP after padding (G {G} -> {Gp}, d -> 8 x ceil(d/8)), "
+          f"{mma_flops / kernel_ms / 1e9:.1f} TFLOP/s")
+    print_registers("pair", "gaunt_pair")
     # the library yardstick: the dense Gaunt contraction as one torch.einsum
     # call and as the two matmuls of the dense_einsum backend; the faster
     # stands as library_ms (the port's kernel route calls neither)

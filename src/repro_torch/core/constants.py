@@ -13,10 +13,15 @@ The port keeps the option for parity tests, but its consumers call with
 ``pad_lanes=False``: the Hopper chain kernel walks G itself and needs no
 padded columns (main path: G = 196 instead of 256, 23% less work).
 
-The pairwise collocation product goes further (`pair_matrices`): its torus
-grid covers the sphere twice, so it keeps one sample per distinct sphere
-point and sums the projection rows of the repeats — the same function at
-about half the samples (L=6 x 6: 314 of 676).
+The collocation products go further (`chain_matrices_folded`, and
+`pair_matrices`, its n = 2 case): with SH entries the torus grid covers the
+sphere twice, so they keep one sample per distinct sphere point and sum the
+projection rows of the repeats — the same function at about half the
+samples (L=6 x 6: 314 of 676; the main-path chain: 86 of 196).
+
+The pair kernel takes those matrices split into TF32 hi and lo parts,
+padded and laid out in its tensor-core fragment order
+(`pair_matrices_tf32`, `pair_fragments`), once per shape.
 """
 from __future__ import annotations
 
@@ -47,10 +52,14 @@ __all__ = [
     "chain_project_sh",
     "chain_project_grid",
     "chain_matrices",
+    "chain_matrices_folded",
     "chain_l0",
     "fused_matrices",
     "sphere_point_classes",
     "pair_matrices",
+    "tf32_split",
+    "pair_matrices_tf32",
+    "pair_fragments",
     "gaunt_dense",
     "to_torch",
 ]
@@ -341,22 +350,118 @@ def sphere_point_classes(Ltot: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 @lru_cache(maxsize=None)
-def pair_matrices(L1: int, L2: int, Lout: int, dtype: str = "float32"):
-    """The port's pairwise collocation matrices (T1 [d1,Gd], T2 [d2,Gd],
-    P [Gd,dout]) at the Gd distinct sphere points of the product grid.
+def chain_matrices_folded(Ls: tuple, Lout: int, entries: tuple = None,
+                          out_entry: str = "sh", dtype: str = "float32"):
+    """The chain collocation matrices ((T_1..T_n), P) the port's chain routes
+    use: `chain_matrices` unpadded, at the distinct sphere points of the
+    product grid when every entry is 'sh'.
 
-    Two samples at one sphere point have the same product value in every
-    row, so one sample per point, with the projection rows of its class
-    summed, computes the same output as `fused_matrices` (exact up to the
-    order of float sums; folded in float64, cast once).
+    Two samples at one sphere point have the same value of every SH
+    operand, hence the same product (and the same gated product: the gate
+    is per row), so one sample per point, with the projection rows of its
+    class summed, computes the same output for any exit (exact up to the
+    order of float sums; folded in float64, cast once).  'grid' entries are
+    functions on the torus, not on the sphere: a chain with one is returned
+    unfolded.
     """
-    (T1, T2), P = chain_matrices((L1, L2), Lout, ("sh", "sh"), "sh",
-                                 pad_lanes=False, dtype="float64")
-    reps, cls = sphere_point_classes(L1 + L2)
+    Ls = tuple(int(L) for L in Ls)
+    entries = ("sh",) * len(Ls) if entries is None else tuple(entries)
+    if any(e != "sh" for e in entries):
+        return chain_matrices(Ls, Lout, entries, out_entry, pad_lanes=False, dtype=dtype)
+    Ts, P = chain_matrices(Ls, Lout, entries, out_entry, pad_lanes=False,
+                           dtype="float64")
+    reps, cls = sphere_point_classes(sum(Ls))
     Pf = np.zeros((len(reps), P.shape[1]))
     np.add.at(Pf, cls, P)
-    return (np.ascontiguousarray(T1[:, reps]).astype(dtype),
-            np.ascontiguousarray(T2[:, reps]).astype(dtype), Pf.astype(dtype))
+    return (tuple(np.ascontiguousarray(T[:, reps]).astype(dtype) for T in Ts),
+            Pf.astype(dtype))
+
+
+@lru_cache(maxsize=None)
+def pair_matrices(L1: int, L2: int, Lout: int, dtype: str = "float32"):
+    """The port's pairwise collocation matrices (T1 [d1,Gd], T2 [d2,Gd],
+    P [Gd,dout]) at the Gd distinct sphere points of the product grid: the
+    n = 2 case of `chain_matrices_folded`."""
+    (T1, T2), P = chain_matrices_folded((L1, L2), Lout, ("sh", "sh"), "sh", dtype)
+    return T1, T2, P
+
+
+def tf32_split(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(hi, lo) float32 with a ~= hi + lo, each a TF32 value (low 13
+    mantissa bits zero): hi = a rounded to TF32 (to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32``), lo = a - hi (exact in f32) rounded the
+    same way.  The two parts keep 22 of a's 24 significant bits, so
+    |a - hi - lo| <= 2^-22 |a|; the pair kernel splits its rows the same
+    way, bit for bit."""
+    def rna(v):
+        u = np.ascontiguousarray(v, dtype=np.float32).view(np.uint32)
+        return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+    a = np.asarray(a, dtype=np.float32)
+    hi = rna(a)
+    return hi, rna(a - hi)
+
+
+# the pair kernel's tile sizes: K and N of a tensor-core fragment, and the
+# samples of one staged tile
+_FRAG = 8
+_SAMPLE_TILE = 32
+# within each group of 8 samples, the sample at the projection's k-index j:
+# the sampling product leaves samples 2t, 2t+1 with the thread that the
+# projection asks for k-indices t, t+4
+PAIR_SAMPLE_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def _pad_to(a: np.ndarray, rows: int, cols: int) -> np.ndarray:
+    return np.pad(a, [(0, rows - a.shape[0]), (0, cols - a.shape[1])])
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+@lru_cache(maxsize=None)
+def pair_matrices_tf32(L1: int, L2: int, Lout: int):
+    """The pair kernel's constants: `pair_matrices` (f32) split by
+    `tf32_split` and zero-padded — d1, d2 and dout to multiples of 8, the
+    Gd samples to a multiple of 32 — with P's rows permuted within each
+    group of 8 samples as `PAIR_SAMPLE_ORDER`.
+
+    -> (T1hi, T1lo [d1p, Gp], T2hi, T2lo [d2p, Gp], Phi, Plo [Gp, doutp]).
+    Zero T columns give zero samples and zero P rows add nothing, so the
+    padded product equals the unpadded one.
+    """
+    T1, T2, P = pair_matrices(L1, L2, Lout)
+    Gp = _up(P.shape[0], _SAMPLE_TILE)
+    T1 = _pad_to(T1, _up(T1.shape[0], _FRAG), Gp)
+    T2 = _pad_to(T2, _up(T2.shape[0], _FRAG), Gp)
+    P = _pad_to(P, Gp, _up(P.shape[1], _FRAG))
+    order = (np.arange(Gp) // _FRAG) * _FRAG + np.tile(PAIR_SAMPLE_ORDER, Gp // _FRAG)
+    return (*tf32_split(T1), *tf32_split(T2), *tf32_split(P[order]))
+
+
+def _b_fragments(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """[K, N] (K, N multiples of 8) -> [K/8, N/8, 32, 4]: the B operand of
+    ``mma.sync.m16n8k8`` tf32 per (k-tile, n-tile), lane l = 4 g + t
+    holding (hi[t, g], hi[t+4, g], lo[t, g], lo[t+4, g]) of the tile."""
+    K, N = hi.shape
+    both = np.stack([hi, lo]).reshape(2, K // 8, 2, 4, N // 8, 8)  # [hl, kt, h, t, nt, g]
+    return np.ascontiguousarray(both.transpose(1, 4, 5, 3, 0, 2)).reshape(K // 8, N // 8, 32, 4)
+
+
+@lru_cache(maxsize=None)
+def pair_fragments(L1: int, L2: int, Lout: int):
+    """`pair_matrices_tf32` in the pair kernel's fragment order, so that one
+    16-byte load gives a thread the hi and lo of its B fragment and one
+    tile of 32 samples is one contiguous run:
+
+    -> (F1 [Gp/8, d1p/8, 32, 4], F2 [Gp/8, d2p/8, 32, 4],
+        FP [Gp/8, doutp/8, 32, 4]) float32, sample tile first in each.
+    """
+    T1h, T1l, T2h, T2l, Ph, Pl = pair_matrices_tf32(L1, L2, Lout)
+    F1 = np.ascontiguousarray(_b_fragments(T1h, T1l).transpose(1, 0, 2, 3))
+    F2 = np.ascontiguousarray(_b_fragments(T2h, T2l).transpose(1, 0, 2, 3))
+    return F1, F2, _b_fragments(Ph, Pl)
 
 
 @lru_cache(maxsize=None)

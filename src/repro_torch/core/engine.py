@@ -371,8 +371,8 @@ def _build_chain_fused(Ls: tuple, Lout: int, dtype: str, kernel: bool,
 
     rd = _RDTYPE[dtype]
     Ltot = sum(Ls)
-    constants.chain_matrices(tuple(Ls), Lout, ("sh",) * len(Ls), "sh",
-                             pad_lanes=False, dtype=dtype)
+    constants.chain_matrices_folded(tuple(Ls), Lout, ("sh",) * len(Ls), "sh",
+                                    dtype=dtype)
     if gate:
         constants.chain_l0(tuple(Ls), ("sh",) * len(Ls))
     fn = gaunt_chain_fused_hopper if kernel else gaunt_chain_fused_torch
@@ -653,12 +653,16 @@ def _build_spectral(key: PlanKey, conversion: str, conv: str) -> Callable:
 def _build_fused(key: PlanKey, kernel: bool) -> Callable:
     """The collocation product on the folded pair matrices
     (`constants.pair_matrices`): ``fused_torch`` in torch ops,
-    ``fused_hopper`` on the pair kernel.  f32 storage and accumulation."""
+    ``fused_hopper`` on the pair kernel (tensor cores in 3xTF32, on the
+    split constants `constants.pair_fragments`).  f32 storage and
+    accumulation."""
     from ..kernels.gaunt_fused import gaunt_fused_hopper, gaunt_fused_torch
 
     rd = _RDTYPE[key.dtype]
     L1, L2, Lout = key.L1, key.L2, key.Lout
     mats = constants.pair_matrices(L1, L2, Lout)
+    if kernel:
+        constants.pair_fragments(L1, L2, Lout)
     if key.kind == "channel_mix":
 
         def apply_mix(x1, x2, w_mix):

@@ -1,5 +1,5 @@
-// Pairwise Gaunt collocation kernel for Hopper (sm_90a), f32 storage and
-// f32 FMAs.
+// Pairwise Gaunt collocation kernel for Hopper (sm_90a): f32 storage, both
+// products on tensor cores in 3xTF32 with f32 accumulation.
 //
 // Replaces the TPU kernel `repro/kernels/gaunt_fused.py::_kernel` (line 116;
 // launched by the pallas_call in `gaunt_fused_pallas`).  For every row b,
@@ -7,11 +7,10 @@
 //     out[b, :] = ((x1[b, :] . T1) * (x2[b, :] . T2)) . P
 //
 // with T1 [d1, G], T2 [d2, G] the operands' real SH sampled on the product
-// grid and P [G, dout] the projection back to SH degrees <= Lout.  The
-// wrapper passes the grid folded to its distinct sphere points
-// (`constants.pair_matrices`): the torus grid covers the sphere twice, so
-// G = 314 of the 676 torus samples at L = (6, 6, 6).  Sizes the kernel
-// takes: d up to 81 (L = 8), dout up to 304, any G.
+// grid and P [G, dout] the projection back to SH degrees <= Lout.  The grid
+// is folded to its distinct sphere points (`constants.pair_matrices`): the
+// torus grid covers the sphere twice, so G = 314 of the 676 torus samples
+// at L = (6, 6, 6).
 //
 // Bound on the H100 at the full-width shape, (L1, L2, Lout) = (6, 6, 6),
 // 81,920 rows (640 nodes x 128 channels), d1 = d2 = dout = 49, G = 314.
@@ -20,213 +19,270 @@
 // (i, j) pairs, so one product per pair and one FMA per nonzero,
 //   operations per row = 2,337 + 2 * 6,460 = 15,257 FLOP
 //   bytes per row      = 4*(d1 + d2 + dout) = 588 B
-// That is 1.250 GFLOP and 48.2 MB: 0.0187 ms at 67 TFLOP/s of f32 against
+// That is 1.250 GFLOP and 48.2 MB: 0.01865 ms at 67 TFLOP/s of f32 against
 // 0.0144 ms at 3.35 TB/s, so the bound is set by f32 operations.  This
-// kernel runs the collocation algorithm instead, 2*G*(d1 + d2) (sampling)
-// + G (product) + 2*G*dout (projection) = 92,630 FLOP per row (0.113 ms of
-// f32 FMAs alone): x6 the sparse count at this shape, but dense and
-// regular where the sparse one gathers scattered nonzeros.  Both of its stages
-// are real products (K = d for the sampling, K = G for the projection);
-// tensor cores in TF32 would break the port's f32 parity tier, and a
-// 3xTF32 wgmma split is later work.
+// kernel runs the collocation algorithm instead: 2*G*(d1 + d2) + G +
+// 2*G*dout = 92,630 FLOP per row, x6 the sparse count, 0.113 ms of f32 FMAs
+// alone, so on CUDA cores it could never pass ~16% of the bound.  Both of
+// its stages are dense products (K = d for the sampling, K = G for the
+// projection), so here they run on the tensor cores.
 //
-// Design.  The TPU kernel keeps T1, T2 and P whole in VMEM for each row
-// block; at L = 8 they are 375 KB each, above a Hopper block's 227 KB.  So
-// the sample axis is a loop inside the block, and the output tile persists
-// in registers across sample tiles.  One block takes ROWS = 64 rows with
-// 256 threads (a 16 x 16 thread grid):
-//   - the block's x1 and x2 rows are staged once in shared memory,
-//     transposed ([k][row]) so a thread reads its 4 rows as one float4;
-//   - per tile of 64 samples, T1, T2 and P are staged in shared memory
-//     (samples past G and output columns past dout are zero);
-//   - stage 1: each thread forms a 4 rows x 4 samples micro-tile of
-//     x1 . T1 and of x2 . T2 (register-tiled outer products over k) and
-//     writes their product V to shared memory;
-//   - stage 2: each thread accumulates a 4 rows x TN columns micro-tile of
-//     V . P, columns tx + 16 j, in registers (TN = ceil(dout / 16), a
-//     template parameter rounded up to an instantiated size).
-// Rows past B are read as zero and never written: the wrapper does not pad.
-// Shared memory at (6, 6, 6) is 85 KB, so two blocks share an SM; at
-// (8, 8, 16) it is 181 KB.
+// Why 3xTF32.  One TF32 product keeps 11 significant bits of each operand:
+// emulated on 4,096 seeded rows it is 4.6e-4 from the f64 product at
+// (6, 6, 6), outside the port's 3e-4 f32 tier.  Split every operand as
+// a = hi + lo, both TF32 (lo = a - hi, rounded again), and accumulate
+// lo*hi + hi*lo + hi*hi in f32: the same emulation gives 6.6e-7 (plain f32:
+// 6.4e-7) and 8.7e-7 against plain f32, inside the 1e-5 the pair kernel is
+// held to.  The lo*lo term is below f32's rounding and is dropped.  The
+// rounding is cvt.rna.tf32.f32's (to nearest, ties away from zero), done
+// as two integer operations on the bits, which is the same result at full
+// issue rate; `constants.tf32_split` does the same on the host.  The work
+// after padding (d to 56, G to 320, dout to 56) is three m16n8k8 products
+// per 8 x 8 x 16 step: 26.4 G TF32 FLOP at full width.
+//
+// Design.
+//   - mma.sync.m16n8k8 tf32, one warp per 16 rows.  wgmma is not used: its
+//     tf32 form reads both operands K-major from shared memory, and the
+//     projection's A operand (the product V) is made in registers.
+//   - Constants pre-split.  T1, T2 and P are split into hi and lo once per
+//     shape on the host, zero-padded to the fragment tiles, and stored in
+//     B-fragment order (`constants.pair_fragments`): a thread's hi and lo
+//     of one 8 x 8 B tile are one 16-byte load, and a tile of 32 samples is
+//     one contiguous run.  Zero T columns give V = 0; zero P rows add 0.
+//   - V stays in registers.  The C fragment of x . T for 8 samples leaves
+//     thread (g, t) the samples 2t and 2t+1 (rows g, g+8); the projection's
+//     A fragment asks it for k-indices t and t+4.  P's rows are permuted
+//     within each group of 8 samples as [0, 2, 4, 6, 1, 3, 5, 7]
+//     (`constants.PAIR_SAMPLE_ORDER`), so the accumulators of v1 and v2,
+//     multiplied, are the A fragment as they stand: no shared-memory round
+//     trip and no barrier between the two products.
+//   - Staging.  A block takes 128 rows (8 warps of one m-tile each).  Its
+//     x1 and x2 rows are copied once into shared memory by cp.async with
+//     the first T tile (f32, zero-filled past d and past B, row stride = 4
+//     mod 8 so the A-fragment reads are free of bank conflicts) and split
+//     as they are read.  The sample axis is a loop of 32-sample tiles: the
+//     tile's T fragments and P fragments are copied by cp.async, each into
+//     one buffer, T's copy overlapping the projection and P's the next
+//     tile's sampling; three barriers a tile.  The output accumulator stays
+//     in registers across tiles.  Rows past B are zero and never written.
+//   - Output columns.  A block holds at most 8 output n-tiles (64 columns,
+//     32 accumulators a thread); a larger dout (up to 289 at L = 16) is
+//     split over blockIdx.y, each such block recomputing V for its rows.
+//   - Occupancy.  Shared memory at (6, 6, 6) is 102 KB and registers are
+//     capped at 128, so two blocks (16 warps) share an SM; 640 blocks at
+//     full width.  At (8, 8, 16) it is 155 KB, one block an SM.  Resident
+//     warps count for more than fragment traffic here: in a throwaway
+//     sweep on the card, two m-tiles a warp (half the B-fragment reads, 8
+//     warps an SM), 16-sample tiles, 4, 5 or 10 warps a block were all
+//     slower than this shape.
+// Small batches: a block walks all G samples whatever its rows, so at the
+// Fig. 1(a) sweep's 512 rows (4 blocks) the call takes one block's latency
+// over the sample loop; a smaller row tile would not shorten it, a split of
+// the sample axis over blocks would.  The engine measures its candidates
+// there; calls that small are set by launches and the host (PERF.md §5).
+//
+// What is left: the sparse contraction over the Gaunt tensor's nonzeros
+// (x6 fewer operations than collocation; the bound above), and wgmma with
+// V staged through shared memory if a profile shows mma.sync issue-bound.
 //
 // Interface: plain C, loaded with ctypes.  The launch uses the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 64;             // rows per block
-constexpr int kTile = 64;             // samples per tile
-constexpr int kXS = kRows + 4;        // row stride of the transposed x tiles
-constexpr int kVS = kTile + 4;        // row stride of the product tile
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;  // rows per block: 16 per warp
+constexpr int kNT = 4;              // sample n-tiles (of 8) per staged tile
+constexpr int kMaxON = 8;           // output n-tiles (of 8 columns) per block
 constexpr size_t kSmemMax = 227 * 1024;
-constexpr int kTNs[] = {1, 2, 3, 4, 6, 8, 11, 13, 16, 19};
 
-__host__ __device__ inline size_t smem_floats(int d1, int d2, int tn) {
-  return (size_t)(d1 + d2) * kXS      // x1^T, x2^T [d][row]
-       + (size_t)(d1 + d2) * kTile    // T1, T2 tiles [d][sample]
-       + (size_t)kTile * 16 * tn      // P tile [sample][16 TN]
-       + (size_t)kRows * kVS;         // product tile [row][sample]
+// bytes of shared memory: the T1 and T2 fragments of one tile, the P
+// fragments of one tile for ON output n-tiles, the x1 and x2 rows
+__host__ __device__ inline size_t smem_bytes(int KT1, int KT2, int ON) {
+  return (size_t)kNT * (KT1 + KT2) * 32 * 16 + (size_t)kNT * ON * 32 * 16 +
+         (size_t)kRows * (8 * KT1 + 4 + 8 * KT2 + 4) * 4;
 }
 
-inline int pick_tn(int dout) {
-  const int need = (dout + 15) / 16;
-  for (int tn : kTNs)
-    if (tn >= need) return tn;
-  return 0;
+// cvt.rna.tf32.f32 (round to nearest, ties away from zero) with the low 13
+// bits cleared, in two integer operations
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
-template <int TN>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b in 3xTF32; b = (hi b0, hi b1, lo b0, lo b1).  The small cross
+// terms go first, then hi . hi.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float4 b) {
+  const uint32_t bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, __float_as_uint(b.z), __float_as_uint(b.w));
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+// 4 bytes, or zeros when !valid (src is then not read)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// v[n] = x . T over the tile's kNT sample n-tiles.  xr points at this
+// thread's element (row g, column t) of the warp's 16 staged rows (stride
+// S); sF holds the tile's fragments [n][kt][lane].
+__device__ __forceinline__ void sample(float (&v)[kNT][4], const float* xr, int S,
+                                       int KT, const float4* sF, int lane) {
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) v[n][0] = v[n][1] = v[n][2] = v[n][3] = 0.f;
+  // unrolled as far as the full-width shape's 7 k-tiles (d = 49), so that
+  // ptxas loads the B fragments of later k-tiles ahead of the products
+#pragma unroll 7
+  for (int kt = 0; kt < KT; ++kt) {
+    const float* p = xr + 8 * kt;
+    uint32_t ah[4], al[4];
+    split(p[0], ah[0], al[0]);          // (g, t)
+    split(p[8 * S], ah[1], al[1]);      // (g + 8, t)
+    split(p[4], ah[2], al[2]);          // (g, t + 4)
+    split(p[8 * S + 4], ah[3], al[3]);  // (g + 8, t + 4)
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) mma3(v[n], ah, al, sF[(n * KT + kt) * 32 + lane]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
 gaunt_pair_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
-                  const float* __restrict__ T1, const float* __restrict__ T2,
-                  const float* __restrict__ P, float* __restrict__ out,
-                  int B, int d1, int d2, int G, int dout) {
-  constexpr int PS = 16 * TN;
-  extern __shared__ __align__(16) float smem[];
-  float* sX1 = smem;
-  float* sX2 = sX1 + (size_t)d1 * kXS;
-  float* sT1 = sX2 + (size_t)d2 * kXS;
-  float* sT2 = sT1 + (size_t)d1 * kTile;
-  float* sP = sT2 + (size_t)d2 * kTile;
-  float* sV = sP + (size_t)kTile * PS;
+                  const float4* __restrict__ F1, const float4* __restrict__ F2,
+                  const float4* __restrict__ FP, float* __restrict__ out, int B,
+                  int d1, int d2, int dout, int KT1, int KT2, int NS, int NO, int ON) {
+  extern __shared__ float4 smem4[];
+  float4* sT1 = smem4;                      // [kNT][KT1][32]
+  float4* sT2 = sT1 + kNT * KT1 * 32;       // [kNT][KT2][32]
+  float4* sP = sT2 + kNT * KT2 * 32;        // [kNT][ON][32]
+  const int S1 = 8 * KT1 + 4, S2 = 8 * KT2 + 4;
+  float* sX1 = reinterpret_cast<float*>(sP + kNT * ON * 32);  // [kRows][S1]
+  float* sX2 = sX1 + kRows * S1;                               // [kRows][S2]
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int row0 = blockIdx.x * kRows;
-  const int nrows = min(kRows, B - row0);
+  const int o0 = blockIdx.y * ON;  // the block's first output n-tile
+  const int on = min(ON, NO - o0);
+  const int ntiles = NS / kNT;
 
-  // the block's rows, transposed; zero past the ragged edge
-  for (int e = tid; e < kRows * d1; e += kThreads) {
-    const int r = e / d1;
-    const int k = e - r * d1;
-    sX1[k * kXS + r] = r < nrows ? x1[(size_t)(row0 + r) * d1 + k] : 0.f;
+  auto stage_T = [&](int tile) {
+    const int n1 = kNT * KT1 * 32, n2 = kNT * KT2 * 32;
+    const float4* g1 = F1 + (size_t)tile * n1;
+    const float4* g2 = F2 + (size_t)tile * n2;
+    for (int e = tid; e < n1; e += kThreads) cp_async16(sT1 + e, g1 + e);
+    for (int e = tid; e < n2; e += kThreads) cp_async16(sT2 + e, g2 + e);
+  };
+  auto stage_P = [&](int tile) {
+    const int per = on * 32;  // float4s of one sample k-tile in this block's columns
+    for (int e = tid; e < kNT * per; e += kThreads) {
+      const int n = e / per, r = e - n * per;
+      cp_async16(sP + n * ON * 32 + r, FP + ((size_t)(tile * kNT + n) * NO + o0) * 32 + r);
+    }
+  };
+
+  // the block's rows, zero past d and past B, with the first T tile; then
+  // the first P tile
+  for (int e = tid; e < kRows * S1; e += kThreads) {
+    const int r = e / S1, k = e - r * S1;
+    const bool in = k < d1 && row0 + r < B;
+    cp_async4(sX1 + e, in ? x1 + (size_t)(row0 + r) * d1 + k : x1, in);
   }
-  for (int e = tid; e < kRows * d2; e += kThreads) {
-    const int r = e / d2;
-    const int k = e - r * d2;
-    sX2[k * kXS + r] = r < nrows ? x2[(size_t)(row0 + r) * d2 + k] : 0.f;
+  for (int e = tid; e < kRows * S2; e += kThreads) {
+    const int r = e / S2, k = e - r * S2;
+    const bool in = k < d2 && row0 + r < B;
+    cp_async4(sX2 + e, in ? x2 + (size_t)(row0 + r) * d2 + k : x2, in);
   }
+  stage_T(0);
+  cp_async_commit();
+  stage_P(0);
+  cp_async_commit();
 
-  float acc[4][TN];
+  float acc[kMaxON][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  for (int o = 0; o < kMaxON; ++o) acc[o][0] = acc[o][1] = acc[o][2] = acc[o][3] = 0.f;
+  const float* xr1 = sX1 + (warp * 16 + g) * S1 + t;
+  const float* xr2 = sX2 + (warp * 16 + g) * S2 + t;
 
-  for (int g0 = 0; g0 < G; g0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < d1 * kTile; e += kThreads) {
-      const int k = e / kTile;
-      const int g = e - k * kTile;
-      sT1[e] = g0 + g < G ? T1[(size_t)k * G + g0 + g] : 0.f;
-    }
-    for (int e = tid; e < d2 * kTile; e += kThreads) {
-      const int k = e / kTile;
-      const int g = e - k * kTile;
-      sT2[e] = g0 + g < G ? T2[(size_t)k * G + g0 + g] : 0.f;
-    }
-    for (int e = tid; e < kTile * PS; e += kThreads) {
-      const int g = e / PS;
-      const int c = e - g * PS;
-      sP[e] = (g0 + g < G && c < dout) ? P[(size_t)(g0 + g) * dout + c] : 0.f;
-    }
+  for (int tile = 0; tile < ntiles; ++tile) {
+    cp_async_wait<1>();  // this tile's T, and the rows (P may still be in flight)
     __syncthreads();
+    float v1[kNT][4], v2[kNT][4];
+    sample(v1, xr1, S1, KT1, sT1, lane);
+    sample(v2, xr2, S2, KT2, sT2, lane);
+    cp_async_wait<0>();  // this tile's P
+    __syncthreads();     // ... visible to all, and every warp is done with sT
+    if (tile + 1 < ntiles) stage_T(tile + 1);
+    cp_async_commit();
 
-    // stage 1: V[4 rows][4 samples] = (x1 . T1) * (x2 . T2)
-    float v1[4][4], v2[4][4];
+    // projection: the product samples are the A fragment (P's rows permuted)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < kNT; ++n) {
+      uint32_t ah[4], al[4];
+      split(v1[n][0] * v2[n][0], ah[0], al[0]);  // (g, sample 2t):         k = t
+      split(v1[n][2] * v2[n][2], ah[1], al[1]);  // (g + 8, sample 2t):     k = t
+      split(v1[n][1] * v2[n][1], ah[2], al[2]);  // (g, sample 2t + 1):     k = t + 4
+      split(v1[n][3] * v2[n][3], ah[3], al[3]);  // (g + 8, sample 2t + 1): k = t + 4
 #pragma unroll
-      for (int j = 0; j < 4; ++j) v1[i][j] = v2[i][j] = 0.f;
-    for (int k = 0; k < d1; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(sX1 + k * kXS + ty * 4);
-      const float4 t = *reinterpret_cast<const float4*>(sT1 + k * kTile + tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float tv[4] = {t.x, t.y, t.z, t.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v1[i][j] = fmaf(av[i], tv[j], v1[i][j]);
+      for (int o = 0; o < kMaxON; ++o)
+        if (o < on) mma3(acc[o], ah, al, sP[(n * ON + o) * 32 + lane]);
     }
-    for (int k = 0; k < d2; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(sX2 + k * kXS + ty * 4);
-      const float4 t = *reinterpret_cast<const float4*>(sT2 + k * kTile + tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float tv[4] = {t.x, t.y, t.z, t.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v2[i][j] = fmaf(av[i], tv[j], v2[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 o = make_float4(v1[i][0] * v2[i][0], v1[i][1] * v2[i][1],
-                                   v1[i][2] * v2[i][2], v1[i][3] * v2[i][3]);
-      *reinterpret_cast<float4*>(sV + (ty * 4 + i) * kVS + tx * 4) = o;
-    }
-    __syncthreads();
-
-    // stage 2: acc[4 rows][TN columns] += V . P over the tile's samples
-    for (int g = 0; g < kTile; g += 4) {
-      float vv[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 q = *reinterpret_cast<const float4*>(sV + (ty * 4 + i) * kVS + g);
-        vv[i][0] = q.x;
-        vv[i][1] = q.y;
-        vv[i][2] = q.z;
-        vv[i][3] = q.w;
-      }
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        float p[TN];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) p[j] = sP[(g + s) * PS + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(vv[i][s], p[j], acc[i][j]);
-      }
-    }
+    __syncthreads();  // every warp is done with sP
+    if (tile + 1 < ntiles) stage_P(tile + 1);
+    cp_async_commit();
   }
 
+  // accumulator (row g, column 2t + i) and (row g + 8, column 2t + i)
+  const int r = row0 + warp * 16 + g;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (r < nrows) {
-      float* o = out + (size_t)(row0 + r) * dout;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int c = tx + 16 * j;
-        if (c < dout) o[c] = acc[i][j];
-      }
+  for (int o = 0; o < kMaxON; ++o) {
+    if (o >= on) break;
+    const int c = 8 * (o0 + o) + 2 * t;
+    if (r < B) {
+      float* dst = out + (size_t)r * dout;
+      if (c < dout) dst[c] = acc[o][0];
+      if (c + 1 < dout) dst[c + 1] = acc[o][1];
+    }
+    if (r + 8 < B) {
+      float* dst = out + (size_t)(r + 8) * dout;
+      if (c < dout) dst[c] = acc[o][2];
+      if (c + 1 < dout) dst[c + 1] = acc[o][3];
     }
   }
 }
 
-template <int TN>
-int launch(const float* x1, const float* x2, const float* T1, const float* T2,
-           const float* P, float* out, int B, int d1, int d2, int G, int dout,
-           cudaStream_t stream) {
-  const size_t smem = smem_floats(d1, d2, TN) * sizeof(float);
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  // above 48 KB a block needs the opt-in, which holds for the current device
-  // only: set it at every such launch (a cheap host call)
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gaunt_pair_kernel<TN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((B + kRows - 1) / kRows);
-  gaunt_pair_kernel<TN><<<grid, kThreads, smem, stream>>>(x1, x2, T1, T2, P, out,
-                                                          B, d1, d2, G, dout);
-  return (int)cudaGetLastError();
-}
+inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 }  // namespace
 
@@ -235,39 +291,41 @@ extern "C" {
 // Shared memory (bytes) a launch with these sizes uses, or 0 when the sizes
 // are outside what the kernel takes.
 size_t gaunt_pair_smem_bytes(int d1, int d2, int dout) {
-  const int tn = pick_tn(dout);
-  if (tn == 0 || d1 <= 0 || d2 <= 0) return 0;
-  const size_t bytes = smem_floats(d1, d2, tn) * sizeof(float);
+  if (d1 <= 0 || d2 <= 0 || dout <= 0) return 0;
+  const int NO = ceil_div(dout, 8);
+  const size_t bytes = smem_bytes(ceil_div(d1, 8), ceil_div(d2, 8), NO < kMaxON ? NO : kMaxON);
   return bytes > kSmemMax ? 0 : bytes;
 }
 
-int gaunt_pair_forward(const void* x1, const void* x2, const void* T1,
-                       const void* T2, const void* P, void* out, int B, int d1,
-                       int d2, int G, int dout, void* stream) {
-  if (B < 0 || G <= 0 || d1 <= 0 || d2 <= 0 || dout <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (gaunt_pair_smem_bytes(d1, d2, dout) == 0) return (int)cudaErrorInvalidValue;
+// x1 [B, d1], x2 [B, d2] f32; F1 [NS, ceil(d1/8), 32, 4], F2 [NS,
+// ceil(d2/8), 32, 4], FP [NS, ceil(dout/8), 32, 4] the split fragments
+// (`constants.pair_fragments`), NS = G padded to a multiple of 32, over 8;
+// out [B, dout] f32.
+int gaunt_pair_forward(const void* x1, const void* x2, const void* F1, const void* F2,
+                       const void* FP, void* out, int B, int d1, int d2, int dout, int NS,
+                       void* stream) {
+  if (B < 0 || NS <= 0 || NS % kNT != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = gaunt_pair_smem_bytes(d1, d2, dout);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  const float* a = static_cast<const float*>(x1);
-  const float* b = static_cast<const float*>(x2);
-  const float* t1 = static_cast<const float*>(T1);
-  const float* t2 = static_cast<const float*>(T2);
-  const float* p = static_cast<const float*>(P);
-  float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (pick_tn(dout)) {
-    case 1: return launch<1>(a, b, t1, t2, p, o, B, d1, d2, G, dout, s);
-    case 2: return launch<2>(a, b, t1, t2, p, o, B, d1, d2, G, dout, s);
-    case 3: return launch<3>(a, b, t1, t2, p, o, B, d1, d2, G, dout, s);
-    case 4: return launch<4>(a, b, t1, t2, p, o, B, d1, d2, G, dout, s);
-    case 6: return launch<6>(a, b, t1, t2, p, o, B, d1, d2, G, dout, s);
-    case 8: return launch<8>(a, b, t1, t2, p, o, B, d1, d2, G, dout, s);
-    case 11: return launch<11>(a, b, t1, t2, p, o, B, d1, d2, G, dout, s);
-    case 13: return launch<13>(a, b, t1, t2, p, o, B, d1, d2, G, dout, s);
-    case 16: return launch<16>(a, b, t1, t2, p, o, B, d1, d2, G, dout, s);
-    case 19: return launch<19>(a, b, t1, t2, p, o, B, d1, d2, G, dout, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int KT1 = ceil_div(d1, 8), KT2 = ceil_div(d2, 8), NO = ceil_div(dout, 8);
+  const int ON = NO < kMaxON ? NO : kMaxON;
+  // above 48 KB a block needs the opt-in, which holds for the current device
+  // only: set it at every launch (a cheap host call), with the carveout
+  // that lets two blocks share an SM
+  cudaError_t e = cudaFuncSetAttribute(gaunt_pair_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(gaunt_pair_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(ceil_div(B, kRows), ceil_div(NO, ON));
+  gaunt_pair_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x1), static_cast<const float*>(x2),
+      static_cast<const float4*>(F1), static_cast<const float4*>(F2),
+      static_cast<const float4*>(FP), static_cast<float*>(out), B, d1, d2, dout, KT1, KT2,
+      NS, NO, ON);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

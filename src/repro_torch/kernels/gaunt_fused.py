@@ -11,8 +11,11 @@ on the distinct sphere points of the product grid
 * `pair_plain` — the kernel's plain PyTorch version (matmuls);
   `gaunt_fused_torch` runs it behind the ``fused_torch`` pairwise backend.
 * `launch_pair_kernel` — the wrapper of ``csrc/gaunt_pair.cu`` (sm_90a,
-  f32): checks its inputs, launches on the current stream, raises on a
-  launch error, and counts launches (`kernel_stats()['gaunt_pair']`).
+  f32 storage, both products on tensor cores in 3xTF32): takes the folded
+  matrices split into TF32 hi and lo in the kernel's fragment order
+  (`pair_kernel_constants`), checks its inputs, launches on the current
+  stream, raises on a launch error, and counts launches
+  (`kernel_stats()['gaunt_pair']`).
 * `gaunt_fused_hopper` — the ``fused_hopper`` pairwise backend: the kernel
   on CUDA tensors, the plain version on CPU tensors (only there).  Like the
   reference's Pallas kernel it has no gradient: off the CPU, an input that
@@ -23,7 +26,8 @@ Chain:
     out = ((x_1 @ T_1) * (x_2 @ T_2) * ... * (x_n @ T_n)  [* gs + gb]) @ P
 
 T_i samples operand i on the alias-free product grid and P projects the
-product samples back (see `core.constants.chain_matrices`); the optional
+product samples back; with 'sh' entries the grid is folded to its distinct
+sphere points (`core.constants.chain_matrices_folded`); the optional
 gate (gs, gb) is the affine pointwise stage of the models' gate.  Three
 realizations, one function:
 
@@ -56,6 +60,7 @@ from .build import load as _load
 __all__ = [
     "gaunt_fused_matrices",
     "pair_plain",
+    "pair_kernel_constants",
     "launch_pair_kernel",
     "gaunt_fused_torch",
     "gaunt_fused_hopper",
@@ -109,69 +114,85 @@ def _declare_pair(lib) -> None:
     lib.gaunt_pair_smem_bytes.restype = ctypes.c_size_t
 
 
-def launch_pair_kernel(x1, x2, T1, T2, P) -> torch.Tensor:
-    """Run the CUDA pairwise kernel: rows x1 [B, d1], x2 [B, d2] with
-    T1 [d1, G], T2 [d2, G], P [G, dout] (f32, contiguous, on one CUDA
-    device) -> [B, dout] f32.  Raises on anything the kernel does not take
-    and on a launch error; never falls back."""
+def pair_kernel_constants(L1: int, L2: int, Lout: int, device):
+    """The pair kernel's constants on ``device``: (F1, F2, FP, dout), the
+    folded matrices split into TF32 hi and lo, zero-padded and in the
+    kernel's fragment order (`core.constants.pair_fragments`), built once
+    per shape and cached per device."""
+    F1, F2, FP = (_const.to_torch(a, device) for a in _const.pair_fragments(L1, L2, Lout))
+    return F1, F2, FP, (Lout + 1) ** 2
+
+
+def launch_pair_kernel(x1, x2, F1, F2, FP, dout: int) -> torch.Tensor:
+    """Run the CUDA pairwise kernel: rows x1 [B, d1], x2 [B, d2] with the
+    fragments F1 [NS, ceil(d1/8), 32, 4], F2 [NS, ceil(d2/8), 32, 4],
+    FP [NS, ceil(dout/8), 32, 4] of `pair_kernel_constants` (f32,
+    contiguous, on one CUDA device; NS a multiple of 4) -> [B, dout] f32.
+    Raises on anything the kernel does not take and on a launch error;
+    never falls back."""
     dev = x1.device
-    for t in (x1, x2, T1, T2, P):
+    for t in (x1, x2, F1, F2, FP):
         if t.device != dev or dev.type != "cuda":
             raise ValueError(f"the pair kernel needs every tensor on one CUDA "
                              f"device, got {t.device} beside {dev}")
         if t.dtype != torch.float32:
             raise NotImplementedError(f"the pair kernel takes float32 storage, "
                                       f"got {t.dtype}")
-        if not t.is_contiguous() or t.dim() != 2:
-            raise ValueError("the pair kernel takes contiguous 2-D tensors")
+        if not t.is_contiguous():
+            raise ValueError("the pair kernel takes contiguous tensors")
+    if x1.dim() != 2 or x2.dim() != 2:
+        raise ValueError("the pair kernel takes rows [B, d]")
     B, d1 = x1.shape
     d2 = x2.shape[1]
-    G, dout = P.shape
-    if x2.shape[0] != B or T1.shape != (d1, G) or T2.shape != (d2, G):
-        raise ValueError(f"operands {tuple(x1.shape)}, {tuple(x2.shape)} and matrices "
-                         f"{tuple(T1.shape)}, {tuple(T2.shape)}, {tuple(P.shape)} "
-                         "do not fit")
+    NS = F1.shape[0]
+    want = ((NS, -(-d1 // 8), 32, 4), (NS, -(-d2 // 8), 32, 4), (NS, -(-dout // 8), 32, 4))
+    if (x2.shape[0] != B or NS % 4 or dout <= 0
+            or (tuple(F1.shape), tuple(F2.shape), tuple(FP.shape)) != want):
+        raise ValueError(f"operands {tuple(x1.shape)}, {tuple(x2.shape)} and fragments "
+                         f"{tuple(F1.shape)}, {tuple(F2.shape)}, {tuple(FP.shape)} "
+                         f"do not fit dout={dout}")
     lib = _load("gaunt_pair", _declare_pair)
     if lib.gaunt_pair_smem_bytes(d1, d2, dout) == 0:
         raise ValueError(f"the pair kernel does not take d1={d1}, d2={d2}, "
-                         f"dout={dout} (d up to 81 and dout up to 304 fit)")
+                         f"dout={dout} (up to d = 136 fits, any dout)")
     out = torch.empty((B, dout), device=dev, dtype=torch.float32)
     if B == 0:
         return out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.gaunt_pair_forward(x1.data_ptr(), x2.data_ptr(), T1.data_ptr(),
-                                    T2.data_ptr(), P.data_ptr(), out.data_ptr(),
-                                    B, d1, d2, G, dout, stream)
+        rc = lib.gaunt_pair_forward(x1.data_ptr(), x2.data_ptr(), F1.data_ptr(),
+                                    F2.data_ptr(), FP.data_ptr(), out.data_ptr(),
+                                    B, d1, d2, dout, NS, stream)
     if rc != 0:
         raise RuntimeError(f"gaunt_pair kernel launch failed: CUDA error {rc} "
-                           f"(d1={d1}, d2={d2}, G={G}, dout={dout}, B={B})")
+                           f"(d1={d1}, d2={d2}, NS={NS}, dout={dout}, B={B})")
     _STATS["gaunt_pair"] += 1
     return out
 
 
-def _pair_setup(x1, x2, L1: int, L2: int, Lout):
-    """Rows [B, d] in f32 (the kernel's storage; leading dims broadcast) and
-    the folded matrices on the operands' device."""
-    Lout = L1 + L2 if Lout is None else int(Lout)
+def _pair_rows(x1, x2):
+    """Rows [B, d] in f32 (the kernel's storage; leading dims broadcast)."""
     if x1.device != x2.device:
         raise ValueError(f"operands on {x1.device} and {x2.device}")
-    dev = x1.device
-    T1, T2, P = (_const.to_torch(a, dev) for a in _const.pair_matrices(L1, L2, Lout))
     lead = torch.broadcast_shapes(x1.shape[:-1], x2.shape[:-1])
     B = int(np.prod(lead)) if lead else 1
     rows = [a.to(torch.float32).expand(*lead, a.shape[-1]).reshape(B, a.shape[-1])
             for a in (x1, x2)]
-    return rows, (T1, T2, P), lead
+    return rows, lead
+
+
+def _pair_matrices(L1: int, L2: int, Lout: int, device):
+    return tuple(_const.to_torch(a, device) for a in _const.pair_matrices(L1, L2, Lout))
 
 
 def gaunt_fused_torch(x1, x2, L1: int, L2: int, Lout: int | None = None) -> torch.Tensor:
     """The pairwise collocation product as plain torch ops (the twin of the
     reference's ``fused_xla`` route): x1 [..., (L1+1)^2], x2 [...,
     (L2+1)^2] -> [..., (Lout+1)^2] f32, differentiable."""
-    (a1, a2), (T1, T2, P), lead = _pair_setup(x1, x2, L1, L2, Lout)
-    out = pair_plain(a1, a2, T1, T2, P)
-    return out.reshape(*lead, P.shape[1])
+    Lout = L1 + L2 if Lout is None else int(Lout)
+    (a1, a2), lead = _pair_rows(x1, x2)
+    out = pair_plain(a1, a2, *_pair_matrices(L1, L2, Lout, a1.device))
+    return out.reshape(*lead, out.shape[-1])
 
 
 def gaunt_fused_hopper(x1, x2, L1: int, L2: int, Lout: int | None = None) -> torch.Tensor:
@@ -187,12 +208,14 @@ def gaunt_fused_hopper(x1, x2, L1: int, L2: int, Lout: int | None = None) -> tor
         raise RuntimeError("the gaunt_pair kernel has no gradient: call it under "
                            "torch.no_grad() or on inputs that do not require "
                            "grad, or plan a differentiable backend")
-    (a1, a2), (T1, T2, P), lead = _pair_setup(x1, x2, L1, L2, Lout)
+    Lout = L1 + L2 if Lout is None else int(Lout)
+    (a1, a2), lead = _pair_rows(x1, x2)
     if kernel:
-        out = launch_pair_kernel(a1.contiguous(), a2.contiguous(), T1, T2, P)
+        out = launch_pair_kernel(a1.contiguous(), a2.contiguous(),
+                                 *pair_kernel_constants(L1, L2, Lout, a1.device))
     else:
-        out = pair_plain(a1, a2, T1, T2, P)
-    return out.reshape(*lead, P.shape[1])
+        out = pair_plain(a1, a2, *_pair_matrices(L1, L2, Lout, a1.device))
+    return out.reshape(*lead, out.shape[-1])
 
 
 # --------------------------------------------------------------------------
@@ -371,8 +394,8 @@ def _chain_setup(xs, Ls, Lout, entries, out_entry, dtype, gate):
                          f"for degrees {Ls}")
     sdt = _storage_dtype(xs, dtype)
     dev = xs[0].device
-    Ts_np, P_np = _const.chain_matrices(Ls, Lout, entries, out_entry,
-                                        pad_lanes=False, dtype=str(sdt)[6:])
+    Ts_np, P_np = _const.chain_matrices_folded(Ls, Lout, entries, out_entry,
+                                               dtype=str(sdt)[6:])
     Ts = tuple(_const.to_torch(T, dev) for T in Ts_np)
     P = _const.to_torch(P_np, dev)
     flat, lead, B = _chain_prepare(xs, entries)

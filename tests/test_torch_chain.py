@@ -233,3 +233,89 @@ def test_bound_counts_distinct_sphere_points(Ls, Lout, entries, n_distinct):
     less = chain_plain(flat, [torch.as_tensor(T[:, first]) for T in Ts],
                        torch.as_tensor(Pd), gs, gb)
     assert float((full - less).abs().max()) <= 1e-10 * max(1.0, float(full.abs().max()))
+
+
+FOLD_CASES = [
+    ((2, 2, 2), 2, ("sh",) * 3, "sh", True),    # the main path, gated
+    ((2, 2, 2), 2, ("sh",) * 3, "sh", False),   # ... ungated
+    ((1, 1), 2, ("sh", "sh"), "sh", False),      # n = 2
+    ((1, 2, 1, 2), 4, ("sh",) * 4, "sh", True),  # n = 4
+    ((1, 1), 2, ("sh", "sh"), "grid", True),     # an 'sh' -> 'grid' exit
+]
+
+
+@pytest.mark.parametrize("Ls,Lout,entries,out_entry,gated", FOLD_CASES)
+def test_folded_chain_matrices_give_the_same_product_and_gradient(Ls, Lout, entries,
+                                                                  out_entry, gated):
+    """The chain route's folded matrices (one sample per distinct sphere
+    point, P rows summed per point) against the full torus grid, forward
+    and gradients of every operand and of the gate, in float64 through the
+    kernel route's autograd Function."""
+    from repro_torch.core import constants as port_c
+    from repro_torch.kernels.gaunt_fused import _ChainFn
+
+    Ts, P = port_c.chain_matrices(Ls, Lout, entries, out_entry, pad_lanes=False,
+                                  dtype="float64")
+    Tf, Pf = port_c.chain_matrices_folded(Ls, Lout, entries, out_entry, dtype="float64")
+    reps, _ = port_c.sphere_point_classes(sum(Ls))
+    assert Pf.shape == (len(reps), P.shape[1]) and Pf.shape[0] < P.shape[0]
+    rng = np.random.default_rng(5)
+    results = []
+    for mats, proj in ((Ts, P), (Tf, Pf)):
+        flat = [torch.tensor(rng.normal(size=(11, T.shape[0])), requires_grad=True)
+                for T in mats]
+        gate = ([torch.tensor(rng.normal(size=(11, 1)), requires_grad=True) for _ in range(2)]
+                if gated else [None, None])
+        out = _ChainFn.apply(tuple(torch.as_tensor(T) for T in mats), torch.as_tensor(proj),
+                             *gate, *flat)
+        w = torch.as_tensor(np.random.default_rng(6).normal(size=out.shape))
+        leaves = flat + [g for g in gate if g is not None]
+        results.append((out.detach(), torch.autograd.grad((out * w).sum(), leaves)))
+        rng = np.random.default_rng(5)  # the same operands for the folded pass
+    (o_full, g_full), (o_fold, g_fold) = results
+    scale = max(1.0, float(o_full.abs().max()))
+    assert float((o_fold - o_full).abs().max()) <= 1e-10 * scale
+    for a, b in zip(g_fold, g_full):
+        assert float((a - b).abs().max()) <= 1e-10 * max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("Ls,Lout,entries,out_entry", [
+    ((2, 1, 2), 3, ("grid", "sh", "sh"), "sh"),
+    ((1, 2, 1, 2), 6, ("sh", "sh", "grid", "sh"), "grid"),
+])
+def test_chain_with_a_grid_entry_is_not_folded(Ls, Lout, entries, out_entry):
+    """'grid' entries are functions on the torus: the chain keeps every
+    torus sample, exactly as `chain_matrices` builds them."""
+    from repro_torch.core import constants as port_c
+
+    Ts, P = port_c.chain_matrices(Ls, Lout, entries, out_entry, pad_lanes=False)
+    Tf, Pf = port_c.chain_matrices_folded(Ls, Lout, entries, out_entry)
+    assert np.array_equal(Pf, P) and all(np.array_equal(a, b) for a, b in zip(Tf, Ts))
+    assert P.shape[0] == (2 * sum(Ls) + 2) ** 2
+
+
+@pytest.mark.parametrize("L1,L2,Lout", [(1, 1, 2), (3, 2, 3), (6, 6, 6), (8, 8, 16)])
+def test_pair_matrices_are_the_two_operand_fold(L1, L2, Lout):
+    from repro_torch.core import constants as port_c
+
+    (T1, T2), P = port_c.chain_matrices_folded((L1, L2), Lout, ("sh", "sh"), "sh")
+    for a, b in zip(port_c.pair_matrices(L1, L2, Lout), (T1, T2, P)):
+        assert a.dtype == np.float32 and np.array_equal(a, b)
+
+
+def test_chain_route_runs_on_the_folded_matrices():
+    """Both chain routes take the folded matrices when every entry is 'sh'
+    (86 samples on the main path, not 196) and match the reference kernel."""
+    from repro_torch.core import constants as port_c
+
+    xs, entries, gate = _inputs((2, 2, 2), "sh", True, seed=3)
+    Tf, Pf = port_c.chain_matrices_folded((2, 2, 2), 2, entries, "sh")
+    assert Pf.shape == (86, 9)
+    flat = [torch.as_tensor(x) for x in xs]
+    gs, gb = (torch.as_tensor(g).reshape(-1, 1) for g in gate)
+    want = chain_plain(flat, [torch.as_tensor(T) for T in Tf], torch.as_tensor(Pf), gs, gb)
+    got = gaunt_chain_fused_hopper(flat, (2, 2, 2), 2, gate=tuple(torch.as_tensor(g)
+                                                                  for g in gate))
+    assert torch.equal(got, want)
+    ref = np.asarray(_ref(xs, (2, 2, 2), 2, entries, "sh", gate))
+    assert_close(got.numpy(), ref, dtype="float32")

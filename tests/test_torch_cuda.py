@@ -9,9 +9,10 @@ import pytest
 import torch
 
 from repro_torch.core import constants
-from repro_torch.kernels.gaunt_fused import (gaunt_chain_fused_hopper,
+from repro_torch.kernels.gaunt_fused import (chain_plain, gaunt_chain_fused_hopper,
                                              gaunt_chain_fused_torch, gaunt_fused_hopper,
-                                             kernel_stats, launch_pair_kernel, pair_plain,
+                                             kernel_stats, launch_pair_kernel,
+                                             pair_kernel_constants, pair_plain,
                                              reset_kernel_stats)
 from repro_torch.kernels.ops import gaunt_tp_fused
 from repro_torch.kernels import mamba2 as mamba2_mod
@@ -49,24 +50,51 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("Ls,Lout,gated", [((2, 2, 2), 2, True), ((1, 1), 2, False),
-                                           ((1, 2, 1, 2), 4, True)])
+@pytest.mark.parametrize("Ls,Lout,gated", [((2, 2, 2), 2, True), ((2, 2, 2), 2, False),
+                                           ((1, 1), 2, False), ((1, 2, 1, 2), 4, True)])
 def test_kernel_matches_plain_on_card(cuda_device, Ls, Lout, gated):
+    """Folded chains (every entry 'sh'): one launch, within the f32 tier of
+    the plain version on the same folded matrices, and of the unfolded
+    torus grid."""
     g = torch.Generator(device="cuda").manual_seed(0)
-    xs = [torch.randn(1000, (L + 1) ** 2, device=cuda_device, generator=g) for L in Ls]
-    gate = (tuple(torch.randn(1000, device=cuda_device, generator=g) for _ in range(2))
+    xs = [torch.randn(8192, (L + 1) ** 2, device=cuda_device, generator=g) for L in Ls]
+    gate = (tuple(torch.randn(8192, device=cuda_device, generator=g) for _ in range(2))
             if gated else None)
     reset_kernel_stats()
     got = gaunt_chain_fused_hopper(xs, Ls, Lout, gate=gate)
     assert kernel_stats()["gaunt_chain"] == 1
     want = gaunt_chain_fused_torch(xs, Ls, Lout, gate=gate)
+    Ts, P = constants.chain_matrices(Ls, Lout, ("sh",) * len(Ls), "sh", pad_lanes=False)
+    flat = [x.reshape(-1, x.shape[-1]) for x in xs]
+    gs, gb = ((a.reshape(-1, 1) for a in gate) if gated else (None, None))
+    torus = chain_plain(flat, [constants.to_torch(T, cuda_device) for T in Ts],
+                        constants.to_torch(P, cuda_device), gs, gb)
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    assert err <= 3e-4 * max(1.0, want.abs().max().item()), err
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= 3e-4 * scale
+    assert (got - torus).abs().max().item() <= 3e-4 * scale
 
 
-@pytest.mark.parametrize("B", [1, 7, 300, 4099])
-@pytest.mark.parametrize("L1,L2,Lout", [(1, 1, 2), (3, 2, 3), (6, 6, 6), (8, 8, 16)])
+def test_chain_kernel_grid_entry_on_card(cuda_device):
+    """A 'grid' entry runs unfolded (G = 144 torus samples, two sample tiles)."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    Ls = (2, 1, 2)
+    xs = [torch.complex(torch.randn(300, 5, 3, device=cuda_device, generator=g),
+                        torch.randn(300, 5, 3, device=cuda_device, generator=g)),
+          torch.randn(300, 4, device=cuda_device, generator=g),
+          torch.randn(300, 9, device=cuda_device, generator=g)]
+    entries = ("grid", "sh", "sh")
+    assert constants.chain_matrices_folded(Ls, 3, entries, "sh")[1].shape[0] == 144
+    reset_kernel_stats()
+    got = gaunt_chain_fused_hopper(xs, Ls, 3, entries=entries)
+    assert kernel_stats()["gaunt_chain"] == 1
+    want = gaunt_chain_fused_torch(xs, Ls, 3, entries=entries)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 3e-4 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("B", [1, 7, 300, 512, 4099])
+@pytest.mark.parametrize("L1,L2,Lout", _CS.PAIR_CASES)
 def test_pair_kernel_matches_plain_on_card(cuda_device, L1, L2, Lout, B):
     g = torch.Generator(device="cuda").manual_seed(B)
     x1 = torch.randn(B, (L1 + 1) ** 2, device=cuda_device, generator=g)
@@ -74,12 +102,12 @@ def test_pair_kernel_matches_plain_on_card(cuda_device, L1, L2, Lout, B):
     T1, T2, P = (constants.to_torch(a, cuda_device)
                  for a in constants.pair_matrices(L1, L2, Lout))
     reset_kernel_stats()
-    got = launch_pair_kernel(x1, x2, T1, T2, P)
+    got = launch_pair_kernel(x1, x2, *pair_kernel_constants(L1, L2, Lout, cuda_device))
     assert kernel_stats()["gaunt_pair"] == 1
     want = pair_plain(x1, x2, T1, T2, P)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    # both are f32 sums of the same products in another order
+    # 3xTF32 keeps 22 of each operand's 24 bits; the sums run in another order
     assert err <= 1e-5 * max(1.0, want.abs().max().item()), err
 
 

@@ -221,3 +221,110 @@ def test_pair_bound_counts_gaunt_nonzeros(L1, L2, Lout, flops_per_row):
     d1, d2, dout = Gt.shape
     G = port_const.pair_matrices(L1, L2, Lout)[2].shape[0]
     assert flops < smoke.pair_work(1, d1, d2, G, dout)[0]
+
+
+def _rna_torch(t: torch.Tensor) -> torch.Tensor:
+    """TF32 rounding, to nearest with ties away from zero (cvt.rna), on f32."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_torch(t: torch.Tensor):
+    hi = _rna_torch(t)
+    return hi, _rna_torch(t - hi)
+
+
+@pytest.mark.parametrize("L1,L2,Lout", CASES + [(6, 6, 6), (6, 6, 12), (8, 8, 16)])
+def test_pair_tf32_constants_are_exact_splits(L1, L2, Lout):
+    """The pair kernel's constants: each part a TF32 value (low 13 mantissa
+    bits zero), hi the TF32 rounding of the f32 matrix and lo that of the
+    exact remainder, so hi + lo is the matrix to 2^-22 of each entry (22 of
+    its 24 bits; the two dropped bits are below the 1e-5 the kernel is held
+    to); zero padding to the fragment tiles; P's rows in the stated order
+    within each group of 8 samples."""
+    T1, T2, P = port_const.pair_matrices(L1, L2, Lout)
+    parts = port_const.pair_matrices_tf32(L1, L2, Lout)
+    Gp = parts[0].shape[1]
+    assert Gp % 32 == 0 and Gp - 32 < P.shape[0] <= Gp
+    order = np.array(port_const.PAIR_SAMPLE_ORDER)
+    assert sorted(order) == list(range(8))
+    Pp = np.zeros((Gp, parts[4].shape[1]), np.float32)
+    Pp[:P.shape[0], :P.shape[1]] = P
+    perm = (np.arange(Gp) // 8) * 8 + order[np.arange(Gp) % 8]
+    for (hi, lo), M in zip((parts[0:2], parts[2:4], parts[4:6]), (T1, T2, Pp[perm])):
+        assert hi.dtype == lo.dtype == np.float32 and hi.shape == lo.shape
+        assert all(s % 8 == 0 for s in hi.shape)
+        Mp = np.zeros(hi.shape, np.float32)
+        Mp[:M.shape[0], :M.shape[1]] = M
+        for part in (hi, lo):
+            assert not (part.view(np.uint32) & 0x1FFF).any()
+        assert np.array_equal(hi, _rna_torch(torch.as_tensor(Mp)).numpy())
+        assert np.array_equal(lo, _rna_torch(torch.as_tensor(Mp - hi)).numpy())
+        assert np.all(np.abs(Mp.astype(np.float64) - hi - lo) <= 2.0 ** -22 * np.abs(Mp))
+    # the permuted rows are P's rows, in PAIR_SAMPLE_ORDER within each group of 8
+    Phi = parts[4]
+    for s in range(Gp // 8):
+        for j in range(8):
+            assert np.array_equal(Phi[8 * s + j], _rna_torch(torch.as_tensor(Pp[8 * s + order[j]])))
+
+
+@pytest.mark.parametrize("L1,L2,Lout", [(1, 1, 2), (6, 6, 6), (8, 8, 16)])
+def test_pair_fragments_are_the_split_matrices(L1, L2, Lout):
+    """`pair_fragments` is `pair_matrices_tf32` in mma.sync m16n8k8 B-fragment
+    order: lane 4 g + t of tile (k-tile, n-tile) holds (hi[t, g],
+    hi[t + 4, g], lo[t, g], lo[t + 4, g]); T's fragments sample tile first."""
+    T1h, T1l, T2h, T2l, Ph, Pl = port_const.pair_matrices_tf32(L1, L2, Lout)
+    F1, F2, FP = port_const.pair_fragments(L1, L2, Lout)
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    for F, hi, lo, sample_first in ((F1, T1h, T1l, True), (F2, T2h, T2l, True),
+                                    (FP, Ph, Pl, False)):
+        K, N = hi.shape
+        assert F.flags.c_contiguous and F.dtype == np.float32
+        assert F.shape == ((N // 8, K // 8) if sample_first else (K // 8, N // 8)) + (32, 4)
+        for kt in range(K // 8):
+            for nt in range(N // 8):
+                f = F[nt, kt] if sample_first else F[kt, nt]
+                k, n = 8 * kt + t, 8 * nt + g
+                want = np.stack([hi[k, n], hi[k + 4, n], lo[k, n], lo[k + 4, n]], -1)
+                assert np.array_equal(f, want)
+
+
+def _mma_3xtf32(a: torch.Tensor, bh: torch.Tensor, bl: torch.Tensor) -> torch.Tensor:
+    """a [B, K] f32 times the split (bh, bl) [K, N] as the pair kernel does
+    it: a split on the fly, per k-step of 8 the terms lo.hi, hi.lo, hi.hi,
+    each an exact product sum added to an f32 accumulator."""
+    ah, al = _split_torch(a)
+    acc = torch.zeros(a.shape[0], bh.shape[1], dtype=torch.float32)
+    for k in range(0, a.shape[1], 8):
+        s = slice(k, k + 8)
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            acc = (acc.double() + x[:, s].double() @ y[s].double()).float()
+    return acc
+
+
+@pytest.mark.parametrize("L1,L2,Lout", [(6, 6, 6), (8, 8, 16)])
+def test_pair_kernel_3xtf32_arithmetic_holds_pair_plain(L1, L2, Lout):
+    """An emulation of the pair kernel's arithmetic (split rows, split and
+    padded constants, P's permuted rows, f32 accumulation per k-step) is
+    within the kernel's 1e-5 of `pair_plain`, and one TF32 pass is not."""
+    T1h, T1l, T2h, T2l, Ph, Pl = (torch.as_tensor(a)
+                                  for a in port_const.pair_matrices_tf32(L1, L2, Lout))
+    T1, T2, P = (torch.as_tensor(a) for a in port_const.pair_matrices(L1, L2, Lout))
+    rng = np.random.default_rng(19)
+    B = 1024
+    x1 = torch.as_tensor(rng.normal(size=(B, T1.shape[0])).astype(np.float32))
+    x2 = torch.as_tensor(rng.normal(size=(B, T2.shape[0])).astype(np.float32))
+    p1, p2 = (torch.nn.functional.pad(x, (0, T.shape[0] - x.shape[1]))
+              for x, T in ((x1, T1h), (x2, T2h)))
+    V = _mma_3xtf32(p1, T1h, T1l) * _mma_3xtf32(p2, T2h, T2l)
+    Gp = V.shape[1]
+    perm = (torch.arange(Gp) // 8) * 8 + torch.as_tensor(port_const.PAIR_SAMPLE_ORDER)[
+        torch.arange(Gp) % 8]
+    got = _mma_3xtf32(V[:, perm], Ph, Pl)[:, :P.shape[1]]
+    want = pair_plain(x1, x2, T1, T2, P)
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    # one TF32 pass (every operand of both products rounded once) misses it
+    t = _rna_torch
+    one = t((t(x1) @ t(T1)) * (t(x2) @ t(T2))) @ t(P)
+    assert float((one - want).abs().max()) > 1e-5 * scale
