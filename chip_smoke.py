@@ -10,7 +10,8 @@ result line):
      version on the card, forward and gradients, at the main-path shape
      and at the reference test chains (sh and grid entries/exits); the
      pair kernel against its plain version at the reference test shapes
-     and at the full-width shape;
+     and at the full-width shape; then both again in their bf16 modes
+     (`[kernel bf16]`, `[pair bf16]`: bf16 rows and T, f32 P and sums);
   3. main path — full-width `gaunt_mace_ff` (chain_tune='measure',
      grid_gate='on') served by `EquivariantServeEngine` (4 slots x 32 atoms)
      for seeded LJ clusters of 8-32 atoms: served == direct evaluation,
@@ -20,14 +21,18 @@ result line):
      from torch.profiler), the kernel's bound (counted at the grid's
      distinct sphere points, `sample_classes`), its registers and spills
      (ptxas), one serve step, and a profiled serve step (device busy time,
-     idle share, top kernels);
+     idle share, top kernels); then phases 3 and 4 again with the chain at
+     compute_dtype='bfloat16' (`[main bf16]`: the measured pick must be
+     the kernel, `gaunt_chain_bf16` launched, the checks at the bf16
+     tiers; the bf16 chain kernel's times and bound at bf16 bytes);
   5. pairwise path — the pairwise tensor product `ops.gaunt_tp_fused` at
      (L1, L2, Lout) = (6, 6, 6) on 81,920 rows (EquiformerV2's OC20 width,
      lmax 6 x 128 channels, 640 nodes): the pair kernel launched, finite,
      equal to the dense oracle on a row subset, equivariant, and timed
      against its plain version, its bound (the exact algorithm with the
      fewest operations) and the dense Gaunt contraction in library calls,
-     with its tensor-core rate and registers (ptxas);
+     with its tensor-core rate and registers (ptxas); then the same at
+     bf16 storage (`[pairwise bf16]`, `gaunt_pair_bf16`, bf16 tiers);
   6. Fig. 1(a) sweep — `plan(L, L, L, batch_hint=512, tune='measure')` on
      [4, 128, (L+1)^2] operands for L in 1..6 and 8: every candidate's
      time and the pick, the CG baseline, `GauntTensorProduct` and
@@ -95,6 +100,19 @@ F32_IDENTITY_TOL = 3e-4   # the repo's f32 "identity" tier (same math, two route
 F32_TRANSFORM_TOL = 5e-4  # f32 "transform" tier (rotate -> evaluate -> compare)
 F32_LOOSE_TOL = 2e-3      # f32 "loose" tier (gradients)
 BF16_IDENTITY_TOL = 5e-2  # bf16 "identity" tier (the LM path computes in bf16)
+BF16_TRANSFORM_TOL = 7e-2  # bf16 "transform" tier
+BF16_LOOSE_TOL = 1.2e-1    # bf16 "loose" tier
+# (identity, transform, loose) per storage dtype: repro/testing/precision.py
+TIERS = {"float32": (F32_IDENTITY_TOL, F32_TRANSFORM_TOL, F32_LOOSE_TOL),
+         "bfloat16": (BF16_IDENTITY_TOL, BF16_TRANSFORM_TOL, BF16_LOOSE_TOL)}
+# a bf16-mode Gaunt kernel against its plain version: both read the same
+# bf16 values, form exact f32 products and sum in f32, only in another
+# order.  Gradients that come back at bf16 (dx_i, cast to its operand's
+# dtype as in the reference) may round to neighbouring bf16 values from
+# f32 sums that differ in the last bits, so they are held to one bf16 unit
+# in the last place per element (2^-7 of the element).
+BF16_KERNEL_TOL = 1e-5
+BF16_ULP = 2.0 ** -7
 # the pair kernel against its plain version: both are f32 sums of the same
 # products, only in another order, so they agree to a few f32 roundings
 PAIR_VS_PLAIN_TOL = 1e-5
@@ -218,9 +236,21 @@ def _chain_inputs(Ls, entries, B, gated, device, seed):
     return xs, gate
 
 
-def compare_chain(Ls, Lout, entries, out_entry, B, gated, device, seed=0):
+def bf16_grad_err(got, ref) -> float:
+    """The largest elementwise error of bf16-valued gradients in units of
+    one bf16 ulp bound (2^-7 |ref|, and 1e-5 of the scale near zero): <= 1
+    means every element is within one bf16 rounding of the reference."""
+    got, ref = got.double(), ref.double()
+    scale = max(1.0, float(ref.abs().max())) if ref.numel() else 1.0
+    allow = BF16_ULP * ref.abs() + BF16_KERNEL_TOL * scale
+    return float(((got - ref).abs() / allow).max()) if ref.numel() else 0.0
+
+
+def compare_chain(Ls, Lout, entries, out_entry, B, gated, device, seed=0, dtype="float32"):
     """Forward and gradients of the kernel route vs the plain route on the
-    same inputs -> (forward abs err, forward rel err, grad rel err)."""
+    same inputs at storage ``dtype`` -> (forward abs err, forward rel err,
+    grad rel err of the f32 gradients, worst bf16-valued gradient error in
+    bf16 ulps (`bf16_grad_err`; 0 at f32 storage))."""
     import torch
     from repro_torch.kernels.gaunt_fused import (gaunt_chain_fused_hopper,
                                                  gaunt_chain_fused_torch)
@@ -231,7 +261,7 @@ def compare_chain(Ls, Lout, entries, out_entry, B, gated, device, seed=0):
         leaves = [x.requires_grad_(True) for x in xs]
         if gate is not None:
             leaves += [g.requires_grad_(True) for g in gate]
-        out = fn(xs, Ls, Lout, entries=entries, out_entry=out_entry, gate=gate)
+        out = fn(xs, Ls, Lout, entries=entries, out_entry=out_entry, gate=gate, dtype=dtype)
         w = torch.randn(out.shape, generator=torch.Generator().manual_seed(seed + 1),
                         dtype=out.real.dtype).to(device)
         w = w if not out.is_complex() else torch.complex(w, w)
@@ -244,36 +274,53 @@ def compare_chain(Ls, Lout, entries, out_entry, B, gated, device, seed=0):
     if o_k.is_complex():
         o_k, o_p = torch.view_as_real(o_k), torch.view_as_real(o_p)
     err, rel = rel_err(o_k, o_p)
-    grel = 0.0
-    for a, b in zip(g_k, g_p):
+    grel = gulp = 0.0
+    n_ops = len(Ls)
+    for i, (a, b) in enumerate(zip(g_k, g_p)):
         if a.is_complex():
             a, b = torch.view_as_real(a), torch.view_as_real(b)
-        grel = max(grel, rel_err(a, b)[1])
-    return err, rel, grel
+        if dtype == "bfloat16" and i < n_ops:
+            gulp = max(gulp, bf16_grad_err(a, b))  # dx_i comes back at bf16
+        else:
+            grel = max(grel, rel_err(a, b)[1])
+    return err, rel, grel, gulp
 
 
-def phase_kernel_vs_plain(device, rows: int):
+CHAIN_CASES = [
+    ((2, 2, 2), 2, ("sh",) * 3, "sh", None, True),   # None: the main path's rows
+    ((2, 2, 2), 2, ("sh",) * 3, "sh", None, False),
+    ((1, 1), 2, ("sh", "sh"), "sh", 257, False),
+    ((1, 1), 2, ("sh", "sh"), "grid", 257, True),
+    ((2, 1, 2), 3, ("grid", "sh", "sh"), "sh", 300, True),
+    ((2, 1, 2), 3, ("sh", "grid", "sh"), "sh", 300, False),
+    ((1, 2, 1, 2), 4, ("sh",) * 4, "sh", 129, True),
+    ((1, 2, 1, 2), 6, ("sh", "sh", "grid", "sh"), "grid", 129, False),
+]
+
+
+def phase_kernel_vs_plain(device, rows: int, dtype: str = "float32"):
     """Main-path chain (gated and ungated) at ``rows`` rows, then the
-    reference's test chains with 'grid' entries and exits."""
-    cases = [
-        ((2, 2, 2), 2, ("sh",) * 3, "sh", rows, True),
-        ((2, 2, 2), 2, ("sh",) * 3, "sh", rows, False),
-        ((1, 1), 2, ("sh", "sh"), "sh", 257, False),
-        ((1, 1), 2, ("sh", "sh"), "grid", 257, True),
-        ((2, 1, 2), 3, ("grid", "sh", "sh"), "sh", 300, True),
-        ((2, 1, 2), 3, ("sh", "grid", "sh"), "sh", 300, False),
-        ((1, 2, 1, 2), 4, ("sh",) * 4, "sh", 129, True),
-        ((1, 2, 1, 2), 6, ("sh", "sh", "grid", "sh"), "grid", 129, False),
-    ]
+    reference's test chains with 'grid' entries and exits, at storage
+    ``dtype``: f32 within the f32 tiers; bf16 (the kernel's bf16 mode)
+    forward and f32 gradients within `BF16_KERNEL_TOL`, bf16 gradients
+    within one bf16 ulp."""
     main_err = 0.0
-    for i, (Ls, Lout, entries, out_entry, B, gated) in enumerate(cases):
-        err, rel, grel = compare_chain(Ls, Lout, entries, out_entry, B, gated, device, seed=i)
-        ok = rel <= F32_IDENTITY_TOL and grel <= F32_LOOSE_TOL
-        print(f"[kernel] Ls={Ls} Lout={Lout} entries={entries} exit={out_entry} "
-              f"B={B} gated={gated}: fwd max_abs_err {err:.3e} rel {rel:.3e} "
-              f"(tol {F32_IDENTITY_TOL}), grad rel {grel:.3e} (tol {F32_LOOSE_TOL}) "
+    for i, (Ls, Lout, entries, out_entry, B, gated) in enumerate(CHAIN_CASES):
+        B = rows if B is None else B
+        err, rel, grel, gulp = compare_chain(Ls, Lout, entries, out_entry, B, gated, device,
+                                             seed=i, dtype=dtype)
+        if dtype == "bfloat16":
+            ok = rel <= BF16_KERNEL_TOL and grel <= BF16_KERNEL_TOL and gulp <= 1.0
+            tol = (f"(tol {BF16_KERNEL_TOL}), f32 grad rel {grel:.3e} (tol "
+                   f"{BF16_KERNEL_TOL}), bf16 dx within {gulp:.3f} bf16 ulp (tol 1)")
+        else:
+            ok = rel <= F32_IDENTITY_TOL and grel <= F32_LOOSE_TOL
+            tol = (f"(tol {F32_IDENTITY_TOL}), grad rel {grel:.3e} (tol {F32_LOOSE_TOL})")
+        tag = "kernel" if dtype == "float32" else "kernel bf16"
+        print(f"[{tag}] Ls={Ls} Lout={Lout} entries={entries} exit={out_entry} "
+              f"B={B} gated={gated}: fwd max_abs_err {err:.3e} rel {rel:.3e} {tol} "
               f"{'ok' if ok else 'FAIL'}")
-        check(ok, f"kernel disagrees with its plain version for Ls={Ls}")
+        check(ok, f"kernel disagrees with its plain version for Ls={Ls} at {dtype}")
         if i < 2:
             main_err = max(main_err, err)
     return main_err
@@ -284,31 +331,40 @@ PAIR_CASES = [(1, 1, 2), (2, 2, 4), (3, 2, 3), (4, 4, 8), (6, 6, 6), (6, 6, 12),
 PAIR_MAIN = (6, 6, 6)
 
 
-def _pair_rows(L1, L2, B, device, seed):
+def _pair_rows(L1, L2, B, device, seed, dtype="float32"):
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
     return tuple(torch.as_tensor(rng.normal(size=(B, (L + 1) ** 2)), dtype=torch.float32,
-                                 device=device) for L in (L1, L2))
+                                 device=device).to(getattr(torch, dtype)) for L in (L1, L2))
 
 
-def phase_pair_vs_plain(device, main_rows: int) -> float:
+def phase_pair_vs_plain(device, main_rows: int, dtype: str = "float32") -> float:
     """The pair kernel (`launch_pair_kernel`, through `gaunt_fused_hopper`)
-    against `pair_plain` on the same rows and folded matrices: every shape
-    of `PAIR_CASES` at 1, 7, 300 and 4099 rows (a ragged last block, and
-    dout split over blocks from (4, 4, 8) on), and the full-width shape at
-    ``main_rows``; -> max abs error at the full-width shape."""
+    against `pair_plain` on the same rows and folded matrices at storage
+    ``dtype``: every shape of `PAIR_CASES` at 1, 7, 300 and 4099 rows (a
+    ragged last block, and dout split over blocks from (4, 4, 8) on), and
+    the full-width shape at ``main_rows``; -> max abs error at the
+    full-width shape."""
     import torch
     from repro_torch.core import constants as _c
     from repro_torch.kernels.gaunt_fused import gaunt_fused_hopper, pair_plain
 
+    bf16 = dtype == "bfloat16"
+    why = ("bf16 x bf16 products exact in f32, f32 sums in another order, 3xTF32 "
+           "projection" if bf16 else
+           "3xTF32 keeps 22 of each operand's 24 bits, sums in another order")
     main_err = 0.0
     for i, (L1, L2, Lout) in enumerate(PAIR_CASES):
         rows = [1, 7, 300, 4099] + ([main_rows] if (L1, L2, Lout) == PAIR_MAIN else [])
-        mats = [_c.to_torch(a, device) for a in _c.pair_matrices(L1, L2, Lout)]
+        T1, T2, _ = _c.pair_matrices(L1, L2, Lout, dtype=dtype)
+        P = _c.pair_matrices(L1, L2, Lout)[2]
+        sdt = torch.bfloat16 if bf16 else None
+        mats = [_c.to_torch(T1, device, sdt), _c.to_torch(T2, device, sdt),
+                _c.to_torch(P, device)]
         for B in rows:
-            x1, x2 = _pair_rows(L1, L2, B, device, seed=10 * i + B)
+            x1, x2 = _pair_rows(L1, L2, B, device, seed=10 * i + B, dtype=dtype)
             with torch.no_grad():
                 got = gaunt_fused_hopper(x1, x2, L1, L2, Lout)
                 want = pair_plain(x1, x2, *mats)
@@ -316,12 +372,11 @@ def phase_pair_vs_plain(device, main_rows: int) -> float:
                 torch.cuda.synchronize()
             err, rel = rel_err(got, want)
             ok = rel <= PAIR_VS_PLAIN_TOL and bool(torch.isfinite(got).all())
-            print(f"[pair] (L1,L2,Lout)=({L1},{L2},{Lout}) B={B} G={mats[0].shape[1]}: "
-                  f"max_abs_err {err:.3e} rel {rel:.3e} (tol {PAIR_VS_PLAIN_TOL}: 3xTF32 "
-                  f"keeps 22 of each operand's 24 bits, sums in another order) "
-                  f"{'ok' if ok else 'FAIL'}")
+            print(f"[pair{' bf16' if bf16 else ''}] (L1,L2,Lout)=({L1},{L2},{Lout}) B={B} "
+                  f"G={mats[0].shape[1]}: max_abs_err {err:.3e} rel {rel:.3e} (tol "
+                  f"{PAIR_VS_PLAIN_TOL}: {why}) {'ok' if ok else 'FAIL'}")
             check(ok, f"pair kernel disagrees with its plain version at "
-                      f"({L1},{L2},{Lout}) B={B}")
+                      f"({L1},{L2},{Lout}) B={B} ({dtype})")
             if B == main_rows:
                 main_err = err
     return main_err
@@ -354,6 +409,8 @@ def make_requests(sizes, n_species, seed):
 
 
 def phase_main_path(device, cfg, n_slots, max_atoms, sizes):
+    """The served force field at ``cfg`` (its compute_dtype sets the chain's
+    storage, the kernel mode counted and the tolerance tiers)."""
     import numpy as np
     import torch
     from repro_torch.core import engine as _engine
@@ -361,20 +418,25 @@ def phase_main_path(device, cfg, n_slots, max_atoms, sizes):
     from repro_torch.models.equivariant import MaceGaunt
     from repro_torch.serve.engine import EquivariantServeEngine
 
+    bf16 = cfg.compute_dtype == "bfloat16"
+    tag = "main bf16" if bf16 else "main"
+    stat = "gaunt_chain_bf16" if bf16 else "gaunt_chain"
+    tol_id, tol_tr, tol_loose = TIERS[cfg.compute_dtype]
     model = MaceGaunt(cfg, device=device, generator=torch.Generator().manual_seed(0))
     eng = EquivariantServeEngine(model, n_slots=n_slots, max_atoms=max_atoms)
     t0 = time.perf_counter()
     eng.warmup()
-    print(f"[main] warmup {time.perf_counter() - t0:.2f} s "
-          f"(rows per chain {n_slots * max_atoms * cfg.channels})")
+    print(f"[{tag}] warmup {time.perf_counter() - t0:.2f} s "
+          f"(rows per chain {n_slots * max_atoms * cfg.channels}, chain storage "
+          f"{cfg.compute_dtype})")
     ge = _engine.get_engine()
     picks = {}
     for key, times in ge.measured_times.items():
-        if isinstance(key, _engine.PlanKey):
-            continue  # pairwise plans (phases 6 and 7)
+        if isinstance(key, _engine.PlanKey) or key[2] != cfg.compute_dtype:
+            continue  # pairwise plans (phases 6 and 7), the other storage's chains
         pick = picks[key] = min(times, key=times.get)
         spread = ge.measured_spread[key]
-        print(f"[main] measured chain Ls={key[0]} rows={key[3]} gate={key[5]} "
+        print(f"[{tag}] measured chain Ls={key[0]} rows={key[3]} gate={key[5]} "
               f"({'CUDA events' if device.type == 'cuda' else 'host clock'} per call, "
               f"median of {_engine._MEASURE_REPS}, [min, max]): "
               + ", ".join(f"{k} {v * 1e3:.4f} ms [{spread[k][0] * 1e3:.4f}, "
@@ -387,11 +449,11 @@ def phase_main_path(device, cfg, n_slots, max_atoms, sizes):
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernel_stats()["gaunt_chain"]
+    launches = kernel_stats()[stat]
     summ = eng.metrics.summary()
-    print(f"[main] served {len(reqs)} requests ({sum(sizes)} atoms) in {wall:.3f} s, "
+    print(f"[{tag}] served {len(reqs)} requests ({sum(sizes)} atoms) in {wall:.3f} s, "
           f"{summ['steps']} steps, step p50 {summ['step_ms_p50']:.2f} ms, "
-          f"kernel launches {launches}")
+          f"{stat} launches {launches}")
     check(all(r.done and not r.rejected for r in reqs), "a request did not complete")
     # served == direct evaluation of each molecule alone
     worst_e = worst_f = 0.0
@@ -405,10 +467,10 @@ def phase_main_path(device, cfg, n_slots, max_atoms, sizes):
         worst_e = max(worst_e, abs(r.energy - e) / max(1.0, abs(e)))
         worst_f = max(worst_f, float(np.abs(r.forces - f).max())
                       / max(1e-30, float(np.abs(f).max())))
-    print(f"[main] served vs direct: energy rel {worst_e:.3e} (tol {F32_IDENTITY_TOL}), "
-          f"forces rel {worst_f:.3e} (tol {F32_LOOSE_TOL})")
-    check(worst_e <= F32_IDENTITY_TOL, "served energy differs from direct evaluation")
-    check(worst_f <= F32_LOOSE_TOL, "served forces differ from direct evaluation")
+    print(f"[{tag}] served vs direct: energy rel {worst_e:.3e} (tol {tol_id}), "
+          f"forces rel {worst_f:.3e} (tol {tol_loose})")
+    check(worst_e <= tol_id, "served energy differs from direct evaluation")
+    check(worst_f <= tol_loose, "served forces differ from direct evaluation")
     # rotation: energy invariant, forces equivariant
     r0 = reqs[-1]
     Q = random_rotation(7)
@@ -419,19 +481,19 @@ def phase_main_path(device, cfg, n_slots, max_atoms, sizes):
     f0, f1 = f0.cpu().numpy(), f1.cpu().numpy()
     de = abs(float(e1) - float(e0)) / max(1.0, abs(float(e0)))
     df = float(np.abs(f1 - f0 @ Q.T).max()) / max(1e-30, float(np.abs(f0).max()))
-    print(f"[main] rotation: energy rel {de:.3e} (tol {F32_TRANSFORM_TOL}), forces rel "
-          f"{df:.3e} (tol {F32_LOOSE_TOL}); |E| {abs(float(e0)):.4e} max|F| "
+    print(f"[{tag}] rotation: energy rel {de:.3e} (tol {tol_tr}), forces rel "
+          f"{df:.3e} (tol {tol_loose}); |E| {abs(float(e0)):.4e} max|F| "
           f"{float(np.abs(f0).max()):.4e}")
-    check(de <= F32_TRANSFORM_TOL and df <= F32_LOOSE_TOL, "rotation check failed")
+    check(de <= tol_tr and df <= tol_loose, "rotation check failed")
     served_pick = picks.get(ge.chain_measure_key(
         (cfg.L,) * cfg.nu, cfg.L, cfg.compute_dtype, n_slots * max_atoms * cfg.channels,
         (0,) * cfg.nu, True, device))
-    print(f"[main] served chain backend: {served_pick}")
+    print(f"[{tag}] served chain backend: {served_pick}")
     kernel = "fused_hopper" if device.type == "cuda" else "fused_torch"
     check(served_pick == kernel, f"the measured pick for the served chain is "
                                  f"{served_pick!r}, not the kernel")
     if device.type == "cuda":
-        check(launches > 0, "the chain kernel was not launched on the served steps")
+        check(launches > 0, f"the chain kernel ({stat}) was not launched on the served steps")
     return launches, summ, model
 
 
@@ -466,15 +528,16 @@ def sample_classes(Ts, tol: float = 1e-9):
     return cls
 
 
-def chain_work(n_rows: int, ds, G: int, dout: int, gated: bool):
+def chain_work(n_rows: int, ds, G: int, dout: int, gated: bool, sbytes: int = 4):
     """(FLOPs, bytes) the chain function needs at ``G`` distinct samples:
     each input byte read once, each output byte written once (T and P
-    included)."""
+    included); the rows and T at ``sbytes`` a value (the storage: 4 at f32,
+    2 at bf16), P, the gate scalars and the output at 4."""
     n = len(ds)
     flops = n_rows * (2 * G * sum(ds) + G * (n - 1) + (2 * G if gated else 0)
                       + 2 * G * dout)
-    nbytes = 4 * (n_rows * (sum(ds) + dout + (2 if gated else 0))
-                  + sum(ds) * G + G * dout)
+    nbytes = (sbytes * (n_rows * sum(ds) + sum(ds) * G)
+              + 4 * (n_rows * (dout + (2 if gated else 0)) + G * dout))
     return flops, nbytes
 
 
@@ -521,20 +584,24 @@ def device_ms(fn, reps: int = 20):
     return total / reps / 1e3 if total > 0 else None
 
 
-def phase_times(device, rows: int, Ls=(2, 2, 2), Lout: int = 2):
+def phase_times(device, rows: int, Ls=(2, 2, 2), Lout: int = 2, dtype: str = "float32"):
+    """The chain kernel and its plain version on the folded matrices the
+    route uses, at storage ``dtype`` (bf16: rows and T at bf16, P and the
+    gate f32)."""
     import numpy as np
     import torch
     from repro_torch.core import constants as _c
     from repro_torch.kernels.gaunt_fused import chain_plain, launch_chain_kernel
 
+    sdt = getattr(torch, dtype)
     # the matrices the chain route uses: folded to the distinct sphere points
-    Ts_np, P_np = _c.chain_matrices_folded(Ls, Lout, ("sh",) * len(Ls), "sh",
-                                           dtype="float32")
-    Ts = [_c.to_torch(T, device) for T in Ts_np]
+    Ts_np, _ = _c.chain_matrices_folded(Ls, Lout, ("sh",) * len(Ls), "sh", dtype=dtype)
+    P_np = _c.chain_matrices_folded(Ls, Lout, ("sh",) * len(Ls), "sh", dtype="float32")[1]
+    Ts = [_c.to_torch(T, device, sdt) for T in Ts_np]
     P = _c.to_torch(P_np, device)
     rng = np.random.default_rng(0)
     flat = [torch.as_tensor(rng.normal(size=(rows, T.shape[0])), dtype=torch.float32,
-                            device=device) for T in Ts]
+                            device=device).to(sdt) for T in Ts]
     gs, gb = (torch.as_tensor(rng.normal(size=(rows, 1)), dtype=torch.float32,
                               device=device) for _ in range(2))
     # plain, kernel, kernel, plain: compare within one call, in turns
@@ -547,11 +614,12 @@ def phase_times(device, rows: int, Ls=(2, 2, 2), Lout: int = 2):
                              dtype="float64")[0]
     Gd = int(sample_classes(full).max()) + 1
     check(Gd == G, f"the folded chain grid has {G} samples, the sphere {Gd} distinct points")
-    flops, nbytes = chain_work(rows, [T.shape[0] for T in Ts], Gd, dout, True)
+    flops, nbytes = chain_work(rows, [T.shape[0] for T in Ts], Gd, dout, True,
+                               sbytes=sdt.itemsize)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     bound_ms = max(t_ops, t_bytes) * 1e3
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"[times] chain Ls={Ls} Lout={Lout} gated rows={rows} G={G} folded of "
+    print(f"[times] chain {dtype} Ls={Ls} Lout={Lout} gated rows={rows} G={G} folded of "
           f"{full[0].shape[1]} torus samples: kernel "
           f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms per call (CUDA events "
           f"around one call from Python, median of 50: host overhead included)")
@@ -565,7 +633,7 @@ def phase_times(device, rows: int, Ls=(2, 2, 2), Lout: int = 2):
         kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
         print("[times] device time per call: not measured (the profiler saw no "
               "device time); the event times stand")
-    print(f"[times] work at the {Gd} distinct sphere points: "
+    print(f"[times] work at the {Gd} distinct sphere points ({dtype} rows and T): "
           f"{flops / 1e6:.2f} MFLOP, {nbytes / 1e6:.3f} MB -> bound {bound_ms:.5f} ms "
           f"by {bound_by} (67 TFLOP/s f32, 3.35 TB/s); kernel at "
           f"{bound_ms / kernel_ms * 100:.1f}% of bound")
@@ -626,27 +694,29 @@ def profile_step(model, n_slots, max_atoms, top: int = 10) -> None:
 # --------------------------------------------------------------------------
 
 
-def pair_work(n_rows: int, d1: int, d2: int, G: int, dout: int):
+def pair_work(n_rows: int, d1: int, d2: int, G: int, dout: int, sbytes: int = 4):
     """(FLOPs, bytes) the collocation algorithm needs at ``G`` distinct
     samples: each input byte read once (T1, T2 and P included), each output
-    byte written once."""
+    byte written once; the rows and T1, T2 at ``sbytes`` a value (4 at f32
+    storage, 2 at bf16), P and the f32 output at 4."""
     flops = n_rows * (2 * G * (d1 + d2) + G + 2 * G * dout)
-    nbytes = 4 * (n_rows * (d1 + d2 + dout) + (d1 + d2) * G + G * dout)
+    nbytes = sbytes * (n_rows + G) * (d1 + d2) + 4 * (n_rows * dout + G * dout)
     return flops, nbytes
 
 
-def pair_work_sparse(n_rows: int, Gt):
+def pair_work_sparse(n_rows: int, Gt, sbytes: int = 4):
     """(FLOPs, bytes) of the sparse contraction over the nonzeros of the
     exact real Gaunt tensor ``Gt`` [d1, d2, dout] (float64): one product
     x1_i x2_j per (i, j) with a nonzero, then one FMA per nonzero; the rows
-    read and written once, the nonzero values read once."""
+    (at ``sbytes`` a value) read and the f32 output written once, the
+    nonzero values (at ``sbytes``) read once."""
     import numpy as np
 
     nz = np.abs(Gt) > 1e-9 * np.abs(Gt).max()  # roundoff of the exact builder is ~1e-16
     nnz, pairs = int(nz.sum()), int(nz.any(axis=-1).sum())
     d1, d2, dout = Gt.shape
     flops = n_rows * (pairs + 2 * nnz)
-    nbytes = 4 * (n_rows * (d1 + d2 + dout) + nnz)
+    nbytes = sbytes * (n_rows * (d1 + d2) + nnz) + 4 * n_rows * dout
     return flops, nbytes, nnz, pairs
 
 
@@ -655,56 +725,64 @@ def bound_of(flops: float, nbytes: float):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_pair_main(device, rows: int):
-    """`ops.gaunt_tp_fused` at (6, 6, 6) on ``rows`` rows, the kernel's
-    launches counted over this run alone; checks against the dense oracle
-    on a row subset and under rotation.  -> (launches, output, inputs)."""
-    import numpy as np
+def phase_pair_main(device, rows: int, dtype: str = "float32"):
+    """`ops.gaunt_tp_fused` at (6, 6, 6) on ``rows`` rows at storage
+    ``dtype`` (bf16: bf16 operands, the kernel's bf16 mode, a bf16 plan
+    output), the kernel's launches counted over this run alone; checks
+    against the dense oracle on a row subset and under rotation.  ->
+    (launches, inputs)."""
     import torch
     from repro_torch.core import so3
     from repro_torch.core.cg import gaunt_einsum_reference
     from repro_torch.kernels.gaunt_fused import kernel_stats, reset_kernel_stats
     from repro_torch.kernels.ops import gaunt_tp_fused
 
+    bf16 = dtype == "bfloat16"
+    tag, stat = ("pairwise bf16", "gaunt_pair_bf16") if bf16 else ("pairwise", "gaunt_pair")
+    tol_id, tol_tr, _ = TIERS[dtype]
+    tol_eq = tol_tr if bf16 else PAIR_EQUIVARIANCE_TOL
     L1, L2, Lout = PAIR_MAIN
-    x1, x2 = _pair_rows(L1, L2, rows, device, seed=2024)
+    x1, x2 = _pair_rows(L1, L2, rows, device, seed=2024, dtype=dtype)
     reset_kernel_stats()
     with torch.no_grad():
-        out = gaunt_tp_fused(x1, x2, L1, L2, Lout, device=device)
+        out = gaunt_tp_fused(x1, x2, L1, L2, Lout, device=device, dtype=dtype)
     if device.type == "cuda":
         torch.cuda.synchronize()
-    launches = kernel_stats()["gaunt_pair"]
-    print(f"[pairwise] ops.gaunt_tp_fused ({L1},{L2},{Lout}) on {rows} rows "
-          f"(640 nodes x 128 channels at full width) -> {tuple(out.shape)}, "
-          f"pair kernel launches {launches}")
+    launches = kernel_stats()[stat]
+    print(f"[{tag}] ops.gaunt_tp_fused ({L1},{L2},{Lout}) on {rows} rows "
+          f"(640 nodes x 128 channels at full width) -> {tuple(out.shape)} {out.dtype}, "
+          f"{stat} launches {launches}")
     check(out.shape == (rows, (Lout + 1) ** 2), "pairwise output shape")
     check(bool(torch.isfinite(out).all()), "pairwise output is not finite")
     if device.type == "cuda":
-        check(launches > 0, "the pair kernel was not launched on the pairwise path")
+        check(launches > 0, f"the pair kernel ({stat}) was not launched on the pairwise path")
     sub = slice(0, min(rows, 4096))
     want = gaunt_einsum_reference(x1[sub].double(), x2[sub].double(), L1, L2, Lout)
     err, rel = rel_err(out[sub], want)
-    print(f"[pairwise] vs the dense Gaunt oracle (f64, first {want.shape[0]} rows): "
-          f"max_abs_err {err:.3e} rel {rel:.3e} (tol {F32_IDENTITY_TOL})")
-    check(rel <= F32_IDENTITY_TOL, "pairwise output differs from the dense oracle")
+    print(f"[{tag}] vs the dense Gaunt oracle (f64 on the same {dtype} operands, first "
+          f"{want.shape[0]} rows): max_abs_err {err:.3e} rel {rel:.3e} (tol {tol_id})")
+    check(rel <= tol_id, "pairwise output differs from the dense oracle")
     angles = (0.4, 1.3, -2.1)
     D1, D2, D3 = (torch.as_tensor(so3.wigner_D_real_packed(L, *angles), dtype=torch.float32,
                                   device=device) for L in (L1, L2, Lout))
     with torch.no_grad():
-        rot = gaunt_tp_fused(x1 @ D1.T, x2 @ D2.T, L1, L2, Lout, device=device)
-        want_rot = out @ D3.T
+        rot = gaunt_tp_fused((x1.float() @ D1.T).to(x1.dtype), (x2.float() @ D2.T).to(x2.dtype),
+                             L1, L2, Lout, device=device, dtype=dtype)
+        want_rot = out.float() @ D3.T
     err, rel = rel_err(rot, want_rot)
-    print(f"[pairwise] equivariance out(D x1, D x2) vs D out(x1, x2): max_abs_err "
-          f"{err:.3e} rel {rel:.3e} (tol {PAIR_EQUIVARIANCE_TOL})")
-    check(rel <= PAIR_EQUIVARIANCE_TOL, "pairwise product is not equivariant")
+    print(f"[{tag}] equivariance out(D x1, D x2) vs D out(x1, x2): max_abs_err "
+          f"{err:.3e} rel {rel:.3e} (tol {tol_eq})")
+    check(rel <= tol_eq, "pairwise product is not equivariant")
     return launches, (x1, x2)
 
 
 def phase_pair_times(device, x1, x2):
     """Kernel and plain version at the full-width shape, in turns (plain,
-    kernel, kernel, plain), device times from torch.profiler, the bound of
-    the exact algorithm with the fewest operations, and the dense Gaunt
-    contraction in library calls."""
+    kernel, kernel, plain), at the storage of ``x1``/``x2`` (f32 or bf16),
+    device times from torch.profiler, the bound of the exact algorithm with
+    the fewest operations (operations at the f32 rate: the sums are f32;
+    bytes at the storage's width), and the dense Gaunt contraction in
+    library calls at the same storage."""
     import torch
     from repro_torch.core import constants as _c
     from repro_torch.core.engine import _gaunt_contract
@@ -712,8 +790,14 @@ def phase_pair_times(device, x1, x2):
                                                  pair_plain)
 
     L1, L2, Lout = PAIR_MAIN
-    T1, T2, P = (_c.to_torch(a, device) for a in _c.pair_matrices(L1, L2, Lout))
-    consts = pair_kernel_constants(L1, L2, Lout, device)
+    sdt = x1.dtype
+    bf16 = sdt == torch.bfloat16
+    name = "pair bf16" if bf16 else "pair"
+    dts = str(sdt).replace("torch.", "")
+    T1n, T2n, _ = _c.pair_matrices(L1, L2, Lout, dtype=dts)
+    T1, T2 = (_c.to_torch(a, device, sdt if bf16 else None) for a in (T1n, T2n))
+    P = _c.to_torch(_c.pair_matrices(L1, L2, Lout)[2], device)
+    consts = pair_kernel_constants(L1, L2, Lout, device, sdt)
     rows, (d1, d2), (G, dout) = x1.shape[0], (x1.shape[1], x2.shape[1]), P.shape
     full = _c.chain_matrices((L1, L2), Lout, ("sh", "sh"), "sh", pad_lanes=False,
                              dtype="float64")[0]
@@ -726,43 +810,57 @@ def phase_pair_times(device, x1, x2):
         p2 = event_ms(lambda: pair_plain(x1, x2, T1, T2, P))
         kd = device_ms(lambda: launch_pair_kernel(x1, x2, *consts))
         pd = device_ms(lambda: pair_plain(x1, x2, T1, T2, P))
-    print(f"[times] pair ({L1},{L2},{Lout}) rows={rows} G={G} of {full[0].shape[1]} torus "
+    print(f"[times] {name} ({L1},{L2},{Lout}) rows={rows} G={G} of {full[0].shape[1]} torus "
           f"samples: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms per call "
           f"(CUDA events around one call from Python, median of 50)")
     if kd is not None and pd is not None:
         kernel_ms, plain_ms = kd, pd
-        print(f"[times] pair device time per call (torch.profiler, 20 calls): kernel "
+        print(f"[times] {name} device time per call (torch.profiler, 20 calls): kernel "
               f"{kd:.5f} ms, plain {pd:.5f} ms")
     else:
         kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
-        print("[times] pair device time per call: not measured (the profiler saw no "
+        print(f"[times] {name} device time per call: not measured (the profiler saw no "
               "device time); the event times stand")
     # the bound is that of the exact algorithm with the fewest operations:
     # the collocation product at the distinct sphere points, or the sparse
     # contraction over the Gaunt tensor's nonzeros
-    flops_c, nbytes_c = pair_work(rows, d1, d2, G, dout)
+    sb = sdt.itemsize
+    flops_c, nbytes_c = pair_work(rows, d1, d2, G, dout, sbytes=sb)
     Gt = _c.gaunt_dense(L1, L2, Lout, "float64")
-    flops_s, nbytes_s, nnz, pairs = pair_work_sparse(rows, Gt)
-    bounds = [(*bound_of(f, b), f, b, name) for f, b, name in
+    flops_s, nbytes_s, nnz, pairs = pair_work_sparse(rows, Gt, sbytes=sb)
+    bounds = [(*bound_of(f, b), f, b, what) for f, b, what in
               ((flops_c, nbytes_c, f"collocation at {G} distinct sphere points"),
                (flops_s, nbytes_s, f"sparse contraction over {nnz} nonzeros "
                                    f"({pairs} operand pairs)"))]
-    for b_ms, b_by, f, b, name in bounds:
-        print(f"[times] pair work by {name}: {f / 1e9:.4f} GFLOP ({f // rows} per row), "
-              f"{b / 1e6:.3f} MB -> {b_ms:.5f} ms by {b_by} (67 TFLOP/s f32, 3.35 TB/s)")
+    for b_ms, b_by, f, b, what in bounds:
+        print(f"[times] {name} work by {what}: {f / 1e9:.4f} GFLOP ({f // rows} per row), "
+              f"{b / 1e6:.3f} MB ({dts} rows) -> {b_ms:.5f} ms by {b_by} (67 TFLOP/s f32, "
+              f"3.35 TB/s)")
     bound_ms, bound_by, _, _, least = min(bounds)
-    print(f"[times] pair bound {bound_ms:.5f} ms by {bound_by} ({least}); kernel at "
+    print(f"[times] {name} bound {bound_ms:.5f} ms by {bound_by} ({least}); kernel at "
           f"{bound_ms / kernel_ms * 100:.1f}% of bound")
-    Gp, KT = consts[0].shape[0] * 8, consts[0].shape[1] + consts[1].shape[1]
-    mma_flops = 3 * 2 * rows * Gp * 8 * (KT + consts[2].shape[1])
-    print(f"[times] pair kernel work: 3xTF32 on tensor cores, {mma_flops / 1e9:.2f} G TF32 "
-          f"FLOP after padding (G {G} -> {Gp}, d -> 8 x ceil(d/8)), "
-          f"{mma_flops / kernel_ms / 1e9:.1f} TFLOP/s")
-    print_registers("pair", "gaunt_pair")
+    # tensor-core work after padding: the sampling (3xTF32 m16n8k8 at f32,
+    # one bf16 m16n8k16 at bf16) and the 3xTF32 projection
+    Gp, KT, NO = consts[0].shape[0] * 8, consts[0].shape[1] + consts[1].shape[1], \
+        consts[2].shape[1]
+    proj = 3 * 2 * rows * Gp * 8 * NO
+    if bf16:
+        samp = 2 * rows * Gp * 16 * KT
+        print(f"[times] {name} kernel work: sampling {samp / 1e9:.2f} G bf16 FLOP "
+              f"(d -> 16 x ceil(d/16)), projection {proj / 1e9:.2f} G TF32 FLOP (3xTF32), "
+              f"G {G} -> {Gp}: {samp / kernel_ms / 1e9:.1f} bf16 + "
+              f"{proj / kernel_ms / 1e9:.1f} TF32 TFLOP/s over the kernel's time")
+    else:
+        mma_flops = 3 * 2 * rows * Gp * 8 * KT + proj
+        print(f"[times] {name} kernel work: 3xTF32 on tensor cores, {mma_flops / 1e9:.2f} G "
+              f"TF32 FLOP after padding (G {G} -> {Gp}, d -> 8 x ceil(d/8)), "
+              f"{mma_flops / kernel_ms / 1e9:.1f} TFLOP/s")
+    print_registers(name, "gaunt_pair")
     # the library yardstick: the dense Gaunt contraction as one torch.einsum
-    # call and as the two matmuls of the dense_einsum backend; the faster
-    # stands as library_ms (the port's kernel route calls neither)
-    Gf = _c.to_torch(_c.gaunt_dense(L1, L2, Lout, "float32"), device)
+    # call and as the two matmuls of the dense_einsum backend, at the rows'
+    # dtype (bf16 in and out at bf16); the faster stands as library_ms (the
+    # port's kernel route calls neither)
+    Gf = _c.to_torch(_c.gaunt_dense(L1, L2, Lout, "float32"), device, sdt)
     lib = {"torch.einsum": lambda: torch.einsum("...i,...j,ijk->...k", x1, x2, Gf),
            "two matmuls": lambda: _gaunt_contract(x1, x2, Gf)}
     lib_ms = {}
@@ -771,11 +869,12 @@ def phase_pair_times(device, x1, x2):
             ev = event_ms(fn)
             dv = device_ms(fn)
             lib_ms[lname] = dv if kd is not None and dv is not None else ev
-            print(f"[times] pair library {lname}: {ev:.4f} ms per call (CUDA events, median "
-                  f"of 50), device " + (f"{dv:.5f} ms" if dv is not None else "not measured"))
+            print(f"[times] {name} library {lname} ({dts}): {ev:.4f} ms per call (CUDA events, "
+                  f"median of 50), device " + (f"{dv:.5f} ms" if dv is not None
+                                               else "not measured"))
     library_name = min(lib_ms, key=lib_ms.get)
     library_ms = lib_ms[library_name]
-    print(f"[times] pair library_ms {library_ms:.5f} ({library_name}); kernel "
+    print(f"[times] {name} library_ms {library_ms:.5f} ({library_name}); kernel "
           f"{kernel_ms:.5f} ms")
     return kernel_ms, plain_ms, bound_ms, bound_by, library_ms
 
@@ -1573,15 +1672,31 @@ def main() -> int:
         phase_device_and_build()
         max_abs_err = phase_kernel_vs_plain(device, rows)
         pair_err = phase_pair_vs_plain(device, pair_rows)
+        max_abs_err_bf16 = phase_kernel_vs_plain(device, rows, "bfloat16")
+        pair_err_bf16 = phase_pair_vs_plain(device, pair_rows, "bfloat16")
         launches, summ, model = phase_main_path(device, cfg, n_slots, max_atoms, sizes)
         kernel_ms, plain_ms, bound_ms, bound_by = phase_times(device, rows)
         step_ms = serve_step_ms(model, n_slots, max_atoms)
         print(f"[times] serve step (4 x 32 atoms, full width, forces): {step_ms:.2f} ms "
               f"host clock, median of 5")
         profile_step(model, n_slots, max_atoms)
+        # the served force field again with its many-body chain stored at bf16
+        cfg_bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+        launches_bf16, _, model_bf16 = phase_main_path(device, cfg_bf16, n_slots, max_atoms,
+                                                       sizes)
+        (kernel_ms_bf16, plain_ms_bf16, bound_ms_bf16,
+         bound_by_bf16) = phase_times(device, rows, dtype="bfloat16")
+        step_ms_bf16 = serve_step_ms(model_bf16, n_slots, max_atoms)
+        print(f"[times] serve step bf16 chain (4 x 32 atoms, full width, forces): "
+              f"{step_ms_bf16:.2f} ms host clock, median of 5 (f32 chain: {step_ms:.2f} ms)")
+        profile_step(model_bf16, n_slots, max_atoms)
+        del model, model_bf16
         pair_launches, (x1, x2) = phase_pair_main(device, pair_rows)
         (pair_ms, pair_plain_ms, pair_bound_ms, pair_bound_by,
          pair_library_ms) = phase_pair_times(device, x1, x2)
+        pair_launches_bf16, (x1, x2) = phase_pair_main(device, pair_rows, "bfloat16")
+        (pair_ms_bf16, pair_plain_ms_bf16, pair_bound_ms_bf16, pair_bound_by_bf16,
+         pair_library_ms_bf16) = phase_pair_times(device, x1, x2)
         del x1, x2
         phase_fig1a(device)
         phase_conv_filter(device)
@@ -1636,6 +1751,30 @@ def main() -> int:
         "bound_ms": pair_bound_ms,
         "bound_by": pair_bound_by,
         "library_ms": pair_library_ms,
+    }, {
+        "name": "gaunt_chain_bf16",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gaunt_chain.cu",
+        "replaces": "src/repro/kernels/gaunt_fused.py:122",
+        "launches": launches_bf16,
+        "max_abs_err": max_abs_err_bf16,
+        "ms": kernel_ms_bf16,
+        "plain_ms": plain_ms_bf16,
+        "bound_ms": bound_ms_bf16,
+        "bound_by": bound_by_bf16,
+        "library_ms": None,
+    }, {
+        "name": "gaunt_pair_bf16",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gaunt_pair.cu",
+        "replaces": "src/repro/kernels/gaunt_fused.py:116",
+        "launches": pair_launches_bf16,
+        "max_abs_err": pair_err_bf16,
+        "ms": pair_ms_bf16,
+        "plain_ms": pair_plain_ms_bf16,
+        "bound_ms": pair_bound_ms_bf16,
+        "bound_by": pair_bound_by_bf16,
+        "library_ms": pair_library_ms_bf16,
     }, {
         "name": "wkv6",
         "route": "cuda",

@@ -32,8 +32,10 @@ class EquivariantConfig:
     # times the chain backends (tree vs the collocation kernel) at the real
     # row count and keeps the faster
     chain_tune: str = "heuristic"
-    # storage dtype of the Gaunt products ('float32'; 'float64' on the plain
-    # path; 'bfloat16' is not ported)
+    # storage dtype of the many-body chain ('float32' | 'bfloat16';
+    # 'float64' on the plain path): operands and sampling matrices at this
+    # dtype, sums in f32, the chain exit at it; the conv, the mixes and the
+    # gate stay f32.  'auto' (the measured dtype pick) is not ported
     compute_dtype: str = "float32"
     # 'on' fuses the gate into the many-body chain (gate-before-mb_mix, a
     # reparameterization: fix it per checkpoint); 'off' gates in SH after

@@ -21,7 +21,16 @@ samples (L=6 x 6: 314 of 676; the main-path chain: 86 of 196).
 
 The pair kernel takes those matrices split into TF32 hi and lo parts,
 padded and laid out in its tensor-core fragment order
-(`pair_matrices_tf32`, `pair_fragments`), once per shape.
+(`pair_matrices_tf32`, `pair_fragments`), once per shape; its bf16 mode
+takes T1 and T2 as bf16 in the B-fragment order of ``mma.sync.m16n8k16``
+(`pair_fragments_bf16`) beside the same split P.
+
+bfloat16 storage: numpy has no bf16 type, so a builder asked for
+``dtype='bfloat16'`` returns float32 arrays whose values are bf16 values
+(`bf16_round`: float64 -> float32 -> bf16, to nearest even, as torch's and
+ml_dtypes' casts round), and ``to_torch(a, device, torch.bfloat16)`` casts
+them exactly.  They equal the reference's ``T.astype('bfloat16')`` bit for
+bit (tested).
 """
 from __future__ import annotations
 
@@ -54,12 +63,15 @@ __all__ = [
     "chain_matrices",
     "chain_matrices_folded",
     "chain_l0",
+    "bf16_bits",
+    "bf16_round",
     "fused_matrices",
     "sphere_point_classes",
     "pair_matrices",
     "tf32_split",
     "pair_matrices_tf32",
     "pair_fragments",
+    "pair_fragments_bf16",
     "gaunt_dense",
     "to_torch",
 ]
@@ -178,6 +190,30 @@ def cg_11_blocks(L: int) -> tuple[np.ndarray, ...]:
 
 
 # --------------------------------------------------------------------------
+# bfloat16 storage
+# --------------------------------------------------------------------------
+
+
+def bf16_bits(a: np.ndarray) -> np.ndarray:
+    """The bfloat16 bit patterns (uint16) of ``a`` rounded through float32
+    to the nearest bf16, ties to even: the rounding of torch's
+    ``.to(torch.bfloat16)`` and of ml_dtypes' ``astype('bfloat16')``."""
+    u = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    one, half = np.uint32(1), np.uint32(0x7FFF)
+    return ((u + half + ((u >> np.uint32(16)) & one)) >> np.uint32(16)).astype(np.uint16)
+
+
+def bf16_round(a: np.ndarray) -> np.ndarray:
+    """``a`` rounded to bfloat16 (`bf16_bits`), held as float32."""
+    return (bf16_bits(a).astype(np.uint32) << np.uint32(16)).view(np.float32)
+
+
+def _cast(a: np.ndarray, dtype: str) -> np.ndarray:
+    """A builder's one cast to its storage dtype ('bfloat16': `bf16_round`)."""
+    return bf16_round(a) if dtype == "bfloat16" else a.astype(dtype)
+
+
+# --------------------------------------------------------------------------
 # n-way collocation (sample-multiply-project) matrices
 # --------------------------------------------------------------------------
 
@@ -261,7 +297,8 @@ def chain_matrices(Ls: tuple, Lout: int, entries: tuple = None,
     (requires Lout == sum(Ls)).  ``pad_lanes`` rounds G up to a multiple of
     128 with inert zero columns/rows (the reference's TPU lane rule — kept
     for parity; the port's kernel runs unpadded).  ``dtype`` is the storage
-    dtype ('float32' | 'float64'); the float64 intermediates round once.
+    dtype ('float32' | 'bfloat16' | 'float64'); the float64 intermediates
+    round once.
     """
     Ls = tuple(int(L) for L in Ls)
     Ltot = sum(Ls)
@@ -284,7 +321,7 @@ def chain_matrices(Ls: tuple, Lout: int, entries: tuple = None,
         Gp = ((G + 127) // 128) * 128
         Ts = [np.pad(T, [(0, 0), (0, Gp - G)]) for T in Ts]
         P = np.pad(P, [(0, Gp - G), (0, 0)])
-    return tuple(T.astype(dtype) for T in Ts), P.astype(dtype)
+    return tuple(_cast(T, dtype) for T in Ts), _cast(P, dtype)
 
 
 @lru_cache(maxsize=None)
@@ -373,8 +410,8 @@ def chain_matrices_folded(Ls: tuple, Lout: int, entries: tuple = None,
     reps, cls = sphere_point_classes(sum(Ls))
     Pf = np.zeros((len(reps), P.shape[1]))
     np.add.at(Pf, cls, P)
-    return (tuple(np.ascontiguousarray(T[:, reps]).astype(dtype) for T in Ts),
-            Pf.astype(dtype))
+    return (tuple(_cast(np.ascontiguousarray(T[:, reps]), dtype) for T in Ts),
+            _cast(Pf, dtype))
 
 
 @lru_cache(maxsize=None)
@@ -465,9 +502,40 @@ def pair_fragments(L1: int, L2: int, Lout: int):
 
 
 @lru_cache(maxsize=None)
+def pair_fragments_bf16(L1: int, L2: int, Lout: int):
+    """The pair kernel's constants in its bf16 mode: T1 and T2 of
+    `pair_matrices` at bf16, zero-padded (d to a multiple of 16, the samples
+    to a multiple of 32) and in the B-fragment order of
+    ``mma.sync.m16n8k16`` bf16 (`_b_fragments_bf16`), beside `pair_fragments`'
+    P unchanged (f32 split into TF32 hi and lo, rows permuted as
+    `PAIR_SAMPLE_ORDER`: the m16n8k16 accumulator has the m16n8k8 layout).
+
+    -> (F1 [Gp/8, d1p/16, 32, 4] int16, F2 [Gp/8, d2p/16, 32, 4] int16 —
+        bf16 bit patterns —, FP [Gp/8, doutp/8, 32, 4] float32).
+    """
+    T1, T2, _ = pair_matrices(L1, L2, Lout, dtype="bfloat16")
+    Gp = _up(T1.shape[1], _SAMPLE_TILE)
+    F1, F2 = (np.ascontiguousarray(_b_fragments_bf16(bf16_bits(
+        _pad_to(T, _up(T.shape[0], 2 * _FRAG), Gp))).transpose(1, 0, 2, 3))
+        for T in (T1, T2))
+    return F1, F2, pair_fragments(L1, L2, Lout)[2]
+
+
+def _b_fragments_bf16(bits: np.ndarray) -> np.ndarray:
+    """[K, N] uint16 (K a multiple of 16, N of 8) -> [K/16, N/8, 32, 4] int16:
+    the B operand of ``mma.sync.m16n8k16`` bf16 per (k-tile, n-tile), lane
+    l = 4 g + t holding (B[2t, g], B[2t+1, g], B[2t+8, g], B[2t+9, g]) — its
+    two 32-bit registers, the lower k in the lower half."""
+    K, N = bits.shape
+    b = bits.reshape(K // 16, 2, 4, 2, N // 8, 8)  # [kt, h, t, j, nt, g]: k = 16kt+8h+2t+j
+    return np.ascontiguousarray(b.transpose(0, 4, 5, 2, 1, 3)).reshape(
+        K // 16, N // 8, 32, 4).view(np.int16)
+
+
+@lru_cache(maxsize=None)
 def gaunt_dense(L1: int, L2: int, Lout: int, dtype: str = "float32") -> np.ndarray:
     """The exact dense real-Gaunt tensor [(L1+1)^2, (L2+1)^2, (Lout+1)^2]."""
-    return real_gaunt_tensor(L1, L2, Lout).astype(dtype)
+    return _cast(real_gaunt_tensor(L1, L2, Lout), dtype)
 
 
 # --------------------------------------------------------------------------

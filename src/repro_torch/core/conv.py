@@ -67,9 +67,12 @@ def wigner_blocks_from_rotmat(L: int, R: torch.Tensor) -> list:
 
 def apply_wigner_blocks(Ds, x: torch.Tensor, transpose: bool = False) -> torch.Tensor:
     """Apply the block-diagonal Wigner rotation to packed x [..., (L+1)^2]
-    (the blocks broadcast against x's leading dims)."""
+    (the blocks broadcast against x's leading dims).  A bf16 x meets f32
+    blocks at f32, as jnp promotion does in the reference."""
     eq = "...ji,...j->...i" if transpose else "...ij,...j->...i"
-    return torch.cat([torch.einsum(eq, D, x[..., l * l: (l + 1) ** 2])
+    dt = torch.promote_types(Ds[0].dtype, x.dtype)
+    x = x.to(dt)
+    return torch.cat([torch.einsum(eq, D.to(dt), x[..., l * l: (l + 1) ** 2])
                       for l, D in enumerate(Ds)], dim=-1)
 
 

@@ -36,9 +36,13 @@ measured selections a kernel candidate that raises is not skipped: a kernel
 that fails to build or launch must surface, not quietly lose the
 measurement.
 
+Storage dtypes: 'float32', 'bfloat16' and 'float64' (plain routes only),
+as in the reference.  A bf16 plan holds its operands and real constants at
+bf16 and sums in f32 (complex grids stay complex64); its output is bf16.
+
 Not ported yet: the manybody plan kind (the port's many-body route is
 ``plan_chain``), Fourier-boundary (``Rep``) operands of pairwise plans,
-``plan_batch``, bf16 storage and ``dtype='auto'``, and ``calibrate_fused``.
+``plan_batch``, ``dtype='auto'``, and ``calibrate_fused``.
 """
 from __future__ import annotations
 
@@ -78,8 +82,11 @@ __all__ = [
 
 CHAIN_BACKENDS = ("tree", "fused_torch", "fused_hopper")
 
-_RDTYPE = {"float32": torch.float32, "float64": torch.float64}
-_CDTYPE = {"float32": torch.complex64, "float64": torch.complex128}
+_RDTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
+_CDTYPE = {"float32": torch.complex64, "bfloat16": torch.complex64,
+           "float64": torch.complex128}
+# the accumulation dtype of each storage dtype: >= f32, never below storage
+_ACC = {"float32": torch.float32, "bfloat16": torch.float32, "float64": torch.float64}
 
 
 def _dtype_str(dtype) -> str:
@@ -87,8 +94,8 @@ def _dtype_str(dtype) -> str:
     their real width, as the wrappers' cdtype does)."""
     s = dtype if isinstance(dtype, str) else str(dtype).replace("torch.", "")
     s = {"complex64": "float32", "complex128": "float64"}.get(s, s)
-    if s == "bfloat16":
-        raise NotImplementedError("bfloat16 storage is not ported yet")
+    if s == "auto":
+        raise NotImplementedError("dtype='auto' is not ported yet")
     if s not in _RDTYPE:
         raise ValueError(f"unsupported dtype {s!r} (expected one of {sorted(_RDTYPE)})")
     return s
@@ -127,7 +134,9 @@ def _gate_coeffs(p, s):
 
 
 def _gate_sh(p, x):
-    """Apply the gate on packed SH coefficients (== models.gate_apply)."""
+    """Apply the gate on packed SH coefficients (== models.gate_apply), at
+    the dtype of x and the gate weights (x promoted to theirs)."""
+    x = x.to(torch.promote_types(x.dtype, p["w1"].dtype))
     s = x[..., 0]
     g = _gate_mlp(p, s)
     return torch.cat([F.silu(s)[..., None], x[..., 1:] * g[..., None]], dim=-1)
@@ -166,11 +175,11 @@ def spectral_default(*Ls: int) -> str:
 class PlanKey:
     """Identity of a planned Gaunt op (hashable; the plan-cache key).
 
-    ``dtype`` is the storage and accumulation dtype ('float32' |
-    'float64'); ``extra`` holds kind/backend options as sorted (name, value)
-    pairs (packed and rfft take ("conv", ...), conv_filter ("geometry",
-    "wigner")); ``device`` is the device type the plan is selected and
-    measured for ('cuda' | 'cpu').
+    ``dtype`` is the storage dtype ('float32' | 'bfloat16' | 'float64';
+    sums run at f32, f64 for f64); ``extra`` holds kind/backend options as
+    sorted (name, value) pairs (packed and rfft take ("conv", ...),
+    conv_filter ("geometry", "wigner")); ``device`` is the device type the
+    plan is selected and measured for ('cuda' | 'cpu').
     """
 
     L1: int
@@ -199,7 +208,7 @@ class Backend:
     build: Callable = dataclasses.field(repr=False, compare=False, default=None)
     cost: Callable = dataclasses.field(repr=False, compare=False, default=None)
     supports_grad: bool = True
-    dtypes: frozenset = frozenset({"float32", "float64"})
+    dtypes: frozenset = frozenset({"float32", "bfloat16", "float64"})
     kernel: bool = False
     # conv_filter backends that accept precomputed WignerBlocks geometry
     wigner_geometry: bool = False
@@ -351,6 +360,7 @@ def _wrap_chain_gate(base: Callable, Lout: int) -> Callable:
         out = base(xs, ws, None, out_basis, None)
         if out_basis == "fourier":
             return _gate_rep(gate_params, out)
+        # the f32 gate MLP gates a bf16 exit in f32, rounded once back
         return _wmul(_gate_sh(gate_params, out).to(out.dtype), w_out, Lout)
 
     return apply
@@ -369,10 +379,12 @@ def _build_chain_fused(Ls: tuple, Lout: int, dtype: str, kernel: bool,
                                        gaunt_chain_fused_torch)
     from .rep import Rep
 
-    rd = _RDTYPE[dtype]
+    rd, acc = _RDTYPE[dtype], _ACC[dtype]
     Ltot = sum(Ls)
-    constants.chain_matrices_folded(tuple(Ls), Lout, ("sh",) * len(Ls), "sh",
-                                    dtype=dtype)
+    # T at the storage dtype, P at the accumulation dtype
+    for dt in {dtype, str(acc)[6:]}:
+        constants.chain_matrices_folded(tuple(Ls), Lout, ("sh",) * len(Ls), "sh",
+                                        dtype=dt)
     if gate:
         constants.chain_l0(tuple(Ls), ("sh",) * len(Ls))
     fn = gaunt_chain_fused_hopper if kernel else gaunt_chain_fused_torch
@@ -396,14 +408,16 @@ def _build_chain_fused(Ls: tuple, Lout: int, dtype: str, kernel: bool,
                 arrs.append(_wmul(_chain_entry_cast(x, rd), ws[i], Ls[i]))
         gate_arg = None
         if gate:
+            # the l=0 scalars at the accumulation dtype, from the stored
+            # (entry-cast, weighted) operands
             flat = []
             for a, e in zip(arrs, entries):
                 if e == "grid":
                     Fl = a.reshape(*a.shape[:-2], -1)
                     a = torch.cat([Fl.real, Fl.imag], dim=-1)
-                flat.append(a.to(rd))
+                flat.append(a.to(acc))
             M = constants.to_torch(constants.chain_l0(tuple(Ls), tuple(entries)),
-                                   flat[0].device, rd)
+                                   flat[0].device, acc)
             # s = einsum('...a,...b,...,ab...->...', *flat, M), contracted one
             # operand at a time: a multi-operand torch.einsum searches for a
             # contraction path on the host at every call
@@ -457,7 +471,8 @@ def build_escn(L1: int, L2: int, Lout: int, geometry: str | None = None,
                                  f"need max(L1, Lout) = {max(L1, Lout)}")
             Ds = list(rhat.blocks)
         else:
-            Ds = wigner_blocks_from_rotmat(max(L1, Lout), align_rotation(rhat.to(rd)))
+            Ds = wigner_blocks_from_rotmat(max(L1, Lout),
+                                           align_rotation(rhat.to(_ACC[dtype])))
         F1 = sh_to_fourier(apply_wigner_blocks(Ds[: L1 + 1], x), L1, "dense", cd)
         fl = constants.to_torch(fl0, dev, rd)
         if w2 is not None:
@@ -610,26 +625,35 @@ def _gaunt_contract(x1, x2, G):
 
 
 def _build_dense_einsum(key: PlanKey) -> Callable:
-    rd = _RDTYPE[key.dtype]
+    """G and the operands at the storage dtype, the contraction at the
+    accumulation dtype (a bf16 key stores G at bf16 and sums in f32, the
+    reference's ``preferred_element_type``); the output at the storage
+    dtype."""
+    rd, acc = _RDTYPE[key.dtype], _ACC[key.dtype]
     G = constants.gaunt_dense(key.L1, key.L2, key.Lout, key.dtype)
+
+    def stored(x):
+        return x.to(rd).to(acc)
+
     if key.kind == "channel_mix":
 
         def apply_mix(x1, x2, w_mix):
             # y[..., e, k] = sum_{c,d} w[c,d,e] sum_ij x1[..., c, i] x2[..., d, j] G[i,j,k]
-            Gt = constants.to_torch(G, x1.device)
+            Gt = constants.to_torch(G, x1.device, acc)
             d1, d2, do = Gt.shape
-            t = (x1.to(rd) @ Gt.reshape(d1, d2 * do)).reshape(*x1.shape[:-1], d2, do)
-            W = x2.to(rd).unsqueeze(-3) @ t                      # [..., C1, C2, do]
+            t = (stored(x1) @ Gt.reshape(d1, d2 * do)).reshape(*x1.shape[:-1], d2, do)
+            W = stored(x2).unsqueeze(-3) @ t                     # [..., C1, C2, do]
             C1, C2, E = w_mix.shape
-            return w_mix.to(rd).reshape(C1 * C2, E).T @ W.reshape(*W.shape[:-3], C1 * C2, do)
+            out = stored(w_mix).reshape(C1 * C2, E).T @ W.reshape(*W.shape[:-3], C1 * C2, do)
+            return out.to(rd)
 
         return apply_mix
 
     def apply_pair(x1, x2, w1=None, w2=None, w3=None):
-        Gt = constants.to_torch(G, x1.device)
-        out = _gaunt_contract(_wmul(x1, w1, key.L1).to(rd),
-                              _wmul(x2, w2, key.L2).to(rd), Gt)
-        return _wmul(out, w3, key.Lout)
+        Gt = constants.to_torch(G, x1.device, acc)
+        out = _gaunt_contract(stored(_wmul(x1, w1, key.L1)),
+                              stored(_wmul(x2, w2, key.L2)), Gt)
+        return _wmul(out.to(rd), w3, key.Lout)
 
     return apply_pair
 
@@ -653,24 +677,27 @@ def _build_spectral(key: PlanKey, conversion: str, conv: str) -> Callable:
 def _build_fused(key: PlanKey, kernel: bool) -> Callable:
     """The collocation product on the folded pair matrices
     (`constants.pair_matrices`): ``fused_torch`` in torch ops,
-    ``fused_hopper`` on the pair kernel (tensor cores in 3xTF32, on the
-    split constants `constants.pair_fragments`).  f32 storage and
-    accumulation."""
+    ``fused_hopper`` on the pair kernel (f32 storage: tensor cores in
+    3xTF32 on `constants.pair_fragments`; bf16 storage: bf16 sampling
+    products on `constants.pair_fragments_bf16`).  Operands and T1, T2 at
+    the storage dtype (f32 or bf16), P and every sum at f32."""
     from ..kernels.gaunt_fused import gaunt_fused_hopper, gaunt_fused_torch
 
     rd = _RDTYPE[key.dtype]
     L1, L2, Lout = key.L1, key.L2, key.Lout
-    mats = constants.pair_matrices(L1, L2, Lout)
+    T1n, T2n, _ = constants.pair_matrices(L1, L2, Lout, dtype=key.dtype)
+    Pn = constants.pair_matrices(L1, L2, Lout)[2]
     if kernel:
-        constants.pair_fragments(L1, L2, Lout)
+        (constants.pair_fragments_bf16 if key.dtype == "bfloat16"
+         else constants.pair_fragments)(L1, L2, Lout)
     if key.kind == "channel_mix":
 
         def apply_mix(x1, x2, w_mix):
             # y = (sum_{c,d} w[c,d,e] V1[c] * V2[d]) @ P,  V_i = x_i @ T_i:
             # the channel mix commutes with the basis change
-            T1, T2, P = (constants.to_torch(a, x1.device) for a in mats)
-            V1 = x1.to(torch.float32) @ T1                       # [..., C1, G]
-            V2 = x2.to(torch.float32) @ T2                       # [..., C2, G]
+            T1, T2, P = (constants.to_torch(a, x1.device) for a in (T1n, T2n, Pn))
+            V1 = x1.to(rd).to(torch.float32) @ T1                # [..., C1, G]
+            V2 = x2.to(rd).to(torch.float32) @ T2                # [..., C2, G]
             C1, C2, E = w_mix.shape
             U = w_mix.to(torch.float32).reshape(C1, C2 * E).T @ V1
             U = U.reshape(*U.shape[:-2], C2, E, U.shape[-1])     # [..., C2, E, G]
@@ -681,7 +708,7 @@ def _build_fused(key: PlanKey, kernel: bool) -> Callable:
     fn = gaunt_fused_hopper if kernel else gaunt_fused_torch
 
     def apply_pair(x1, x2, w1=None, w2=None, w3=None):
-        out = fn(_wmul(x1, w1, L1), _wmul(x2, w2, L2), L1, L2, Lout)
+        out = fn(_wmul(x1, w1, L1), _wmul(x2, w2, L2), L1, L2, Lout, dtype=rd)
         return _wmul(out.to(rd), w3, Lout)
 
     return apply_pair
@@ -740,7 +767,7 @@ register_backend(Backend(
     kinds=frozenset({"pairwise", "conv_filter", "channel_mix"}),
     build=lambda key: _build_fused(key, kernel=False),
     cost=lambda key: _cost_fused(key, kernel=False),
-    dtypes=frozenset({"float32"}),
+    dtypes=frozenset({"float32", "bfloat16"}),
 ))
 register_backend(Backend(
     name="fused_hopper",
@@ -748,7 +775,7 @@ register_backend(Backend(
     build=lambda key: _build_fused(key, kernel=True),
     cost=lambda key: _cost_fused(key, kernel=True),
     supports_grad=False,  # the pair kernel has no backward, as the reference's
-    dtypes=frozenset({"float32"}),
+    dtypes=frozenset({"float32", "bfloat16"}),
     kernel=True,
 ))
 register_backend(Backend(
@@ -791,8 +818,8 @@ class GauntEngine:
         """Resolve (and cache) a plan.  ``backend=None`` -> engine selection:
         ``tune='heuristic'`` (cost model) or ``'measure'`` (timed on
         ``device`` at ``batch_hint`` rows).  ``dtype`` is the storage dtype
-        ('float32' | 'float64').  ``device`` is the device the plan is
-        selected for: None means cuda, and raises without a GPU (pass
+        ('float32' | 'bfloat16' | 'float64').  ``device`` is the device the
+        plan is selected for: None means cuda, and raises without a GPU (pass
         ``device="cpu"``).  ``requires_grad=False`` admits gradless backends
         (``fused_hopper``)."""
         if kind == "manybody":
@@ -977,7 +1004,7 @@ class GauntEngine:
         kernel = "fused_hopper" if device.type == "cuda" else "fused_torch"
         B, share = key[3] or 256, key[4]
         rng = np.random.default_rng(0)
-        rd = _RDTYPE[dts]
+        rd, acc = _RDTYPE[dts], _ACC[dts]
         made: dict = {}
         xs = []
         for L, g in zip(Ls, share):
@@ -987,8 +1014,9 @@ class GauntEngine:
             xs.append(made[(g, L)])
         # synthetic gate MLP sized so the per-row scalar path costs what the
         # models' [rows, C] @ [C, hidden] gate head costs (as the reference)
-        gp = ({"w1": torch.as_tensor(rng.normal(size=(B, 16)), dtype=rd, device=device),
-               "w2": torch.as_tensor(rng.normal(size=(16, B)), dtype=rd, device=device)}
+        # (at the accumulation dtype, as the models' gate weights are)
+        gp = ({"w1": torch.as_tensor(rng.normal(size=(B, 16)), dtype=acc, device=device),
+               "w2": torch.as_tensor(rng.normal(size=(16, B)), dtype=acc, device=device)}
               if gate else None)
         times, spread = {}, {}
         with torch.no_grad():

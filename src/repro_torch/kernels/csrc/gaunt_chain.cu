@@ -1,9 +1,9 @@
-// n-way Gaunt chain collocation kernel for Hopper (sm_90a), f32 storage and
-// f32 FMAs.
+// n-way Gaunt chain collocation kernel for Hopper (sm_90a), f32 FMAs, with
+// f32 or bf16 storage of the rows and the sampling matrices.
 //
 // Replaces the TPU kernel `repro/kernels/gaunt_fused.py::_make_chain_kernel`
-// (line 122; launched by `_chain_runner`'s pallas_call).  It computes, for
-// every row b,
+// (line 122; launched by `_chain_runner`'s pallas_call), at both of its
+// storage dtypes.  It computes, for every row b,
 //
 //     out[b, :] = ((prod_i  x_i[b, :] . T_i)  * gs[b] + gb[b]) . P
 //
@@ -21,13 +21,22 @@
 // become Gd = 86.  Chains with a 'grid' entry are functions on the torus and
 // run unfolded; the kernel takes any G.
 //
+// Storage (the reference's `sdt`).  With f32 storage every operand is f32.
+// With bf16 storage (the force field's compute_dtype='bfloat16') the rows
+// x_i and the matrices T_i are bf16, read as bf16 and widened to f32 as
+// they are staged; P, the gate scalars, every FMA and the output stay f32,
+// as the reference's `preferred_element_type=f32` keeps them.  One template
+// over the storage type: nothing but the staging differs.
+//
 // Bound on the H100 (main path: n = 3, d_i = 9, Gd = 86, dout = 9, gated):
 //   operations per row = 2*Gd*sum(d_i) (sampling)  + Gd*(n-1) (product)
 //                      + 2*Gd           (gate)     + 2*Gd*dout (projection)
 //                      = 4644 + 172 + 172 + 1548 = 6536 FLOP
-//   bytes per row      = 4*(sum(d_i) + dout + 2) = 152 B
-// At 8192 rows: 54 MFLOP and 1.26 MB, i.e. 0.00080 ms at 67 TFLOP/s of f32
-// on CUDA cores against 0.00038 ms at 3.35 TB/s: compute-bound on f32 FMAs.
+//   bytes per row      = 4*(sum(d_i) + dout + 2) = 152 B at f32 storage,
+//                        2*sum(d_i) + 4*(dout + 2) = 98 B at bf16
+// At 8192 rows: 54 MFLOP and 1.26 MB (0.81 MB at bf16), i.e. 0.00080 ms at
+// 67 TFLOP/s of f32 on CUDA cores against 0.00038 ms (0.00024 ms) at 3.35
+// TB/s: compute-bound on f32 FMAs at either storage.
 // The sampling products have K = 9, too thin to pay for tensor cores, and a
 // call this small is set by its latency: staging, two phases, launch.
 //
@@ -49,13 +58,13 @@
 //     6 has dout = 182), written out coalesced at the end.
 // Shared memory at the main shape is 57 KB.
 //
-// What is left: bf16 storage (the reference keeps operands and T_i at bf16
-// and accumulates in f32), and folding the launch into its neighbours
-// (the call is launch- and latency-bound).
+// What is left: folding the launch into its neighbours (the call is
+// launch- and latency-bound).
 //
 // Interface: plain C, loaded with ctypes.  The launch uses the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -72,9 +81,11 @@ constexpr int kVS = kGT + 4;           // stride of the product tile (4 mod 32)
 constexpr int kOC = 16;                // output columns per phase-2 pass
 constexpr size_t kSmemMax = 227 * 1024;
 
+// S is the storage type of the rows and of T (float or __nv_bfloat16)
+template <typename S>
 struct ChainArgs {
-  const float* x[kMaxOps];
-  const float* T[kMaxOps];
+  const S* x[kMaxOps];
+  const S* T[kMaxOps];
   int d[kMaxOps];
   int n;
   const float* P;
@@ -101,8 +112,12 @@ __host__ __device__ inline size_t smem_floats(int dsum, int dout) {
        + 2 * kRows;              // gate scale and shift
 }
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename S>
 __global__ void __launch_bounds__(kThreads)
-gaunt_chain_kernel(ChainArgs a) {
+gaunt_chain_kernel(ChainArgs<S> a) {
   extern __shared__ __align__(16) float smem[];
   int dsum = 0;
   for (int i = 0; i < a.n; ++i) dsum += a.d[i];
@@ -124,11 +139,11 @@ gaunt_chain_kernel(ChainArgs a) {
   int off = 0;
   for (int i = 0; i < a.n; ++i) {
     const int d = a.d[i];
-    const float* xg = a.x[i] + (size_t)row0 * d;
+    const S* xg = a.x[i] + (size_t)row0 * d;
     for (int e = tid; e < kRows * d; e += kThreads) {
       const int r = e / d;
       const int k = e - r * d;
-      sX[(off + k) * kXS + r] = r < nrows ? __ldg(xg + e) : 0.f;
+      sX[(off + k) * kXS + r] = r < nrows ? widen(__ldg(xg + e)) : 0.f;
     }
     off += d;
   }
@@ -146,11 +161,11 @@ gaunt_chain_kernel(ChainArgs a) {
     int toff = 0;
     for (int i = 0; i < a.n; ++i) {
       const int d = a.d[i];
-      const float* Tg = a.T[i];
+      const S* Tg = a.T[i];
       for (int e = tid; e < d * kGT; e += kThreads) {
         const int k = e / kGT;
         const int g = e - k * kGT;
-        sT[(toff + k) * kGT + g] = g < gt ? __ldg(Tg + (size_t)k * a.G + g0 + g) : 0.f;
+        sT[(toff + k) * kGT + g] = g < gt ? widen(__ldg(Tg + (size_t)k * a.G + g0 + g)) : 0.f;
       }
       toff += d;
     }
@@ -252,22 +267,21 @@ size_t gaunt_chain_smem_bytes(int dsum, int dout) {
   return bytes > kSmemMax ? 0 : bytes;
 }
 
-int gaunt_chain_forward(const void* x0, const void* x1, const void* x2,
-                        const void* x3, const void* t0, const void* t1,
-                        const void* t2, const void* t3, int d0, int d1, int d2,
-                        int d3, int n, const void* P, const void* gs,
-                        const void* gb, void* out, int B, int G, int dout,
-                        void* stream) {
+}  // extern "C"
+
+namespace {
+
+template <typename S>
+int chain_forward(const void* const* xs, const void* const* ts, const int* ds, int n,
+                  const void* P, const void* gs, const void* gb, void* out, int B, int G,
+                  int dout, void* stream) {
   if (n < 2 || n > kMaxOps || B < 0 || G <= 0 || dout <= 0)
     return (int)cudaErrorInvalidValue;
-  ChainArgs a;
-  const void* xs[kMaxOps] = {x0, x1, x2, x3};
-  const void* ts[kMaxOps] = {t0, t1, t2, t3};
-  const int ds[kMaxOps] = {d0, d1, d2, d3};
+  ChainArgs<S> a;
   int dsum = 0;
   for (int i = 0; i < kMaxOps; ++i) {
-    a.x[i] = static_cast<const float*>(xs[i]);
-    a.T[i] = static_cast<const float*>(ts[i]);
+    a.x[i] = static_cast<const S*>(xs[i]);
+    a.T[i] = static_cast<const S*>(ts[i]);
     a.d[i] = i < n ? ds[i] : 0;
     if (i < n) {
       if (ds[i] <= 0) return (int)cudaErrorInvalidValue;
@@ -289,12 +303,43 @@ int gaunt_chain_forward(const void* x0, const void* x1, const void* x2,
   // only: set it at every such launch (a cheap host call)
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gaunt_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        gaunt_chain_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((B + kRows - 1) / kRows);
-  gaunt_chain_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  gaunt_chain_kernel<S><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Rows x_i [B, d_i] and T_i [d_i, G] f32 (the `_bf16` entry: bf16); P
+// [G, dout], the gate scalars gs, gb [B] (null: ungated) and out [B, dout]
+// f32.  Operands past n are ignored.
+int gaunt_chain_forward(const void* x0, const void* x1, const void* x2,
+                        const void* x3, const void* t0, const void* t1,
+                        const void* t2, const void* t3, int d0, int d1, int d2,
+                        int d3, int n, const void* P, const void* gs,
+                        const void* gb, void* out, int B, int G, int dout,
+                        void* stream) {
+  const void* xs[kMaxOps] = {x0, x1, x2, x3};
+  const void* ts[kMaxOps] = {t0, t1, t2, t3};
+  const int ds[kMaxOps] = {d0, d1, d2, d3};
+  return chain_forward<float>(xs, ts, ds, n, P, gs, gb, out, B, G, dout, stream);
+}
+
+int gaunt_chain_forward_bf16(const void* x0, const void* x1, const void* x2,
+                             const void* x3, const void* t0, const void* t1,
+                             const void* t2, const void* t3, int d0, int d1, int d2,
+                             int d3, int n, const void* P, const void* gs,
+                             const void* gb, void* out, int B, int G, int dout,
+                             void* stream) {
+  const void* xs[kMaxOps] = {x0, x1, x2, x3};
+  const void* ts[kMaxOps] = {t0, t1, t2, t3};
+  const int ds[kMaxOps] = {d0, d1, d2, d3};
+  return chain_forward<__nv_bfloat16>(xs, ts, ds, n, P, gs, gb, out, B, G, dout, stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,10 @@
-// Pairwise Gaunt collocation kernel for Hopper (sm_90a): f32 storage, both
-// products on tensor cores in 3xTF32 with f32 accumulation.
+// Pairwise Gaunt collocation kernel for Hopper (sm_90a): both products on
+// tensor cores with f32 accumulation, at f32 storage (3xTF32 throughout) or
+// at bf16 storage (bf16 sampling, 3xTF32 projection).
 //
 // Replaces the TPU kernel `repro/kernels/gaunt_fused.py::_kernel` (line 116;
-// launched by the pallas_call in `gaunt_fused_pallas`).  For every row b,
+// launched by the pallas_call in `gaunt_fused_pallas`), at both of its
+// storage dtypes.  For every row b,
 //
 //     out[b, :] = ((x1[b, :] . T1) * (x2[b, :] . T2)) . P
 //
@@ -101,11 +103,22 @@ constexpr int kNT = 4;              // sample n-tiles (of 8) per staged tile
 constexpr int kMaxON = 8;           // output n-tiles (of 8 columns) per block
 constexpr size_t kSmemMax = 227 * 1024;
 
+// Per storage mode: the k depth of one sampling product (8 at f32, 16 at
+// bf16) and the bytes of one lane's T fragment (hi and lo of two TF32
+// values; four bf16 values).  A staged row holds 8 KT + 4 32-bit words in
+// both modes (f32: 8 KT + 4 values; bf16: 16 KT + 8), 4 mod 8, so the
+// A-fragment reads are free of bank conflicts.
+template <bool kBf16> struct Mode {
+  static constexpr int kK = kBf16 ? 16 : 8;
+  static constexpr int kLaneBytes = kBf16 ? 8 : 16;
+};
+
 // bytes of shared memory: the T1 and T2 fragments of one tile, the P
 // fragments of one tile for ON output n-tiles, the x1 and x2 rows
+template <bool kBf16>
 __host__ __device__ inline size_t smem_bytes(int KT1, int KT2, int ON) {
-  return (size_t)kNT * (KT1 + KT2) * 32 * 16 + (size_t)kNT * ON * 32 * 16 +
-         (size_t)kRows * (8 * KT1 + 4 + 8 * KT2 + 4) * 4;
+  return (size_t)kNT * (KT1 + KT2) * 32 * Mode<kBf16>::kLaneBytes +
+         (size_t)kNT * ON * 32 * 16 + (size_t)kRows * (8 * KT1 + 4 + 8 * KT2 + 4) * 4;
 }
 
 // cvt.rna.tf32.f32 (round to nearest, ties away from zero) with the low 13
@@ -135,6 +148,15 @@ __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
   mma_tf32(c, al, bh0, bh1);
   mma_tf32(c, ah, __float_as_uint(b.z), __float_as_uint(b.w));
   mma_tf32(c, ah, bh0, bh1);
+}
+
+// c += a . b, bf16 x bf16 -> f32: a the four A registers (two bf16 each),
+// b the lane's two B registers
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint2 b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -177,16 +199,50 @@ __device__ __forceinline__ void sample(float (&v)[kNT][4], const float* xr, int 
   }
 }
 
+// The same at bf16 storage: one m16n8k16 product per 16-deep k-tile.  xr
+// points at this thread's 32-bit word (row g, columns 2t and 2t + 1) of the
+// warp's 16 staged bf16 rows (stride S words); sF holds the tile's
+// fragments [n][kt][lane], one uint2 a lane.
+__device__ __forceinline__ void sample_bf16(float (&v)[kNT][4], const uint32_t* xr, int S,
+                                            int KT, const uint2* sF, int lane) {
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) v[n][0] = v[n][1] = v[n][2] = v[n][3] = 0.f;
+#pragma unroll 4
+  for (int kt = 0; kt < KT; ++kt) {
+    const uint32_t* p = xr + 8 * kt;
+    // (g, 2t..2t+1), (g+8, 2t..2t+1), (g, 2t+8..2t+9), (g+8, 2t+8..2t+9)
+    const uint32_t a[4] = {p[0], p[8 * S], p[4], p[8 * S + 4]};
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) mma_bf16(v[n], a, sF[(n * KT + kt) * 32 + lane]);
+  }
+}
+
+// the block's rows of one bf16 operand, 16-bit loads into the padded
+// layout (S words a row), zero past d and past B
+__device__ __forceinline__ void stage_rows_bf16(uint32_t* sX, const unsigned short* x,
+                                                int row0, int B, int d, int S, int tid) {
+  unsigned short* sh = reinterpret_cast<unsigned short*>(sX);
+  const int Sh = 2 * S;
+  for (int e = tid; e < kRows * Sh; e += kThreads) {
+    const int r = e / Sh, k = e - r * Sh;
+    sh[e] = (k < d && row0 + r < B) ? __ldg(x + (size_t)(row0 + r) * d + k) : (unsigned short)0;
+  }
+}
+
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 2)
-gaunt_pair_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
+gaunt_pair_kernel(const void* __restrict__ x1, const void* __restrict__ x2,
                   const float4* __restrict__ F1, const float4* __restrict__ F2,
                   const float4* __restrict__ FP, float* __restrict__ out, int B,
                   int d1, int d2, int dout, int KT1, int KT2, int NS, int NO, int ON) {
   extern __shared__ float4 smem4[];
-  float4* sT1 = smem4;                      // [kNT][KT1][32]
-  float4* sT2 = sT1 + kNT * KT1 * 32;       // [kNT][KT2][32]
-  float4* sP = sT2 + kNT * KT2 * 32;        // [kNT][ON][32]
-  const int S1 = 8 * KT1 + 4, S2 = 8 * KT2 + 4;
+  // float4s of one tile's T1 and T2 fragments (at bf16 a float4 holds two lanes)
+  const int n1 = kNT * KT1 * 2 * Mode<kBf16>::kLaneBytes;
+  const int n2 = kNT * KT2 * 2 * Mode<kBf16>::kLaneBytes;
+  float4* sT1 = smem4;                      // [kNT][KT1][32] lane fragments
+  float4* sT2 = sT1 + n1;                   // [kNT][KT2][32]
+  float4* sP = sT2 + n2;                    // [kNT][ON][32]
+  const int S1 = 8 * KT1 + 4, S2 = 8 * KT2 + 4;  // words a staged row
   float* sX1 = reinterpret_cast<float*>(sP + kNT * ON * 32);  // [kRows][S1]
   float* sX2 = sX1 + kRows * S1;                               // [kRows][S2]
 
@@ -198,7 +254,6 @@ gaunt_pair_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
   const int ntiles = NS / kNT;
 
   auto stage_T = [&](int tile) {
-    const int n1 = kNT * KT1 * 32, n2 = kNT * KT2 * 32;
     const float4* g1 = F1 + (size_t)tile * n1;
     const float4* g2 = F2 + (size_t)tile * n2;
     for (int e = tid; e < n1; e += kThreads) cp_async16(sT1 + e, g1 + e);
@@ -212,22 +267,33 @@ gaunt_pair_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
     }
   };
 
-  // the block's rows, zero past d and past B, with the first T tile; then
-  // the first P tile
-  for (int e = tid; e < kRows * S1; e += kThreads) {
-    const int r = e / S1, k = e - r * S1;
-    const bool in = k < d1 && row0 + r < B;
-    cp_async4(sX1 + e, in ? x1 + (size_t)(row0 + r) * d1 + k : x1, in);
-  }
-  for (int e = tid; e < kRows * S2; e += kThreads) {
-    const int r = e / S2, k = e - r * S2;
-    const bool in = k < d2 && row0 + r < B;
-    cp_async4(sX2 + e, in ? x2 + (size_t)(row0 + r) * d2 + k : x2, in);
+  // f32: the block's rows, zero past d and past B, with the first T tile;
+  // then the first P tile.  bf16: the rows by 16-bit loads while the first
+  // T and P tiles are in flight (the first barrier below publishes them).
+  if constexpr (!kBf16) {
+    const float* xf1 = static_cast<const float*>(x1);
+    const float* xf2 = static_cast<const float*>(x2);
+    for (int e = tid; e < kRows * S1; e += kThreads) {
+      const int r = e / S1, k = e - r * S1;
+      const bool in = k < d1 && row0 + r < B;
+      cp_async4(sX1 + e, in ? xf1 + (size_t)(row0 + r) * d1 + k : xf1, in);
+    }
+    for (int e = tid; e < kRows * S2; e += kThreads) {
+      const int r = e / S2, k = e - r * S2;
+      const bool in = k < d2 && row0 + r < B;
+      cp_async4(sX2 + e, in ? xf2 + (size_t)(row0 + r) * d2 + k : xf2, in);
+    }
   }
   stage_T(0);
   cp_async_commit();
   stage_P(0);
   cp_async_commit();
+  if constexpr (kBf16) {
+    stage_rows_bf16(reinterpret_cast<uint32_t*>(sX1), static_cast<const unsigned short*>(x1),
+                    row0, B, d1, S1, tid);
+    stage_rows_bf16(reinterpret_cast<uint32_t*>(sX2), static_cast<const unsigned short*>(x2),
+                    row0, B, d2, S2, tid);
+  }
 
   float acc[kMaxON][4];
 #pragma unroll
@@ -239,8 +305,15 @@ gaunt_pair_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
     cp_async_wait<1>();  // this tile's T, and the rows (P may still be in flight)
     __syncthreads();
     float v1[kNT][4], v2[kNT][4];
-    sample(v1, xr1, S1, KT1, sT1, lane);
-    sample(v2, xr2, S2, KT2, sT2, lane);
+    if constexpr (kBf16) {
+      sample_bf16(v1, reinterpret_cast<const uint32_t*>(xr1), S1, KT1,
+                  reinterpret_cast<const uint2*>(sT1), lane);
+      sample_bf16(v2, reinterpret_cast<const uint32_t*>(xr2), S2, KT2,
+                  reinterpret_cast<const uint2*>(sT2), lane);
+    } else {
+      sample(v1, xr1, S1, KT1, sT1, lane);
+      sample(v2, xr2, S2, KT2, sT2, lane);
+    }
     cp_async_wait<0>();  // this tile's P
     __syncthreads();     // ... visible to all, and every warp is done with sT
     if (tile + 1 < ntiles) stage_T(tile + 1);
@@ -284,6 +357,46 @@ gaunt_pair_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
 
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
+// shared memory (bytes) of a launch at these sizes, or 0 when they are
+// outside what the kernel takes
+template <bool kBf16>
+size_t pair_smem(int d1, int d2, int dout) {
+  if (d1 <= 0 || d2 <= 0 || dout <= 0) return 0;
+  const int K = Mode<kBf16>::kK, NO = ceil_div(dout, 8);
+  const size_t bytes = smem_bytes<kBf16>(ceil_div(d1, K), ceil_div(d2, K),
+                                         NO < kMaxON ? NO : kMaxON);
+  return bytes > kSmemMax ? 0 : bytes;
+}
+
+template <bool kBf16>
+int pair_forward(const void* x1, const void* x2, const void* F1, const void* F2,
+                 const void* FP, void* out, int B, int d1, int d2, int dout, int NS,
+                 void* stream) {
+  if (B < 0 || NS <= 0 || NS % kNT != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = pair_smem<kBf16>(d1, d2, dout);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  const int K = Mode<kBf16>::kK;
+  const int KT1 = ceil_div(d1, K), KT2 = ceil_div(d2, K), NO = ceil_div(dout, 8);
+  const int ON = NO < kMaxON ? NO : kMaxON;
+  // above 48 KB a block needs the opt-in, which holds for the current device
+  // only: set it at every launch (a cheap host call), with the carveout
+  // that lets two blocks share an SM
+  cudaError_t e = cudaFuncSetAttribute(gaunt_pair_kernel<kBf16>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(gaunt_pair_kernel<kBf16>,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(ceil_div(B, kRows), ceil_div(NO, ON));
+  gaunt_pair_kernel<kBf16><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x1, x2, static_cast<const float4*>(F1), static_cast<const float4*>(F2),
+      static_cast<const float4*>(FP), static_cast<float*>(out), B, d1, d2, dout, KT1, KT2,
+      NS, NO, ON);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -291,10 +404,10 @@ extern "C" {
 // Shared memory (bytes) a launch with these sizes uses, or 0 when the sizes
 // are outside what the kernel takes.
 size_t gaunt_pair_smem_bytes(int d1, int d2, int dout) {
-  if (d1 <= 0 || d2 <= 0 || dout <= 0) return 0;
-  const int NO = ceil_div(dout, 8);
-  const size_t bytes = smem_bytes(ceil_div(d1, 8), ceil_div(d2, 8), NO < kMaxON ? NO : kMaxON);
-  return bytes > kSmemMax ? 0 : bytes;
+  return pair_smem<false>(d1, d2, dout);
+}
+size_t gaunt_pair_bf16_smem_bytes(int d1, int d2, int dout) {
+  return pair_smem<true>(d1, d2, dout);
 }
 
 // x1 [B, d1], x2 [B, d2] f32; F1 [NS, ceil(d1/8), 32, 4], F2 [NS,
@@ -304,28 +417,16 @@ size_t gaunt_pair_smem_bytes(int d1, int d2, int dout) {
 int gaunt_pair_forward(const void* x1, const void* x2, const void* F1, const void* F2,
                        const void* FP, void* out, int B, int d1, int d2, int dout, int NS,
                        void* stream) {
-  if (B < 0 || NS <= 0 || NS % kNT != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = gaunt_pair_smem_bytes(d1, d2, dout);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
-  if (B == 0) return (int)cudaSuccess;
-  const int KT1 = ceil_div(d1, 8), KT2 = ceil_div(d2, 8), NO = ceil_div(dout, 8);
-  const int ON = NO < kMaxON ? NO : kMaxON;
-  // above 48 KB a block needs the opt-in, which holds for the current device
-  // only: set it at every launch (a cheap host call), with the carveout
-  // that lets two blocks share an SM
-  cudaError_t e = cudaFuncSetAttribute(gaunt_pair_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(gaunt_pair_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                           (int)cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(ceil_div(B, kRows), ceil_div(NO, ON));
-  gaunt_pair_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x1), static_cast<const float*>(x2),
-      static_cast<const float4*>(F1), static_cast<const float4*>(F2),
-      static_cast<const float4*>(FP), static_cast<float*>(out), B, d1, d2, dout, KT1, KT2,
-      NS, NO, ON);
-  return (int)cudaGetLastError();
+  return pair_forward<false>(x1, x2, F1, F2, FP, out, B, d1, d2, dout, NS, stream);
+}
+
+// x1 [B, d1], x2 [B, d2] bf16; F1 [NS, ceil(d1/16), 32, 4], F2 [NS,
+// ceil(d2/16), 32, 4] bf16 fragments and FP as above
+// (`constants.pair_fragments_bf16`); out [B, dout] f32.
+int gaunt_pair_forward_bf16(const void* x1, const void* x2, const void* F1, const void* F2,
+                            const void* FP, void* out, int B, int d1, int d2, int dout,
+                            int NS, void* stream) {
+  return pair_forward<true>(x1, x2, F1, F2, FP, out, B, d1, d2, dout, NS, stream);
 }
 
 }  // extern "C"

@@ -16,12 +16,15 @@ __all__ = ["gaunt_tp_fused", "gaunt_tp_fused_torch", "gaunt_tp_channel_mix", "wk
            "mamba2_ssd"]
 
 
-def gaunt_tp_fused(x1, x2, L1: int, L2: int, Lout: int | None = None, *, device=None):
+def gaunt_tp_fused(x1, x2, L1: int, L2: int, Lout: int | None = None, *, device=None,
+                   dtype="float32"):
     """Fused sample-multiply-project Gaunt tensor product on the Hopper pair
     kernel (``fused_hopper``; no gradient).  x1 [..., (L1+1)^2],
-    x2 [..., (L2+1)^2] -> [..., (Lout+1)^2], Lout defaulting to L1 + L2."""
+    x2 [..., (L2+1)^2] -> [..., (Lout+1)^2], Lout defaulting to L1 + L2.
+    ``dtype`` is the plan's storage dtype: 'float32' (the reference's
+    wrapper) or 'bfloat16' (the kernel's bf16 mode; the output is bf16)."""
     p = _engine.plan(L1, L2, Lout, kind="pairwise", backend="fused_hopper",
-                     requires_grad=False, device=device)
+                     requires_grad=False, device=device, dtype=dtype)
     return p.apply(x1, x2)
 
 

@@ -4,7 +4,10 @@ Each layer: an eSCN equivariant convolution of neighbour features against
 the edge geometry (messages summed over neighbours within the cutoff), a
 degree-wise channel mix with a residual, the nu-fold many-body self-product
 (one chain plan — on the collocation kernel when ``chain_tune='measure'``
-picks it), a second channel mix and the equivariant gate.  Energy is a sum
+picks it), a second channel mix and the equivariant gate.
+``compute_dtype='bfloat16'`` stores the many-body chain at bf16 (entry
+cast, bf16 exit), as in the reference; the conv, the mixes and the gate
+stay f32, the mixes promoting the bf16 exit.  Energy is a sum
 of per-atom readouts of the invariant channels; forces are -dE/dpos by
 autograd.
 
@@ -34,9 +37,12 @@ __all__ = ["MaceGaunt", "equi_linear", "radial_basis"]
 
 
 def equi_linear(w: torch.Tensor, x: torch.Tensor, L: int) -> torch.Tensor:
-    """Degree-wise channel mixing: x [..., C, (L+1)^2] @ w [L+1, C, C']."""
+    """Degree-wise channel mixing: x [..., C, (L+1)^2] @ w [L+1, C, C'], at
+    the promoted dtype of the two (a bf16 chain exit against f32 weights
+    mixes in f32, as ``jnp.einsum`` promotes in the reference)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
     wl = w[to_torch(l_array(L), w.device, torch.int64)]
-    return torch.einsum("...ck,kcd->...dk", x, wl)
+    return torch.einsum("...ck,kcd->...dk", x.to(dt), wl.to(dt))
 
 
 def _resolve_grid_gate(cfg) -> bool:

@@ -125,8 +125,11 @@ def test_kernel_wrapper_needs_cuda_and_f32():
     P = torch.zeros(196, 9)
     with pytest.raises(ValueError, match="CUDA"):
         launch_chain_kernel([x, x, x], [T, T, T], P)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        gaunt_chain_fused_hopper([x.bfloat16()] * 3, (2, 2, 2), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        launch_chain_kernel([x.bfloat16()] * 3, [T.bfloat16()] * 3, P)
+    # bf16 storage works: bf16 rows and T, f32 P and output
+    out = gaunt_chain_fused_hopper([x.bfloat16()] * 3, (2, 2, 2), 2)
+    assert out.dtype == torch.float32 and torch.equal(out, torch.zeros(4, 9))
     assert torch.equal(chain_plain([x, x, x], [T, T, T], P), torch.zeros(4, 9))
 
 

@@ -1,5 +1,6 @@
 """The Hopper chain, pair, WKV6 and Mamba-2 SSD kernels on the card against
-their plain versions.  Marked
+their plain versions (the chain and pair kernels at f32 and bf16 storage).
+Marked
 ``cuda``: these skip without an sm_90 GPU (run them on the card with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``)."""
 import importlib.util
@@ -108,6 +109,77 @@ def test_pair_kernel_matches_plain_on_card(cuda_device, L1, L2, Lout, B):
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     # 3xTF32 keeps 22 of each operand's 24 bits; the sums run in another order
+    assert err <= 1e-5 * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.parametrize("Ls,Lout,entries,gated", [
+    ((2, 2, 2), 2, ("sh",) * 3, True), ((2, 2, 2), 2, ("sh",) * 3, False),
+    ((1, 1), 2, ("sh", "sh"), False), ((1, 2, 1, 2), 4, ("sh",) * 4, True),
+    ((2, 1, 2), 3, ("grid", "sh", "sh"), True)])
+def test_chain_kernel_bf16_matches_plain_on_card(cuda_device, Ls, Lout, entries, gated):
+    """The bf16 mode: bf16 rows and T, f32 P, gate and output.  Kernel and
+    plain version read the same bf16 values and sum in f32, so they agree
+    to f32 roundings: the forward and the gate's f32 gradients within 1e-5;
+    the operand gradients come back at bf16 (as in the reference), where f32
+    sums that differ in the last bits may round to neighbouring bf16
+    values, so within one bf16 ulp per element (`bf16_grad_err`)."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    xs = []
+    for L, e in zip(Ls, entries):
+        if e == "sh":
+            xs.append(torch.randn(4099, (L + 1) ** 2, device=cuda_device, generator=g))
+        else:
+            xs.append(torch.complex(torch.randn(4099, 2 * L + 1, L + 1, device=cuda_device,
+                                                generator=g),
+                                    torch.randn(4099, 2 * L + 1, L + 1, device=cuda_device,
+                                                generator=g)))
+    gate = (tuple(torch.randn(4099, device=cuda_device, generator=g) for _ in range(2))
+            if gated else None)
+    results = []
+    for fn in (gaunt_chain_fused_hopper, gaunt_chain_fused_torch):
+        leaves = [x.detach().clone().requires_grad_(True) for x in xs]
+        gl = tuple(t.detach().clone().requires_grad_(True) for t in gate) if gated else None
+        reset_kernel_stats()
+        out = fn(leaves, Ls, Lout, entries=entries, dtype="bfloat16", gate=gl)
+        stats = kernel_stats()
+        assert out.dtype == torch.float32
+        w = torch.randn(out.shape, device=cuda_device, generator=torch.Generator(
+            device="cuda").manual_seed(3))
+        grads = torch.autograd.grad((out * w).sum(), leaves + list(gl or ()))
+        results.append((out.detach(), grads, stats))
+    torch.cuda.synchronize()
+    (o_k, g_k, s_k), (o_p, g_p, s_p) = results
+    assert s_k["gaunt_chain_bf16"] == 1 and s_k["gaunt_chain"] == 0
+    assert s_p["gaunt_chain_bf16"] == 0
+    assert (o_k - o_p).abs().max().item() <= 1e-5 * max(1.0, o_p.abs().max().item())
+    for i, (a, b) in enumerate(zip(g_k, g_p)):
+        a, b = torch.view_as_real(a) if a.is_complex() else a, \
+            torch.view_as_real(b) if b.is_complex() else b
+        if i < len(Ls):
+            assert _CS.bf16_grad_err(a, b) <= 1.0
+        else:
+            assert (a - b).abs().max().item() <= 1e-5 * max(1.0, b.abs().max().item())
+
+
+@pytest.mark.parametrize("B", [1, 7, 300, 4099])
+@pytest.mark.parametrize("L1,L2,Lout", _CS.PAIR_CASES)
+def test_pair_kernel_bf16_matches_plain_on_card(cuda_device, L1, L2, Lout, B):
+    """The bf16 mode: bf16 rows and T1, T2 (one m16n8k16 product per k-tile
+    of 16), the 3xTF32 projection on f32 P; the plain version upcasts the
+    same bf16 values and sums in f32."""
+    g = torch.Generator(device="cuda").manual_seed(B)
+    x1 = torch.randn(B, (L1 + 1) ** 2, device=cuda_device, generator=g).bfloat16()
+    x2 = torch.randn(B, (L2 + 1) ** 2, device=cuda_device, generator=g).bfloat16()
+    T1, T2, _ = (constants.to_torch(a, cuda_device, torch.bfloat16)
+                 for a in constants.pair_matrices(L1, L2, Lout, dtype="bfloat16"))
+    P = constants.to_torch(constants.pair_matrices(L1, L2, Lout)[2], cuda_device)
+    reset_kernel_stats()
+    got = launch_pair_kernel(x1, x2, *pair_kernel_constants(L1, L2, Lout, cuda_device,
+                                                            torch.bfloat16))
+    assert kernel_stats()["gaunt_pair_bf16"] == 1 and kernel_stats()["gaunt_pair"] == 0
+    want = pair_plain(x1, x2, T1, T2, P)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
     assert err <= 1e-5 * max(1.0, want.abs().max().item()), err
 
 

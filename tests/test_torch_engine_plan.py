@@ -214,8 +214,9 @@ def test_plan_rejects_what_is_not_ported():
         port_engine.plan(2, 2, 4, options={"boundary": ("fourier", "sh", "sh")}, device="cpu")
     with pytest.raises(NotImplementedError, match="auto"):
         port_engine.plan(2, 2, 4, dtype="auto", device="cpu")
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        port_engine.plan(2, 2, 4, dtype="bfloat16", device="cpu")
+    # bf16 storage is ported: the plan keys on it
+    pb = port_engine.plan(2, 2, 4, dtype="bfloat16", device="cpu")
+    assert pb.key.dtype == "bfloat16" and pb is not port_engine.plan(2, 2, 4, device="cpu")
     with pytest.raises(ValueError, match="selection rule"):
         port_engine.plan(2, 2, 5, device="cpu")
     p = port_engine.plan(2, 2, 4, options={"boundary": ("sh", "sh", "sh")}, device="cpu")
