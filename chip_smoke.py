@@ -7,24 +7,44 @@ result line):
   1. device and build — the card, torch/CUDA versions, the nvcc build of
      every kernel source, all started together (time and ptxas report);
   2. kernels vs plain — the Gaunt chain kernel against its plain PyTorch
-     version on the card, forward and gradients, at the main-path shape
-     and at the reference test chains (sh and grid entries/exits); the
+     version on the card, forward and gradients, at the main-path chain
+     (gated and ungated) on every bucket's rows (2,048, 4,096 and 8,192:
+     n_slots x max_atoms x channels of `default_buckets(32)`) and at the
+     reference test chains (sh and grid entries/exits); the
      pair kernel against its plain version at the reference test shapes
      and at the full-width shape; then both again in their bf16 modes
      (`[kernel bf16]`, `[pair bf16]`: bf16 rows and T, f32 P and sums);
   3. main path — full-width `gaunt_mace_ff` (chain_tune='measure',
-     grid_gate='on') served by `EquivariantServeEngine` (4 slots x 32 atoms)
-     for seeded LJ clusters of 8-32 atoms: served == direct evaluation,
-     finite, rotation invariant/equivariant, and the chain kernel launched;
+     grid_gate='on') served by the bucketed `EquivariantServeEngine`
+     (`default_buckets(32)`: 8, 16 and 32 atoms, 4 slots each; each
+     bucket's step a CUDA graph captured at warmup) for seeded LJ clusters
+     of 8-32 atoms: per bucket the measured chain pick with both
+     candidates' times, the capture time, graph memory and kernel launches
+     per replay; served == direct evaluation, finite, rotation
+     invariant/equivariant, the pick in the 32-atom bucket is the kernel
+     and `gaunt_chain` launches are counted through the graph replays;
+     each bucket's graph step against the eager `SlotPool.evaluate` on the
+     same full slots (f32 identity tier); then a fresh engine fed only
+     8-atom molecules never captures the 32-atom graph (`[small-only]`);
   4. times — chain kernel and plain version on the folded matrices the
      chain route uses (CUDA events per call, median of 50; device time
      from torch.profiler), the kernel's bound (counted at the grid's
      distinct sphere points, `sample_classes`), its registers and spills
-     (ptxas), one serve step, and a profiled serve step (device busy time,
-     idle share, top kernels); then phases 3 and 4 again with the chain at
-     compute_dtype='bfloat16' (`[main bf16]`: the measured pick must be
-     the kernel, `gaunt_chain_bf16` launched, the checks at the bf16
-     tiers; the bf16 chain kernel's times and bound at bf16 bytes);
+     (ptxas); phase 3 again with the chain at compute_dtype='bfloat16'
+     (`[main bf16]`: the measured pick in the 32-atom bucket must be the
+     kernel, `gaunt_chain_bf16` launched, the served checks at the bf16
+     tiers; the bf16 chain kernel's times and bound at bf16 bytes); then,
+     per bucket and storage, the graph step against the eager step in
+     turns (`[times] serve ... bucket ...`: stage, run, host copy; median
+     of 21 on the host clock and with CUDA events), one serve step through
+     the engine, a profiled graph step and a profiled eager step per
+     storage (device busy time, idle share, GPU events, top kernels), each
+     bucket's step captured with each chain candidate pinned and replayed
+     (`[pick]`: is the eager pick still the faster chain in a graph?), and
+     two replicas with their own graphs behind one scheduler, replica0
+     failing every step and cordoned, its requests served by replica1
+     (`[replicas]`: graph memory per replica, failovers, energies ==
+     direct);
   5. pairwise path — the pairwise tensor product `ops.gaunt_tp_fused` at
      (L1, L2, Lout) = (6, 6, 6) on 81,920 rows (EquiformerV2's OC20 width,
      lmax 6 x 128 channels, 640 nodes): the pair kernel launched, finite,
@@ -84,6 +104,7 @@ The line before the last is the per-kernel JSON record; the last line is
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -287,7 +308,7 @@ def compare_chain(Ls, Lout, entries, out_entry, B, gated, device, seed=0, dtype=
 
 
 CHAIN_CASES = [
-    ((2, 2, 2), 2, ("sh",) * 3, "sh", None, True),   # None: the main path's rows
+    ((2, 2, 2), 2, ("sh",) * 3, "sh", None, True),   # None: each bucket's rows
     ((2, 2, 2), 2, ("sh",) * 3, "sh", None, False),
     ((1, 1), 2, ("sh", "sh"), "sh", 257, False),
     ((1, 1), 2, ("sh", "sh"), "grid", 257, True),
@@ -298,15 +319,18 @@ CHAIN_CASES = [
 ]
 
 
-def phase_kernel_vs_plain(device, rows: int, dtype: str = "float32"):
-    """Main-path chain (gated and ungated) at ``rows`` rows, then the
-    reference's test chains with 'grid' entries and exits, at storage
-    ``dtype``: f32 within the f32 tiers; bf16 (the kernel's bf16 mode)
-    forward and f32 gradients within `BF16_KERNEL_TOL`, bf16 gradients
-    within one bf16 ulp."""
+def phase_kernel_vs_plain(device, bucket_rows, dtype: str = "float32"):
+    """Main-path chain (gated and ungated) at each bucket's rows
+    (``bucket_rows``: the rows of every bucket's step), then the reference's
+    test chains with 'grid' entries and exits, at storage ``dtype``: f32
+    within the f32 tiers; bf16 (the kernel's bf16 mode) forward and f32
+    gradients within `BF16_KERNEL_TOL`, bf16 gradients within one bf16 ulp.
+    -> the largest main-path max abs error."""
     main_err = 0.0
-    for i, (Ls, Lout, entries, out_entry, B, gated) in enumerate(CHAIN_CASES):
-        B = rows if B is None else B
+    cases = [(i, case[:4] + (rows,) + case[5:])
+             for i, case in enumerate(CHAIN_CASES) if case[4] is None for rows in bucket_rows]
+    cases += [(i, case) for i, case in enumerate(CHAIN_CASES) if case[4] is not None]
+    for i, (Ls, Lout, entries, out_entry, B, gated) in cases:
         err, rel, grel, gulp = compare_chain(Ls, Lout, entries, out_entry, B, gated, device,
                                              seed=i, dtype=dtype)
         if dtype == "bfloat16":
@@ -320,8 +344,8 @@ def phase_kernel_vs_plain(device, rows: int, dtype: str = "float32"):
         print(f"[{tag}] Ls={Ls} Lout={Lout} entries={entries} exit={out_entry} "
               f"B={B} gated={gated}: fwd max_abs_err {err:.3e} rel {rel:.3e} {tol} "
               f"{'ok' if ok else 'FAIL'}")
-        check(ok, f"kernel disagrees with its plain version for Ls={Ls} at {dtype}")
-        if i < 2:
+        check(ok, f"kernel disagrees with its plain version for Ls={Ls} B={B} at {dtype}")
+        if CHAIN_CASES[i][4] is None:
             main_err = max(main_err, err)
     return main_err
 
@@ -408,9 +432,25 @@ def make_requests(sizes, n_species, seed):
     return reqs
 
 
-def phase_main_path(device, cfg, n_slots, max_atoms, sizes):
-    """The served force field at ``cfg`` (its compute_dtype sets the chain's
-    storage, the kernel mode counted and the tolerance tiers)."""
+def _bucket_key(ge, cfg, pool, device, dtype=None):
+    """The measured chain key a bucket's step asks: every slot in one pass,
+    the fused gate."""
+    return ge.chain_measure_key((cfg.L,) * cfg.nu, cfg.L, dtype or cfg.compute_dtype,
+                                pool.spec.n_slots * pool.spec.max_atoms * cfg.channels,
+                                (0,) * cfg.nu, True, device)
+
+
+def fill_pool(pool, n_species, seed):
+    """Fill every slot of ``pool`` with a seeded LJ cluster of the bucket's
+    full size (host writes only)."""
+    for r in make_requests([pool.spec.max_atoms] * pool.spec.n_slots, n_species, seed):
+        check(pool.admit(r), f"no free slot in bucket {pool.spec.label()}")
+
+
+def phase_main_path(device, cfg, buckets, sizes):
+    """The served force field at ``cfg`` through the bucketed engine (its
+    compute_dtype sets the chain's storage, the kernel mode counted and the
+    tolerance tiers): each bucket's step is a captured CUDA graph."""
     import numpy as np
     import torch
     from repro_torch.core import engine as _engine
@@ -423,26 +463,34 @@ def phase_main_path(device, cfg, n_slots, max_atoms, sizes):
     stat = "gaunt_chain_bf16" if bf16 else "gaunt_chain"
     tol_id, tol_tr, tol_loose = TIERS[cfg.compute_dtype]
     model = MaceGaunt(cfg, device=device, generator=torch.Generator().manual_seed(0))
-    eng = EquivariantServeEngine(model, n_slots=n_slots, max_atoms=max_atoms)
+    eng = EquivariantServeEngine(model, buckets=buckets)
     t0 = time.perf_counter()
     eng.warmup()
-    print(f"[{tag}] warmup {time.perf_counter() - t0:.2f} s "
-          f"(rows per chain {n_slots * max_atoms * cfg.channels}, chain storage "
-          f"{cfg.compute_dtype})")
+    print(f"[{tag}] warmup {time.perf_counter() - t0:.2f} s (buckets "
+          + ", ".join(f"{p.spec.label()} {p.spec.n_slots} x {p.spec.max_atoms} atoms, "
+                      f"{p.spec.n_slots * p.spec.max_atoms * cfg.channels} chain rows"
+                      for p in eng.pools) + f"; chain storage {cfg.compute_dtype})")
     ge = _engine.get_engine()
+    clock = "CUDA events" if device.type == "cuda" else "host clock"
     picks = {}
-    for key, times in ge.measured_times.items():
-        if isinstance(key, _engine.PlanKey) or key[2] != cfg.compute_dtype:
-            continue  # pairwise plans (phases 6 and 7), the other storage's chains
-        pick = picks[key] = min(times, key=times.get)
-        spread = ge.measured_spread[key]
-        print(f"[{tag}] measured chain Ls={key[0]} rows={key[3]} gate={key[5]} "
-              f"({'CUDA events' if device.type == 'cuda' else 'host clock'} per call, "
-              f"median of {_engine._MEASURE_REPS}, [min, max]): "
+    for pool in eng.pools:
+        key = _bucket_key(ge, cfg, pool, device)
+        times, spread = ge.measured_times[key], ge.measured_spread[key]
+        pick = picks[pool.spec.label()] = min(times, key=times.get)
+        print(f"[{tag}] bucket {pool.spec.label()}: measured chain rows={key[3]} gate=True "
+              f"({clock} per eager call, host launches included, median of "
+              f"{_engine._MEASURE_REPS}, [min, max]): "
               + ", ".join(f"{k} {v * 1e3:.4f} ms [{spread[k][0] * 1e3:.4f}, "
                           f"{spread[k][1] * 1e3:.4f}]" for k, v in times.items())
               + f" -> {pick}")
+        if device.type == "cuda":
+            check(pool.compiled() and pool.graph_bytes is not None,
+                  f"bucket {pool.spec.label()}: no graph after warmup")
+            print(f"[{tag}] bucket {pool.spec.label()}: graph captured in "
+                  f"{pool.capture_s * 1e3:.1f} ms, graph memory {pool.graph_bytes / 2**20:.1f} "
+                  f"MiB, kernel launches per replay {pool.launches or '{}'}")
     reqs = make_requests(sizes, cfg.n_species, seed=100)
+    replays = [p.replays for p in eng.pools]
     reset_kernel_stats()
     t0 = time.perf_counter()
     eng.run(reqs)
@@ -451,10 +499,14 @@ def phase_main_path(device, cfg, n_slots, max_atoms, sizes):
     wall = time.perf_counter() - t0
     launches = kernel_stats()[stat]
     summ = eng.metrics.summary()
+    per_bucket = {p.spec.label(): (p.replays - r0, p.launches.get(stat, 0) * (p.replays - r0))
+                  for p, r0 in zip(eng.pools, replays)}
     print(f"[{tag}] served {len(reqs)} requests ({sum(sizes)} atoms) in {wall:.3f} s, "
-          f"{summ['steps']} steps, step p50 {summ['step_ms_p50']:.2f} ms, "
-          f"{stat} launches {launches}")
+          f"{summ['steps']} steps, step p50 {summ['step_p50_ms']:.2f} ms, "
+          f"{stat} launches {launches} (counted through graph replays; per bucket "
+          f"(replays, launches): {per_bucket})")
     check(all(r.done and not r.rejected for r in reqs), "a request did not complete")
+    check(summ["engine_timing_runs"] == ge.timing_runs, "timing runs are not surfaced")
     # served == direct evaluation of each molecule alone
     worst_e = worst_f = 0.0
     for r in reqs:
@@ -485,16 +537,159 @@ def phase_main_path(device, cfg, n_slots, max_atoms, sizes):
           f"{df:.3e} (tol {tol_loose}); |E| {abs(float(e0)):.4e} max|F| "
           f"{float(np.abs(f0).max()):.4e}")
     check(de <= tol_tr and df <= tol_loose, "rotation check failed")
-    served_pick = picks.get(ge.chain_measure_key(
-        (cfg.L,) * cfg.nu, cfg.L, cfg.compute_dtype, n_slots * max_atoms * cfg.channels,
-        (0,) * cfg.nu, True, device))
-    print(f"[{tag}] served chain backend: {served_pick}")
+    large = eng.pools.pools[-1]
+    served_pick = picks[large.spec.label()]
+    print(f"[{tag}] served chain backend in the {large.spec.max_atoms}-atom bucket: "
+          f"{served_pick}")
     kernel = "fused_hopper" if device.type == "cuda" else "fused_torch"
     check(served_pick == kernel, f"the measured pick for the served chain is "
                                  f"{served_pick!r}, not the kernel")
     if device.type == "cuda":
-        check(launches > 0, f"the chain kernel ({stat}) was not launched on the served steps")
-    return launches, summ, model
+        check(per_bucket[large.spec.label()][1] > 0,
+              f"the chain kernel ({stat}) was not launched by the "
+              f"{large.spec.max_atoms}-atom bucket's graph replays")
+        check(launches == sum(n for _, n in per_bucket.values()),
+              f"{stat} launches {launches} differ from the graphs' replays {per_bucket}")
+    # each bucket's graph step against the eager step on the same full slots
+    for pool in eng.pools:
+        fill_pool(pool, cfg.n_species, seed=300 + pool.spec.max_atoms)
+        pool.stage()
+        e, f = (t.clone() for t in pool.step_staged())
+        e0, f0 = pool.evaluate(pool.species, pool.pos, pool.mask)
+        de, de_rel = rel_err(e, e0)
+        df = float((f - f0).abs().max())
+        df_rel = df / max(1e-30, float(f0.abs().max()))
+        print(f"[{tag}] bucket {pool.spec.label()}: graph step vs eager evaluate, "
+              f"{pool.spec.n_slots} x {pool.spec.max_atoms} atoms: energy max abs "
+              f"{de:.3e} (rel {de_rel:.3e}), forces max abs {df:.3e} (rel {df_rel:.3e}); "
+              f"tol {F32_IDENTITY_TOL}")
+        check(de_rel <= F32_IDENTITY_TOL and df_rel <= F32_IDENTITY_TOL,
+              f"bucket {pool.spec.label()}: the graph step differs from the eager step")
+        pool.evict()
+    return launches, model, eng
+
+
+def phase_small_only(model, buckets):
+    """A fresh engine fed only molecules of the smallest bucket's size never
+    captures a larger bucket's graph."""
+    from repro_torch.serve.engine import EquivariantServeEngine
+
+    eng = EquivariantServeEngine(model, buckets=buckets)
+    small, large = eng.pools.pools[0], eng.pools.pools[-1]
+    reqs = make_requests([small.spec.max_atoms] * 6, model.cfg.n_species, seed=700)
+    eng.run(reqs)
+    check(all(r.done and not r.rejected for r in reqs), "a small-only request did not complete")
+    built = {p.spec.label(): p.compiled() for p in eng.pools}
+    print(f"[small-only] {len(reqs)} molecules of {small.spec.max_atoms} atoms: buckets "
+          f"built {built}, replays {[p.replays for p in eng.pools]}")
+    check(small.compiled(), "the small bucket served without its step")
+    check(not large.compiled() and large.replays == 0,
+          f"a small-only workload captured the {large.spec.max_atoms}-atom bucket's graph")
+
+
+def _step_times(fn):
+    """(host ms, CUDA-event ms) of one call of ``fn`` that ends in a host
+    copy; the event pair brackets the call on the current stream."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return (time.perf_counter() - t0) * 1e3, a.elapsed_time(b)
+
+
+def phase_graph_times(eng, tag, reps: int = 21):
+    """Graph step against eager step, per bucket, in one process and in
+    turns (graph, eager, eager, graph, ...): each step stages the slots,
+    runs, and copies energies and forces to the host.  Medians of ``reps``
+    on the host clock and with CUDA events.  Returns {bucket: (graph host,
+    graph events, eager host, eager events)}."""
+    import numpy as np
+
+    out = {}
+    for pool in eng.pools:
+        fill_pool(pool, eng.model.cfg.n_species, seed=800 + pool.spec.max_atoms)
+
+        def graph():
+            pool._dirty = True
+            pool.stage()
+            e, f = pool.step_staged()
+            e.cpu(), f.cpu()
+
+        def eager():
+            e, f = pool.evaluate(pool.species, pool.pos, pool.mask)
+            e.cpu(), f.cpu()
+
+        graph(), eager()
+        g, x = [], []
+        for k in range(reps):
+            order = ((graph, g), (eager, x)) if k % 2 == 0 else ((eager, x), (graph, g))
+            for fn, acc in order:
+                acc.append(_step_times(fn))
+        gh, ge_ = (float(np.median([t[i] for t in g])) for i in (0, 1))
+        xh, xe = (float(np.median([t[i] for t in x])) for i in (0, 1))
+        out[pool.spec.label()] = (gh, ge_, xh, xe)
+        print(f"[times] {tag} bucket {pool.spec.label()} ({pool.spec.n_slots} x "
+              f"{pool.spec.max_atoms} atoms, forces, host copy included): graph step "
+              f"{gh:.3f} ms host / {ge_:.3f} ms events, eager step {xh:.3f} ms host / "
+              f"{xe:.3f} ms events (median of {reps}, in turns); eager / graph x{xh / gh:.2f} "
+              f"host")
+        pool.evict()
+    return out
+
+
+def phase_replicas(device, cfg, buckets):
+    """Two replicas behind one scheduler, each with its own captured graphs;
+    replica0 fails every step, is cordoned, and its requests complete on
+    replica1 with the direct numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.models.equivariant import MaceGaunt
+    from repro_torch.serve.engine import EquivariantServeEngine
+    from repro_torch.serve.faults import FaultPlan, injected
+    from repro_torch.serve.replicas import ReplicaSet
+
+    model = MaceGaunt(cfg, device=device, generator=torch.Generator().manual_seed(0))
+
+    def factory(i, metrics):
+        return EquivariantServeEngine(model, buckets=buckets, metrics=metrics,
+                                      tag=f"replica{i}", warmup=True)
+
+    rset = ReplicaSet(factory, n_replicas=2, max_fail_streak=2, restart_backoff_s=60.0)
+    for r in rset.replicas:
+        mem = sum(p.graph_bytes or 0 for p in r.engine.pools)
+        print(f"[replicas] {r.name}: {sum(p.graph_bytes is not None for p in r.engine.pools)} "
+              f"graphs captured, graph memory "
+              f"{mem / 2**20:.1f} MiB ("
+              + ", ".join(f"{p.spec.label()} {(p.graph_bytes or 0) / 2**20:.1f}"
+                          for p in r.engine.pools) + ")")
+    sizes = [b.max_atoms for b in buckets] + [b.max_atoms - 1 for b in buckets]
+    reqs = make_requests(sizes, cfg.n_species, seed=1000)
+    for r in reqs:
+        r.max_retries = 10
+    plan = FaultPlan(seed=0, rates={"step_raise": 1.0},
+                     scope=lambda ctx: ctx.get("tag") == "replica0")
+    with injected(plan):
+        rset.run(reqs)
+    m = rset.metrics.summary()
+    check(all(r.done and not r.rejected for r in reqs), "a request was lost in failover")
+    check(m["failovers"] >= 1 and not rset.replicas[0].live,
+          "the failing replica was not cordoned")
+    worst = 0.0
+    for r in reqs:
+        e, _ = model.energy_forces(torch.as_tensor(r.species, device=device),
+                                   torch.as_tensor(r.pos, device=device))
+        worst = max(worst, abs(r.energy - float(e)) / max(1.0, abs(float(e))))
+    print(f"[replicas] replica0 failing every step: failovers {m['failovers']}, requeued "
+          f"{m['requeued_on_failover']}, step failures {m['step_failures']}, all "
+          f"{len(reqs)} served by replica1; energy vs direct rel {worst:.3e} "
+          f"(tol {F32_IDENTITY_TOL}); completion order {list(rset.metrics.completed_order)}")
+    check(worst <= F32_IDENTITY_TOL, "failed-over energies differ from direct evaluation")
+    check(np.all([r._replica == 1 for r in reqs]), "a request finished on the cordoned replica")
 
 
 # --------------------------------------------------------------------------
@@ -643,8 +838,38 @@ def phase_times(device, rows: int, Ls=(2, 2, 2), Lout: int = 2, dtype: str = "fl
     return kernel_ms, plain_ms, bound_ms, bound_by
 
 
+def phase_pick_under_graph(device, model, buckets, tag):
+    """Is each bucket's measured pick (timed eagerly, host launches
+    included) still the faster chain once the step is a replayed graph?
+    Per bucket, the step captured once with each candidate pinned, and each
+    graph's replay timed (CUDA events, median of 50)."""
+    from repro_torch.core import engine as _engine
+    from repro_torch.serve.pools import SlotPool
+
+    ge = _engine.get_engine()
+    cfg = model.cfg
+    for spec in buckets:
+        probe = SlotPool(model, spec)
+        key = _bucket_key(ge, cfg, probe, device)
+        measured = ge.measured_pick(key)
+        ms = {}
+        for backend in ("tree", "fused_hopper"):
+            with ge.pinned_chain(key, backend):
+                pool = SlotPool(model, spec)
+                fill_pool(pool, cfg.n_species, seed=1100 + spec.max_atoms)
+                pool.warmup_compile()
+                ms[backend] = event_ms(pool.step_staged)
+                del pool
+        best = min(ms, key=ms.get)
+        print(f"[pick] {tag} bucket {spec.label()} ({key[3]} chain rows): graph replay "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+              + f" (CUDA events, median of 50); eager pick {measured}, faster under the "
+              f"graph {best}: {'same' if best == measured else 'DIFFERENT'}")
+
+
 def serve_step_ms(model, n_slots, max_atoms, reps: int = 5) -> float:
-    """Host-clock time of one full serve step (all slots occupied), median."""
+    """Host-clock time of one full serve step through the engine (all slots
+    occupied; the bucket's graph replayed), median."""
     from repro_torch.serve.engine import EquivariantServeEngine
 
     cfg = model.cfg
@@ -660,33 +885,57 @@ def serve_step_ms(model, n_slots, max_atoms, reps: int = 5) -> float:
     return times[len(times) // 2]
 
 
-def profile_step(model, n_slots, max_atoms, top: int = 10) -> None:
-    """One full serve step under torch.profiler: wall time, summed device
-    time, the device's idle share, and the kernels that take the most."""
+def profile_step(tag, setup, fn, top: int = 10) -> None:
+    """One call of ``fn`` (a full serve step; ``setup`` fills its slots
+    beforehand, outside the window) under torch.profiler: wall time, summed
+    device time, the device's idle share, and the kernels that take the
+    most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serve.engine import EquivariantServeEngine
 
-    eng = EquivariantServeEngine(model, n_slots=n_slots, max_atoms=max_atoms, warmup=True)
-    for r in make_requests([max_atoms] * n_slots, model.cfg.n_species, seed=900):
-        check(eng.add_request(r), "no free slot for the profiled step")
+    setup()
+    fn()
+    setup()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.step()
+        fn()
         wall = (time.perf_counter() - t0) * 1e3
     events = sorted(_kernel_events(prof), key=_device_us, reverse=True)
     busy = sum(_device_us(e) for e in events) / 1e3
     if busy <= 0:
-        print("[profile] the profiler saw no device time; step breakdown not measured")
+        print(f"[profile] {tag}: the profiler saw no device time; step breakdown not measured")
         return
-    print(f"[profile] serve step (profiled): wall {wall:.2f} ms, device busy "
+    print(f"[profile] {tag} (profiled): wall {wall:.2f} ms, device busy "
           f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / wall):.3f}, "
           f"{sum(e.count for e in events)} GPU events")
     for e in events[:top]:
         print(f"[profile]   {_device_us(e) / 1e3:8.3f} ms {e.count:5d}x  {e.key[:90]}")
     chain = sum(_device_us(e) for e in events if "gaunt_chain" in e.key) / 1e3
     print(f"[profile]   chain kernel: {chain:.3f} ms ({chain / busy * 100:.1f}% of busy)")
+
+
+def profile_serve_steps(model, n_slots, max_atoms, tag) -> None:
+    """The full serve step profiled twice on the same slots: through the
+    engine (the bucket's graph replayed, then the host's retirements) and
+    as the eager `SlotPool.evaluate` with its host copy."""
+    from repro_torch.serve.engine import EquivariantServeEngine
+
+    eng = EquivariantServeEngine(model, n_slots=n_slots, max_atoms=max_atoms, warmup=True)
+    pool = eng.pools.pools[0]
+
+    def admit():
+        for r in make_requests([max_atoms] * n_slots, model.cfg.n_species, seed=900):
+            check(eng.add_request(r), "no free slot for the profiled step")
+
+    def eager():
+        e, f = pool.evaluate(pool.species, pool.pos, pool.mask)
+        e.cpu(), f.cpu()
+
+    profile_step(f"serve step {tag} graph", admit, eng.step)
+    admit()
+    profile_step(f"serve step {tag} eager", lambda: None, eager)
+    pool.evict()
 
 
 # --------------------------------------------------------------------------
@@ -1669,28 +1918,39 @@ def main() -> int:
     t_start = time.perf_counter()
     pair_rows = 640 * 128
     try:
+        from repro_torch.serve.pools import default_buckets
+
+        buckets = default_buckets(max_atoms, n_slots)
+        bucket_rows = [spec.n_slots * spec.max_atoms * cfg.channels for spec in buckets]
         phase_device_and_build()
-        max_abs_err = phase_kernel_vs_plain(device, rows)
+        max_abs_err = phase_kernel_vs_plain(device, bucket_rows)
         pair_err = phase_pair_vs_plain(device, pair_rows)
-        max_abs_err_bf16 = phase_kernel_vs_plain(device, rows, "bfloat16")
+        max_abs_err_bf16 = phase_kernel_vs_plain(device, bucket_rows, "bfloat16")
         pair_err_bf16 = phase_pair_vs_plain(device, pair_rows, "bfloat16")
-        launches, summ, model = phase_main_path(device, cfg, n_slots, max_atoms, sizes)
+        launches, model, eng = phase_main_path(device, cfg, buckets, sizes)
+        phase_small_only(model, buckets)
         kernel_ms, plain_ms, bound_ms, bound_by = phase_times(device, rows)
-        step_ms = serve_step_ms(model, n_slots, max_atoms)
-        print(f"[times] serve step (4 x 32 atoms, full width, forces): {step_ms:.2f} ms "
-              f"host clock, median of 5")
-        profile_step(model, n_slots, max_atoms)
         # the served force field again with its many-body chain stored at bf16
         cfg_bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
-        launches_bf16, _, model_bf16 = phase_main_path(device, cfg_bf16, n_slots, max_atoms,
-                                                       sizes)
+        launches_bf16, model_bf16, eng_bf16 = phase_main_path(device, cfg_bf16, buckets, sizes)
         (kernel_ms_bf16, plain_ms_bf16, bound_ms_bf16,
          bound_by_bf16) = phase_times(device, rows, dtype="bfloat16")
+        phase_graph_times(eng, "serve f32 chain")
+        phase_graph_times(eng_bf16, "serve bf16 chain")
+        step_ms = serve_step_ms(model, n_slots, max_atoms)
         step_ms_bf16 = serve_step_ms(model_bf16, n_slots, max_atoms)
-        print(f"[times] serve step bf16 chain (4 x 32 atoms, full width, forces): "
-              f"{step_ms_bf16:.2f} ms host clock, median of 5 (f32 chain: {step_ms:.2f} ms)")
-        profile_step(model_bf16, n_slots, max_atoms)
-        del model, model_bf16
+        print(f"[times] serve step through the engine (4 x 32 atoms, full width, forces, "
+              f"graph): f32 chain {step_ms:.2f} ms, bf16 chain {step_ms_bf16:.2f} ms host "
+              f"clock, median of 5")
+        profile_serve_steps(model, n_slots, max_atoms, "f32 chain")
+        profile_serve_steps(model_bf16, n_slots, max_atoms, "bf16 chain")
+        phase_pick_under_graph(device, model, buckets, "f32 chain")
+        phase_pick_under_graph(device, model_bf16, buckets, "bf16 chain")
+        phase_replicas(device, cfg, buckets)
+        # free the force fields and their graphs before the larger phases
+        del model, model_bf16, eng, eng_bf16
+        gc.collect()
+        torch.cuda.empty_cache()
         pair_launches, (x1, x2) = phase_pair_main(device, pair_rows)
         (pair_ms, pair_plain_ms, pair_bound_ms, pair_bound_by,
          pair_library_ms) = phase_pair_times(device, x1, x2)

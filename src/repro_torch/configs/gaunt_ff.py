@@ -1,9 +1,8 @@
 """The paper's force-field configuration: a Gaunt-accelerated MACE model.
 
 A copy of the reference ``repro.configs.gaunt_ff`` with the knobs the port
-honours.  Not carried over yet: ``shard_data``, ``autotune_cache`` and
-``serve_buckets`` (sharding, the persistent autotune cache and the serve
-bucket ladder are not ported).
+honours.  Not carried over yet: ``shard_data`` and ``autotune_cache``
+(sharding and the persistent autotune cache are not ported).
 """
 from __future__ import annotations
 
@@ -41,6 +40,11 @@ class EquivariantConfig:
     # reparameterization: fix it per checkpoint); 'off' gates in SH after
     # the mb_mix channel mix
     grid_gate: str = "off"
+    # serve bucket ladder: ((max_atoms, n_slots), ...) for
+    # `EquivariantServeEngine` when it gets no ``buckets`` argument (None:
+    # one bucket of the engine's max_atoms x n_slots); each bucket has its
+    # own step — on CUDA its own captured graph — for its padded shape
+    serve_buckets: tuple[tuple[int, int], ...] | None = None
 
 
 gaunt_mace_ff = EquivariantConfig(

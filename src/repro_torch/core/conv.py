@@ -20,6 +20,7 @@ from . import constants as _const
 from .engine import build_escn
 
 __all__ = [
+    "axis_vector",
     "align_rotation",
     "wigner_blocks_from_rotmat",
     "apply_wigner_blocks",
@@ -27,14 +28,21 @@ __all__ = [
     "EquivariantConv",
 ]
 
-_PERM_YZX = [1, 2, 0]  # (x, y, z) -> (m=-1, 0, 1) = (y, z, x)
+
+def axis_vector(axis: int, like: torch.Tensor) -> torch.Tensor:
+    """The unit vector along ``axis`` (0, 1, 2: x, y, z) at ``like``'s dtype
+    and device, made there: a fill, never a copy from the host, so a step
+    captured into a CUDA graph may build it."""
+    e = like.new_zeros(3)
+    e[axis:axis + 1].fill_(1.0)
+    return e
 
 
 def align_rotation(rhat: torch.Tensor) -> torch.Tensor:
     """[..., 3] unit vectors -> rotation matrices R with R @ rhat = e_z."""
     r = rhat / torch.linalg.norm(rhat, dim=-1, keepdim=True)
-    ex = r.new_tensor([1.0, 0.0, 0.0]).expand_as(r)
-    ez = r.new_tensor([0.0, 0.0, 1.0]).expand_as(r)
+    ex = axis_vector(0, r).expand_as(r)
+    ez = axis_vector(2, r).expand_as(r)
     use_z = (r[..., 0:1].abs() > 0.9).to(r.dtype)
     u = use_z * ez + (1 - use_z) * ex
     b1 = torch.linalg.cross(u, r, dim=-1)
@@ -50,7 +58,9 @@ def wigner_blocks_from_rotmat(L: int, R: torch.Tensor) -> list:
     Ds = [R.new_ones(R.shape[:-2] + (1, 1))]
     if L == 0:
         return Ds
-    D1 = R[..., _PERM_YZX, :][..., :, _PERM_YZX]
+    # the (x,y,z) -> (y,z,x) reordering of rows and columns as a roll: an
+    # index list would be copied to the device at every call
+    D1 = torch.roll(R, shifts=(-1, -1), dims=(-2, -1))
     Ds.append(D1)
     for l in range(2, L + 1):
         C = _const.to_torch(_const.cg_11_blocks(L)[l - 2], R.device, R.dtype)

@@ -46,6 +46,7 @@ Not ported yet: the manybody plan kind (the port's many-body route is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -995,11 +996,38 @@ class GauntEngine:
         share = tuple(share_hint) if share_hint else tuple(range(len(Ls)))
         return (Ls, Lout, dts, batch_hint, share, bool(gate), torch.device(device).type)
 
+    def measured_pick(self, key: tuple) -> str | None:
+        """The chain backend cached for ``key`` (a `chain_measure_key`), or
+        None when the key was never measured."""
+        return self._measured.get(key)
+
+    @contextlib.contextmanager
+    def pinned_chain(self, key: tuple, backend: str):
+        """Serve chain ``key`` (a `chain_measure_key`) with ``backend`` inside
+        the block, whatever was measured for it; the measured pick, or its
+        absence, is back when the block ends, however it ends."""
+        had, old = key in self._measured, self._measured.get(key)
+        self._measured[key] = backend
+        try:
+            yield
+        finally:
+            if had:
+                self._measured[key] = old
+            else:
+                self._measured.pop(key, None)
+
     def _select_chain(self, Ls, Lout, dts, batch_hint, share_hint, gate, device) -> str:
         key = self.chain_measure_key(Ls, Lout, dts, batch_hint, share_hint, gate, device)
         hit = self._measured.get(key)
         if hit is not None:
             return hit
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            # timing synchronises the device, which a capture forbids; a guess
+            # would bake an unmeasured pick into the graph
+            raise RuntimeError(
+                f"chain key {key} is not measured and this stream is capturing a "
+                f"CUDA graph: measure it before the capture (the serve engine's "
+                f"warmup seeds every bucket's keys)")
         self.timing_runs += 1
         kernel = "fused_hopper" if device.type == "cuda" else "fused_torch"
         B, share = key[3] or 256, key[4]

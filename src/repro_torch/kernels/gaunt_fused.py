@@ -75,11 +75,12 @@ __all__ = [
     "gaunt_chain_fused_hopper",
     "kernel_stats",
     "reset_kernel_stats",
+    "add_kernel_launches",
 ]
 
 # launches of each CUDA kernel and storage mode since the last reset
-# (ticked in `launch_chain_kernel` / `launch_pair_kernel` only, once per
-# kernel launch)
+# (ticked in `launch_chain_kernel` / `launch_pair_kernel`, once per kernel
+# launch, and by a CUDA graph's replay: `add_kernel_launches`)
 _STATS = {"gaunt_chain": 0, "gaunt_chain_bf16": 0, "gaunt_pair": 0, "gaunt_pair_bf16": 0}
 
 
@@ -93,6 +94,14 @@ def kernel_stats() -> dict:
 def reset_kernel_stats() -> None:
     for k in _STATS:
         _STATS[k] = 0
+
+
+def add_kernel_launches(counts: dict) -> None:
+    """Add launches the wrappers did not make themselves: a CUDA graph's
+    replay launches again every kernel captured in it, and its capture
+    launches none (`serve/pools.py` counts a graph's kernels at capture)."""
+    for k, v in counts.items():
+        _STATS[k] += v
 
 
 # --------------------------------------------------------------------------

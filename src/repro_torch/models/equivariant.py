@@ -27,7 +27,7 @@ from torch import nn
 
 from ..configs.gaunt_ff import EquivariantConfig
 from ..core.constants import to_torch
-from ..core.conv import EquivariantConv
+from ..core.conv import EquivariantConv, axis_vector
 from ..core.engine import _gate_sh
 from ..core.irreps import l_array, num_coeffs
 from ..core.manybody import manybody_selfmix
@@ -81,7 +81,7 @@ def _pair_geometry(pos: torch.Tensor, cutoff: float):
     dist = torch.linalg.norm(diff + eye[..., None], dim=-1) * (1 - eye)
     mask = (dist > 1e-6) & (dist < cutoff)
     rhat = diff / dist[..., None].clamp_min(1e-6)
-    ez = pos.new_tensor([0.0, 0.0, 1.0]).expand_as(rhat)
+    ez = axis_vector(2, pos).expand_as(rhat)
     rhat = torch.where(mask[..., None], rhat, ez)
     return rhat, dist, mask
 

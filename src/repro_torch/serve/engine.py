@@ -1,27 +1,41 @@
 """Force-field serving: continuous batching of energy / forces / relaxation
-requests over one bucket of atom-padded slots.
+requests over size-bucketed slot pools, after the reference's
+``EquivariantServeEngine`` (``repro.serve.engine``).
 
-``EquivariantServeEngine(model, n_slots, max_atoms)`` validates requests at
-admission, places them into free slots, and steps all active slots together
-(`serve.pools.SlotPool`).  ``warmup()`` seeds the measured many-body chain
-selection at the row count a step presents (n_slots * max_atoms * channels)
-and runs one ghost-only step, so the first real request pays serving cost
-only.  The reference's scheduler, bucket ladder, replicas and fault
-injection are not ported yet.
+- **admission** rides `serve/scheduler.py`: a priority queue with
+  per-request deadlines and structured rejection (invalid or oversized
+  geometry never reaches a shared batched step);
+- **slots** ride `serve/pools.py`: size-bucketed slot pools, each bucket
+  with its own step for its own padded shape — on CUDA a CUDA graph
+  captured once and replayed, the counterpart of the reference's per-bucket
+  ``jax.jit`` — so a small molecule does not pad to the deployment's
+  largest atom count;
+- **stepping** is pipelined: every active bucket's step is dispatched
+  (asynchronously), and the next step's admissions, host slot writes and
+  device staging overlap the device's work;
+- **observability** rides `serve/metrics.py`; **fault tolerance** rides
+  `serve/faults.py` (injection) and the pools' recovery, and
+  `serve/replicas.py` puts several engines behind one scheduler.
+
+``warmup()`` seeds every bucket's measured chain keys and builds (on CUDA:
+captures) every bucket's step on ghost-only slots, so the first real
+request pays serving cost only.  The model is an ``nn.Module`` that holds
+its parameters, so the constructor takes no ``params``.
 """
 from __future__ import annotations
 
 import dataclasses
-from collections import deque
+import time
 
 import numpy as np
 
-from .pools import BucketSpec, SlotPool
+from ..core import engine as _engine
+from ..models.equivariant import _resolve_grid_gate
+from .metrics import ServeMetrics
+from .pools import BucketedPools, BucketSpec
+from .scheduler import REASON_INVALID, REASON_TOO_LARGE, Scheduler
 
-__all__ = ["EquivariantRequest", "EquivariantServeEngine", "ServeMetrics"]
-
-REASON_INVALID = "invalid"
-REASON_TOO_LARGE = "too_large"
+__all__ = ["EquivariantRequest", "EquivariantServeEngine"]
 
 
 @dataclasses.dataclass
@@ -34,6 +48,14 @@ class EquivariantRequest:
     steps: int = 1
     step_size: float = 0.0        # relaxation: pos += step_size * forces
     rid: int = 0
+    # fault tolerance: failed, timed-out or non-finite steps retry this
+    # request from its admission snapshot up to max_retries attempts beyond
+    # the first; past it -> reject_reason='step_failed:<kind>'
+    max_retries: int = 2
+    # scheduling: lower priority value = served first; deadline = seconds of
+    # allowed queue wait from submission, None = none
+    priority: int = 0
+    deadline: float | None = None
     # filled by the engine:
     energy: float | None = None
     forces: np.ndarray | None = None
@@ -42,120 +64,165 @@ class EquivariantRequest:
     reject_reason: str | None = None
 
 
-class ServeMetrics:
-    """Step and completion counts with step wall times (host clock)."""
-
-    def __init__(self):
-        self.counters = {"steps": 0, "completed": 0, "rejected": 0}
-        self.step_s: list[float] = []
-
-    def observe_step(self, dur_s: float) -> None:
-        self.counters["steps"] += 1
-        self.step_s.append(dur_s)
-
-    def observe_complete(self) -> None:
-        self.counters["completed"] += 1
-
-    def observe_reject(self) -> None:
-        self.counters["rejected"] += 1
-
-    def summary(self) -> dict:
-        s = np.asarray(self.step_s) * 1e3
-        return {**self.counters,
-                "step_ms_p50": float(np.median(s)) if s.size else None}
-
-
 class EquivariantServeEngine:
-    """Continuous batching for a `MaceGaunt` over one atom-padded slot pool."""
+    """Continuous batching for a `MaceGaunt` over size-bucketed atom-padded
+    slot pools: each step dispatches one batched evaluation per active
+    bucket and overlaps the next step's admissions with the device."""
 
     def __init__(self, model, n_slots: int = 4, max_atoms: int = 16,
-                 warmup: bool = False):
+                 warmup: bool = False, buckets=None, clock=time.monotonic,
+                 step_timeout_s: float | None = None,
+                 retry_backoff_s: float = 5e-4, metrics=None, tag: str = ""):
         self.model = model
-        self.metrics = ServeMetrics()
-        self.pool = SlotPool(model, BucketSpec(max_atoms, n_slots), self.metrics)
+        self.clock = clock
+        self.tag = tag                 # replica label (fault scoping)
+        self.metrics = metrics if metrics is not None else ServeMetrics(clock=clock)
+        specs = self._resolve_buckets(buckets, n_slots, max_atoms)
+        self.pools = BucketedPools(model, specs, metrics=self.metrics, clock=clock,
+                                   step_timeout_s=step_timeout_s,
+                                   retry_backoff_s=retry_backoff_s, tag=tag)
         if warmup:
             self.warmup()
 
+    def _resolve_buckets(self, buckets, n_slots, max_atoms):
+        """The explicit ``buckets`` argument, else the config's
+        ``serve_buckets``, else one (max_atoms, n_slots) bucket."""
+        if buckets is None:
+            buckets = getattr(self.model.cfg, "serve_buckets", None)
+        if buckets is None:
+            return (BucketSpec(max_atoms, n_slots),)
+        return tuple(b if isinstance(b, BucketSpec) else BucketSpec(*b) for b in buckets)
+
     @property
     def max_atoms(self) -> int:
-        return self.pool.spec.max_atoms
+        return self.pools.max_atoms
 
     @property
     def n_slots(self) -> int:
-        return self.pool.spec.n_slots
+        return sum(p.spec.n_slots for p in self.pools)
 
     @property
     def slot_req(self) -> list:
-        return list(self.pool.slot_req)
+        """Flat view over every pool's slots (smallest bucket first)."""
+        return [r for p in self.pools for r in p.slot_req]
 
+    # ------------------------------------------------------------- warmup
     def warmup(self) -> None:
-        """Seed the measured chain selection and run one ghost-only step.
+        """Seed every bucket's measured chain keys, then build every
+        bucket's step on ghost-only slots.
 
         With ``chain_tune='measure'`` each layer's many-body chain picks its
-        backend by timing the candidates at the call's row count; a step
-        presents n_slots * max_atoms * channels rows, so that key (gated
-        when the config fuses the gate into the chain) is measured here,
-        outside any served step."""
-        from ..core import engine as _engine
-        from ..models.equivariant import _resolve_grid_gate
-
+        backend by timing the candidates at the call's row count, which
+        cannot happen inside a captured graph (`engine._select_chain`
+        raises there).  A bucket's step presents n_slots * max_atoms *
+        channels rows (all slots in one pass), so each bucket's key is
+        measured here at that count: at float32 and at the config's storage
+        dtype, gated and ungated when the grid gate is on, as the reference
+        does.  Then each bucket's step is built — on CUDA its graph is
+        captured — with up to three attempts, so a transient failure
+        (injected ``compile_fail`` or real) does not keep a host down."""
         cfg = self.model.cfg
         if cfg.chain_tune == "measure":
-            _engine.plan_chain((cfg.L,) * cfg.nu, cfg.L, tune="measure",
-                               batch_hint=self.n_slots * self.max_atoms * cfg.channels,
-                               share_hint=(0,) * cfg.nu, dtype=cfg.compute_dtype,
-                               gate=_resolve_grid_gate(cfg), device=self.model.device)
-        self.pool.warmup_step()
+            gate_opts = (False, True) if _resolve_grid_gate(cfg) else (False,)
+            for pool in self.pools:
+                rows = pool.spec.n_slots * pool.spec.max_atoms * cfg.channels
+                for d in dict.fromkeys(["float32", cfg.compute_dtype]):
+                    for g in gate_opts:
+                        _engine.plan_chain((cfg.L,) * cfg.nu, cfg.L, tune="measure",
+                                           batch_hint=rows, share_hint=(0,) * cfg.nu,
+                                           dtype=d, gate=g, device=self.model.device)
+        for pool in self.pools:
+            for attempt in range(3):
+                try:
+                    pool.warmup_compile()
+                    break
+                except Exception:
+                    self.metrics.counters["warmup_retries"] += 1
+                    if attempt == 2:
+                        raise
 
+    # ------------------------------------------------------------- admission
     def has_active(self) -> bool:
-        return self.pool.n_active() > 0
+        return self.pools.has_active()
+
+    def evict_active(self) -> list:
+        """Pull every in-flight request out of every pool, restored to its
+        admission snapshot (replica failover requeues them on survivors)."""
+        return [r for p in self.pools for r in p.evict()]
 
     def validate(self, req: EquivariantRequest):
-        """Admission-time validation -> None | (reason, detail).  Bad geometry
-        is rejected here: one NaN position in a shared batched step would
-        poison every slot's gradient."""
+        """Admission-time validation -> None | (reason, detail).  Bad
+        geometry is rejected here: one NaN position in a shared batched
+        step would poison every slot's gradient."""
         species = np.asarray(req.species)
         if species.size == 0:
             return (REASON_INVALID, "empty species")
         if not np.issubdtype(species.dtype, np.integer):
             return (REASON_INVALID, f"species dtype {species.dtype} is not integral")
-        if species.min() < 0 or species.max() >= self.model.cfg.n_species:
-            return (REASON_INVALID, f"species outside [0, {self.model.cfg.n_species})")
-        if req.steps < 1:
+        if species.min() < 0:
+            return (REASON_INVALID, f"negative species value {int(species.min())}")
+        n_species = self.model.cfg.n_species
+        if species.max() >= n_species:
+            # the embedding gather would index out of range
+            return (REASON_INVALID,
+                    f"species value {int(species.max())} >= n_species={n_species}")
+        if getattr(req, "steps", 1) < 1:
             return (REASON_INVALID, f"steps={req.steps} < 1")
         pos = np.asarray(req.pos, np.float32)
         if pos.shape != (species.size, 3):
             return (REASON_INVALID, f"pos shape {pos.shape} != ({species.size}, 3)")
         if not np.all(np.isfinite(pos)):
             return (REASON_INVALID, "non-finite positions")
-        if species.size > self.max_atoms:
+        if species.size > self.pools.max_atoms:
             return (REASON_TOO_LARGE,
-                    f"{species.size} atoms > max_atoms {self.max_atoms}")
+                    f"{species.size} atoms > largest bucket {self.pools.max_atoms}")
         return None
 
+    def try_admit(self, req: EquivariantRequest) -> bool:
+        """Admit into the smallest bucket that fits, strictly: a small
+        request never spills into a larger bucket, so it never makes that
+        bucket build its step or pay its padding."""
+        pool = self.pools.select(len(req.species))
+        if pool is None:  # unreachable through the scheduler (validate)
+            return False
+        return pool.admit(req)
+
     def add_request(self, req: EquivariantRequest) -> bool:
-        """Admit a request.  An invalid request is consumed as rejected
-        (``rejected=True, done=True``) and True is returned; False means no
-        free slot right now."""
+        """Direct (scheduler-less) admission: an invalid request is consumed
+        as rejected (``rejected=True, done=True``) and True is returned;
+        False means no free slot right now."""
         err = self.validate(req)
         if err is not None:
             req.rejected, req.done = True, True
-            req.reject_reason = f"{err[0]}:{err[1]}"
-            self.metrics.observe_reject()
+            req.reject_reason = f"{err[0]}:{err[1]}" if err[1] else err[0]
+            self.metrics.observe_reject(req, err[0])
             return True
-        return self.pool.admit(req)
+        return self.try_admit(req)
 
-    def step(self) -> list:
-        """Evaluate every active slot once; returns the completed requests."""
-        h = self.pool.begin_step()
-        return [] if h is None else self.pool.finish_step(h)
+    # ------------------------------------------------------------- stepping
+    def step(self, overlap=None) -> None:
+        """One pipelined round: dispatch every active bucket's step, run the
+        overlap callback (the scheduler's admission pass) and stage idle
+        pools while the device computes, then wait, retire finished
+        requests and advance relaxations."""
+        inflight = []
+        for pool in self.pools:
+            h = pool.begin_step()
+            if h is not None:
+                inflight.append((pool, h))
+        if overlap is not None:
+            overlap()
+        busy = {id(p) for p, _ in inflight}
+        for pool in self.pools:
+            # stage pools admitted into during the overlap window (their step
+            # dispatches next round); in-flight pools stage again after
+            # finish_step's relaxation writes
+            if id(pool) not in busy and pool.n_active():
+                pool.stage(early=True)
+        for pool, h in inflight:
+            pool.finish_step(h)
 
     def run(self, requests: list[EquivariantRequest]) -> list[EquivariantRequest]:
-        """Serve ``requests`` to completion, admitting into slots as they
-        free up (FIFO); returns them in the order given."""
-        queue = deque(requests)
-        while queue or self.has_active():
-            while queue and self.add_request(queue[0]):
-                queue.popleft()
-            self.step()
-        return list(requests)
+        """Serve ``requests`` to completion through a `Scheduler` (priority,
+        then FIFO); each is completed or rejected in place."""
+        return Scheduler(self, clock=self.clock).run(requests)

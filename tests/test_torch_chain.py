@@ -172,6 +172,27 @@ def test_measured_chain_pick_on_cpu_is_a_cpu_candidate():
     assert eng.timing_runs == 1
 
 
+@pytest.mark.parametrize("measured_first", [False, True])
+def test_pinned_chain_serves_the_pin_and_restores_the_pick(measured_first):
+    """`pinned_chain` serves its backend inside the block without a timing
+    run, and leaves the measured pick (or its absence) as it was, also when
+    the block raises."""
+    eng = port_engine.GauntEngine()
+    kw = dict(tune="measure", batch_hint=64, share_hint=(0, 0, 0), gate=True, device="cpu")
+    key = eng.chain_measure_key((2, 2, 2), 2, "float32", 64, (0, 0, 0), True, "cpu")
+    if measured_first:
+        eng.plan_chain((2, 2, 2), 2, **kw)
+    before, runs = eng.measured_pick(key), eng.timing_runs
+    for backend in ("tree", "fused_torch"):
+        with eng.pinned_chain(key, backend):
+            assert eng.plan_chain((2, 2, 2), 2, **kw).backend == backend
+            assert eng.measured_pick(key) == backend
+        assert eng.measured_pick(key) == before
+    with pytest.raises(ZeroDivisionError), eng.pinned_chain(key, "tree"):
+        1 / 0
+    assert eng.measured_pick(key) == before and eng.timing_runs == runs
+
+
 @pytest.mark.parametrize("backend", ["tree", "fused_torch"])
 @pytest.mark.parametrize("gated", [False, True])
 def test_chain_plan_resident_entry_and_exit_match_reference(backend, gated):

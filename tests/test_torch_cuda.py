@@ -351,3 +351,130 @@ def test_mamba2_kernel_route_has_no_gradient_on_card(cuda_device):
         mamba2_mod.mamba2_ssd_hopper(x, dt, A, Bm, Bm, D)
     with torch.no_grad():
         assert mamba2_mod.mamba2_ssd_hopper(x, dt, A, Bm, Bm, D).shape == (1, 16, 2, 8)
+
+
+# --------------------------------------------------------------------------
+# the served step as a CUDA graph (serve/pools.py)
+# --------------------------------------------------------------------------
+
+def _graph_model(cuda_device, channels=8):
+    import dataclasses
+
+    from repro_torch.configs.gaunt_ff import gaunt_mace_ff
+    from repro_torch.models.equivariant import MaceGaunt
+
+    cfg = dataclasses.replace(gaunt_mace_ff, channels=channels, n_species=4,
+                              chain_tune="measure", grid_gate="on")
+    return MaceGaunt(cfg, device=cuda_device, generator=torch.Generator().manual_seed(3))
+
+
+def _graph_requests(sizes, seed):
+    import numpy as np
+
+    from repro_torch.serve.engine import EquivariantRequest
+
+    rng = np.random.default_rng(seed)
+    return [EquivariantRequest(species=rng.integers(0, 4, n),
+                               pos=(rng.normal(size=(n, 3)) * 1.5).astype(np.float32), rid=i)
+            for i, n in enumerate(sizes)]
+
+
+def _kernel_pick(model, pool):
+    """Pin the served chain key of ``pool`` to the kernel inside the block,
+    so that the step launches it whatever the measurement at this small size
+    would pick."""
+    from repro_torch.core.engine import get_engine
+
+    c = model.cfg
+    key = get_engine().chain_measure_key(
+        (c.L,) * c.nu, c.L, c.compute_dtype, pool.spec.n_slots * pool.spec.max_atoms * c.channels,
+        (0,) * c.nu, True, model.device)
+    return get_engine().pinned_chain(key, "fused_hopper")
+
+
+def test_graph_step_equals_eager_evaluate_on_card(cuda_device):
+    from repro_torch.serve.engine import EquivariantServeEngine
+
+    model = _graph_model(cuda_device)
+    eng = EquivariantServeEngine(model, buckets=[(8, 2), (16, 2)], warmup=True)
+    for pool, sizes in zip(eng.pools, ([5, 8], [12, 16])):
+        for r in _graph_requests(sizes, seed=len(sizes) + sizes[0]):
+            assert pool.admit(r)
+        pool.stage()
+        e, f = (t.clone() for t in pool.step_staged())
+        e0, f0 = pool.evaluate(pool.species, pool.pos, pool.mask)
+        torch.cuda.synchronize()
+        de = (e - e0).abs().max().item()
+        df = (f - f0).abs().max().item()
+        print(f"bucket {pool.spec.label()}: graph vs eager max abs energy {de:.3e}, "
+              f"forces {df:.3e}")
+        assert pool.compiled() and pool.replays >= 2   # warmup, then this step
+        assert de <= 3e-4 * max(1.0, e0.abs().max().item())
+        assert df <= 3e-4 * max(1e-30, f0.abs().max().item())
+
+
+def test_graph_replay_counts_the_eager_launches_on_card(cuda_device):
+    from repro_torch.serve.pools import BucketSpec, SlotPool
+
+    model = _graph_model(cuda_device)
+    pool = SlotPool(model, BucketSpec(8, 2))
+    for r in _graph_requests([6, 8], seed=1):
+        assert pool.admit(r)
+    with _kernel_pick(model, pool):
+        reset_kernel_stats()
+        pool.evaluate(pool.species, pool.pos, pool.mask)
+        eager = kernel_stats()["gaunt_chain"]
+        assert eager == model.cfg.n_layers  # one forward launch a layer
+        pool.stage()
+        pool.step_staged()                  # warmup iterations, capture, replay
+        reset_kernel_stats()
+        for _ in range(3):
+            pool.step_staged()
+        torch.cuda.synchronize()
+    assert pool.launches == {"gaunt_chain": eager}
+    assert kernel_stats()["gaunt_chain"] == 3 * eager
+
+
+def test_bucket_without_traffic_never_captures_on_card(cuda_device):
+    from repro_torch.serve.engine import EquivariantServeEngine
+
+    model = _graph_model(cuda_device)
+    eng = EquivariantServeEngine(model, buckets=[(6, 2), (16, 2)])
+    small, large = eng.pools
+    out = eng.run(_graph_requests([3, 4, 5, 6], seed=2))
+    assert all(r.done and not r.rejected for r in out)
+    assert small.compiled() and small.graph_bytes is not None and small.replays > 0
+    assert not large.compiled() and large._graph is None and large.replays == 0
+
+
+def test_select_chain_raises_under_capture_on_card(cuda_device):
+    from repro_torch.core.engine import get_engine, plan_chain
+
+    runs = get_engine().timing_runs
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="not measured"):
+        with torch.cuda.graph(graph):
+            plan_chain((1, 1, 1), 1, tune="measure", batch_hint=3333, share_hint=(0, 0, 0),
+                       device=cuda_device)
+    assert get_engine().timing_runs == runs
+
+
+def test_graph_replay_after_stage_sees_new_positions_on_card(cuda_device):
+    from repro_torch.serve.pools import BucketSpec, SlotPool
+
+    model = _graph_model(cuda_device)
+    pool = SlotPool(model, BucketSpec(8, 2))
+    for r in _graph_requests([7, 8], seed=4):
+        assert pool.admit(r)
+    pool.warmup_compile()
+    e1 = pool.step_staged()[0].clone()
+    pool.pos[0, 0] += 0.3                   # a relaxation's write (not a translation)
+    pool._dirty = True
+    pool.stage()
+    e2, f2 = (t.clone() for t in pool.step_staged())
+    e0, f0 = pool.evaluate(pool.species, pool.pos, pool.mask)
+    torch.cuda.synchronize()
+    assert (e2[0] - e1[0]).abs().item() > 0          # slot 0 moved
+    assert (e2[1] - e1[1]).abs().item() == 0         # slot 1 did not
+    assert (e2 - e0).abs().max().item() <= 3e-4 * max(1.0, e0.abs().max().item())
+    assert (f2 - f0).abs().max().item() <= 3e-4 * max(1e-30, f0.abs().max().item())

@@ -36,6 +36,10 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.kernels.ref", "repro_torch.kernels.wkv6"} <= set(mods)
     assert {"repro_torch.configs.zamba2_2p7b", "repro_torch.kernels.mamba2",
             "repro_torch.models.attention", "repro_torch.models.flash"} <= set(mods)
+    assert {"repro_torch.serve.faults", "repro_torch.serve.scheduler",
+            "repro_torch.serve.metrics", "repro_torch.serve.pools",
+            "repro_torch.serve.replicas",
+            "repro_torch.distributed.fault_tolerance"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
