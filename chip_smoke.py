@@ -45,6 +45,22 @@ result line):
      failing every step and cordoned, its requests served by replica1
      (`[replicas]`: graph memory per replica, failovers, energies ==
      direct);
+  4a. autotune cache — the engine's measurements flushed to a cache file,
+     the engine cleared, and a fresh serve engine with
+     ``cfg.autotune_cache`` set to the file: zero timing runs in warmup,
+     every bucket's pick as measured, served == direct; a corrupt file and
+     the injected ``autotune_cache_load`` fault each measure cold, count
+     ``autotune_cache_load_failed`` and still serve (`[autotune]`);
+  4b. training — full-width `gaunt_mace_ff` (f32, measured chain, grid gate
+     on) trained by `train_loop` (AdamW + cosine, clip 10, checkpoints) for
+     24 steps on seeded LJ batches of 8 clusters of 16 atoms (8,192 chain
+     rows a layer): every loss printed, finite and falling, the measured
+     pick the kernel with one `gaunt_chain` launch a layer and step, the
+     loss and gradients of a kernel-pinned step against a tree-pinned one,
+     a run preempted at step 12 and resumed from its checkpoint against the
+     uninterrupted run, the trained model's rotation symmetry, 3 steps with
+     the chain at bf16 (`gaunt_chain_bf16`); the step time, peak memory,
+     each pinned candidate's step time and a profiled step (`[train]`);
   5. pairwise path — the pairwise tensor product `ops.gaunt_tp_fused` at
      (L1, L2, Lout) = (6, 6, 6) on 81,920 rows (EquiformerV2's OC20 width,
      lmax 6 x 128 channels, 640 nodes): the pair kernel launched, finite,
@@ -447,6 +463,27 @@ def fill_pool(pool, n_species, seed):
         check(pool.admit(r), f"no free slot in bucket {pool.spec.label()}")
 
 
+def served_vs_direct(model, reqs, device) -> tuple[float, float]:
+    """Each served request against a direct evaluation of its molecule alone
+    -> (worst energy error relative to max(1, |E|), worst force error
+    relative to max|F|); fails on a non-finite or misshapen result."""
+    import numpy as np
+    import torch
+
+    worst_e = worst_f = 0.0
+    for r in reqs:
+        check(np.isfinite(r.energy) and np.all(np.isfinite(r.forces)),
+              f"request {r.rid}: non-finite result")
+        check(r.forces.shape == (len(r.species), 3), f"request {r.rid}: forces shape")
+        e, f = model.energy_forces(torch.as_tensor(r.species, device=device),
+                                   torch.as_tensor(r.pos, device=device))
+        e, f = float(e), f.cpu().numpy()
+        worst_e = max(worst_e, abs(r.energy - e) / max(1.0, abs(e)))
+        worst_f = max(worst_f, float(np.abs(r.forces - f).max())
+                      / max(1e-30, float(np.abs(f).max())))
+    return worst_e, worst_f
+
+
 def phase_main_path(device, cfg, buckets, sizes):
     """The served force field at ``cfg`` through the bucketed engine (its
     compute_dtype sets the chain's storage, the kernel mode counted and the
@@ -507,18 +544,7 @@ def phase_main_path(device, cfg, buckets, sizes):
           f"(replays, launches): {per_bucket})")
     check(all(r.done and not r.rejected for r in reqs), "a request did not complete")
     check(summ["engine_timing_runs"] == ge.timing_runs, "timing runs are not surfaced")
-    # served == direct evaluation of each molecule alone
-    worst_e = worst_f = 0.0
-    for r in reqs:
-        check(np.isfinite(r.energy) and np.all(np.isfinite(r.forces)),
-              f"request {r.rid}: non-finite result")
-        check(r.forces.shape == (len(r.species), 3), f"request {r.rid}: forces shape")
-        e, f = model.energy_forces(torch.as_tensor(r.species, device=device),
-                                   torch.as_tensor(r.pos, device=device))
-        e, f = float(e), f.cpu().numpy()
-        worst_e = max(worst_e, abs(r.energy - e) / max(1.0, abs(e)))
-        worst_f = max(worst_f, float(np.abs(r.forces - f).max())
-                      / max(1e-30, float(np.abs(f).max())))
+    worst_e, worst_f = served_vs_direct(model, reqs, device)
     print(f"[{tag}] served vs direct: energy rel {worst_e:.3e} (tol {tol_id}), "
           f"forces rel {worst_f:.3e} (tol {tol_loose})")
     check(worst_e <= tol_id, "served energy differs from direct evaluation")
@@ -693,6 +719,329 @@ def phase_replicas(device, cfg, buckets):
 
 
 # --------------------------------------------------------------------------
+# the persistent autotune cache, and force-field training
+# --------------------------------------------------------------------------
+
+
+def _chain_keys(ge, cfg, buckets, device, dtype="float32"):
+    """Every chain key a warmup of ``buckets`` seeds at ``dtype``: per bucket
+    its step's rows, gated and ungated (grid_gate='on')."""
+    return [ge.chain_measure_key((cfg.L,) * cfg.nu, cfg.L, dtype,
+                                 spec.n_slots * spec.max_atoms * cfg.channels,
+                                 (0,) * cfg.nu, gate, device)
+            for spec in buckets for gate in (False, True)]
+
+
+def phase_autotune(device, cfg, buckets, sizes):
+    """The persistent autotune cache finishing serving: the engine's
+    measurements flushed to a file, the engine cleared, and a fresh serve
+    engine configured with that file warms up with zero timing runs, the
+    same pick in every bucket, and serves as direct evaluation does.  Then
+    a corrupt file, and the injected ``autotune_cache_load`` fault, each
+    measure cold, count their degradation and still serve."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.core import autotune_cache
+    from repro_torch.core import engine as _engine
+    from repro_torch.models.equivariant import MaceGaunt
+    from repro_torch.serve.engine import EquivariantServeEngine
+    from repro_torch.serve.faults import FaultPlan, injected
+
+    ge = _engine.get_engine()
+    keys = _chain_keys(ge, cfg, buckets, device)
+    first = {k: ge.measured_pick(k) for k in keys}
+    check(all(first.values()), f"a bucket's chain key was never measured: {first}")
+    fp = autotune_cache.fingerprint()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "autotune.json")
+        ge.set_autotune_cache(path)
+        ge.flush_autotune_cache()
+        with open(path) as f:
+            n_sel = len(json.load(f)["selections"])
+        print(f"[autotune] flushed {n_sel} measured selections to the cache file "
+              f"(fingerprint: torch {fp['torch_version']}, CUDA {fp['cuda_version']}, "
+              f"{fp['device_name']}, capability {fp['capability']}, "
+              f"{fp['device_count']} device(s))")
+        bad = os.path.join(tmp, "corrupt.json")
+        with open(bad, "w") as f:
+            f.write('{"fingerprint": {"schema": 1, "torch_ver')
+
+        def warm_serve(tag, cache, plan=None):
+            ge.clear()
+            model = MaceGaunt(dataclasses.replace(cfg, autotune_cache=cache), device=device,
+                              generator=torch.Generator().manual_seed(0))
+            eng = EquivariantServeEngine(model, buckets=buckets)
+            t0 = time.perf_counter()
+            if plan is None:
+                eng.warmup()
+            else:
+                with injected(plan):
+                    eng.warmup()
+            warm_s = time.perf_counter() - t0
+            picks = {k: ge.measured_pick(k) for k in keys}
+            reqs = make_requests(sizes, cfg.n_species, seed=1200)
+            eng.run(reqs)
+            check(all(r.done and not r.rejected for r in reqs),
+                  f"[autotune] {tag}: a request did not complete")
+            worst_e, worst_f = served_vs_direct(model, reqs, device)
+            failed = eng.metrics.counters["autotune_cache_load_failed"]
+            print(f"[autotune] {tag}: warmup {warm_s:.2f} s, {ge.timing_runs} timing runs, "
+                  f"autotune_cache_load_failed {failed}; picks "
+                  + ", ".join(f"{k[3]} rows gate={k[5]} {v}" for k, v in picks.items())
+                  + f"; served {len(reqs)} requests vs direct: energy rel {worst_e:.3e} "
+                  f"(tol {F32_IDENTITY_TOL}), forces rel {worst_f:.3e} (tol {F32_LOOSE_TOL})")
+            check(worst_e <= F32_IDENTITY_TOL and worst_f <= F32_LOOSE_TOL,
+                  f"[autotune] {tag}: served results differ from direct evaluation")
+            return picks, failed
+
+        picks, failed = warm_serve("warm cache", path)
+        check(ge.timing_runs == 0, f"a warm cache still made {ge.timing_runs} timing runs")
+        check(picks == first, "a bucket's pick from the cache differs from the measured one")
+        check(failed == 0, "a usable cache counted a load failure")
+        for tag, cache, plan in (
+                ("corrupt cache file", bad, None),
+                ("injected autotune_cache_load fault", path,
+                 FaultPlan(seed=0, at={"autotune_cache_load": (0,)}))):
+            _, failed = warm_serve(tag, cache, plan)
+            check(ge.timing_runs > 0, f"[autotune] {tag}: warmup did not measure cold")
+            check(failed == 1, f"[autotune] {tag}: the degradation was not counted")
+        ge.set_autotune_cache(None)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+TRAIN_MOLECULES, TRAIN_ATOMS = 8, 16   # chain rows 8 x 16 x 64 = 8,192 a layer
+TRAIN_STEPS, TRAIN_STOP, TRAIN_LR, TRAIN_WARMUP = 24, 12, 2e-3, 3
+
+
+def _grad_err(got, want) -> float:
+    """Worst per-parameter gradient error, each relative to its reference's
+    largest element (floored at 1e-6 of the largest gradient overall)."""
+    top = max(float(w.abs().max()) for w in want)
+    return max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-6 * top, 1e-30)
+               for g, w in zip(got, want))
+
+
+def phase_train(device, cfg):
+    """Force-field training on the card: `train_loop` (AdamW + cosine, clip
+    10, checkpoints) for TRAIN_STEPS steps on seeded LJ batches of
+    TRAIN_MOLECULES clusters of TRAIN_ATOMS atoms, the loss's double backward
+    through the chain Function (its forward the kernel when the measured
+    pick is `fused_hopper`).  Checks: finite losses that fall, the pick, one
+    chain launch a layer and step, a kernel-pinned step against a
+    tree-pinned one, resume from a checkpoint against the uninterrupted
+    run, E(3) soundness of the trained model, and a few bf16 steps.
+    Prints the step time, a profiled step, peak memory and each pinned
+    candidate's step time."""
+    import os
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.core import engine as _engine
+    from repro_torch.examples.train_force_field import LJBatches
+    from repro_torch.kernels.gaunt_fused import kernel_stats, reset_kernel_stats
+    from repro_torch.models.equivariant import MaceGaunt
+    from repro_torch.train import make_train_step, train_loop
+
+    cuda = device.type == "cuda"
+    kernel = "fused_hopper" if cuda else "fused_torch"
+    ge = _engine.get_engine()
+    rows = TRAIN_MOLECULES * TRAIN_ATOMS * cfg.channels
+
+    def key_for(c):
+        return ge.chain_measure_key((c.L,) * c.nu, c.L, c.compute_dtype, rows,
+                                    (0,) * c.nu, True, device)
+
+    def measure(c):
+        _engine.plan_chain((c.L,) * c.nu, c.L, tune="measure", batch_hint=rows,
+                           share_hint=(0,) * c.nu, dtype=c.compute_dtype, gate=True,
+                           device=device)
+        return ge.measured_pick(key_for(c))
+
+    def new_model(c=cfg):
+        return MaceGaunt(c, device=device, generator=torch.Generator().manual_seed(0))
+
+    def new_data():
+        return LJBatches(n=TRAIN_MOLECULES, batch=TRAIN_MOLECULES, seed=0, n_atoms=TRAIN_ATOMS)
+
+    def loss_fn(m, b):
+        return m.loss(b), {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    key = key_for(cfg)
+    pick = measure(cfg)
+    fwd = ge.measured_times.get(key, {})
+    print(f"[train] {cfg.name} L={cfg.L} L_edge={cfg.L_edge} channels={cfg.channels} "
+          f"layers={cfg.n_layers} nu={cfg.nu} grid_gate={cfg.grid_gate}, "
+          f"{sum(p.numel() for p in new_model().parameters()):,} parameters; batches of "
+          f"{TRAIN_MOLECULES} LJ clusters of {TRAIN_ATOMS} atoms (chain rows {key[3]} a "
+          f"layer); measured chain pick {pick} (forward only"
+          + "".join(f", {k} {v * 1e3:.4f} ms" for k, v in fwd.items()) + ")")
+    check(pick == kernel, f"the measured pick at the training key is {pick!r}, not {kernel}")
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS,
+                       checkpoint_every=8, log_every=1, grad_clip=10.0)
+    if cuda:
+        print(f"[train] card: {smi_line()}")
+    print(f"[train] AdamW + cosine (lr {TRAIN_LR}, warmup {TRAIN_WARMUP}, "
+          f"{TRAIN_STEPS} steps, clip 10, weight decay {tcfg.weight_decay}), checkpoints "
+          f"every {tcfg.checkpoint_every} steps")
+    with tempfile.TemporaryDirectory() as tmp:
+        # the uninterrupted run
+        marks = []
+
+        def log(m):
+            marks.append(time.perf_counter())
+            print(f"[train] step {m['step']:3d} loss {m['loss']:.6f} "
+                  f"grad_norm {m['grad_norm']:.5f}")
+
+        model = new_model()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        reset_kernel_stats()
+        t0 = time.perf_counter()
+        state, hist = train_loop(loss_fn, model, new_data(), tcfg,
+                                 ckpt_dir=os.path.join(tmp, "run"), hooks={"log": log})
+        sync()
+        wall = time.perf_counter() - t0
+        launches = kernel_stats()["gaunt_chain"]
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        losses = [h["loss"] for h in hist]
+        check(len(hist) == TRAIN_STEPS and all(np.isfinite(h["loss"]) and
+                                               np.isfinite(h["grad_norm"]) for h in hist),
+              "a training loss or gradient norm is not finite")
+        check(losses[-1] < losses[0] and np.mean(losses[-5:]) < np.mean(losses[:5]),
+              f"the loss did not fall: {losses}")
+        step_ms = np.diff([t0] + marks) * 1e3
+        med = float(np.median(step_ms[3:]))
+        print(f"[train] {TRAIN_STEPS} steps in {wall:.2f} s: loss {losses[0]:.5f} -> "
+              f"{losses[-1]:.5f}; step time {med:.2f} ms (host clock, median of steps "
+              f"4-{TRAIN_STEPS}; each step ends in the logged loss's host read), first "
+              f"step {step_ms[0]:.1f} ms; gaunt_chain launches {launches} "
+              f"(expected {cfg.n_layers} x {TRAIN_STEPS}); peak memory "
+              + (f"{peak / 2**20:.1f} MiB (max_memory_allocated), {held / 2**20:.1f} MiB of "
+                 f"it held before the run, the run's own {(peak - held) / 2**20:.1f} MiB"
+                 if cuda else "not measured"))
+        if cuda:
+            check(launches == cfg.n_layers * TRAIN_STEPS,
+                  f"gaunt_chain launched {launches} times in {TRAIN_STEPS} steps, not "
+                  f"{cfg.n_layers} a step")
+
+        # stop at TRAIN_STOP (preempted: a blocking checkpoint), resume to the end
+        def preempt(m):
+            if m["step"] == TRAIN_STOP:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        ck = os.path.join(tmp, "resume")
+        stopped, _ = train_loop(loss_fn, new_model(), new_data(), tcfg, ckpt_dir=ck,
+                                hooks={"log": preempt})
+        check(stopped.step == TRAIN_STOP, f"the preempted run stopped at {stopped.step}")
+        it = new_data()
+        resumed, hist2 = train_loop(loss_fn, new_model(), it, tcfg, ckpt_dir=ck)
+        worst = max(rel_err(a.detach(), b.detach())[1]
+                    for a, b in zip(resumed.model.parameters(), state.model.parameters()))
+        print(f"[train] stopped at step {TRAIN_STOP} (SIGTERM: blocking checkpoint), "
+              f"resumed to {resumed.step}: parameters vs the uninterrupted run rel "
+              f"{worst:.3e} (tol {F32_IDENTITY_TOL}); data iterator at step {it.step}, "
+              f"first resumed step {hist2[0]['step']}")
+        check(resumed.step == TRAIN_STEPS and hist2[0]["step"] == TRAIN_STOP + 1
+              and it.step == TRAIN_STEPS, "the data iterator replayed instead of resuming")
+        check(worst <= F32_IDENTITY_TOL, "the resumed run differs from the uninterrupted one")
+
+    # E(3): the trained model's energy is invariant, its forces equivariant
+    d = new_data().data
+    sp = torch.as_tensor(d["species"][0], device=device)
+    pos = d["pos"][0]
+    Q = random_rotation(11)
+    e0, f0 = state.model.energy_forces(sp, torch.as_tensor(pos, device=device))
+    e1, f1 = state.model.energy_forces(sp, torch.as_tensor((pos @ Q.T).astype(np.float32),
+                                                           device=device))
+    f0, f1 = f0.cpu().numpy(), f1.cpu().numpy()
+    de = abs(float(e1) - float(e0)) / max(1.0, abs(float(e0)))
+    df = float(np.abs(f1 - f0 @ Q.T).max()) / max(1e-30, float(np.abs(f0).max()))
+    print(f"[train] trained model under rotation: energy rel {de:.3e}, forces rel {df:.3e} "
+          f"(tol {F32_TRANSFORM_TOL})")
+    check(de <= F32_TRANSFORM_TOL and df <= F32_TRANSFORM_TOL,
+          "the trained model is not rotation invariant/equivariant")
+
+    # the two chain candidates from the same parameters and batch
+    batch = {k: torch.as_tensor(v, device=device) for k, v in new_data().next_batch().items()}
+    model = new_model()
+    params = list(model.parameters())
+    out = {}
+    for backend in ("tree", kernel):
+        with ge.pinned_chain(key, backend):
+            loss = model.loss(batch)
+            grads = torch.autograd.grad(loss, params)
+            out[backend] = (float(loss.detach()), grads)
+    (lt, gt), (lk, gk) = out["tree"], out[kernel]
+    dl = abs(lk - lt) / max(1.0, abs(lt))
+    dg = _grad_err(gk, gt)
+    print(f"[train] one step's loss and gradients, kernel vs tree pinned: loss rel {dl:.3e} "
+          f"(tol {F32_IDENTITY_TOL}), worst parameter gradient rel {dg:.3e} "
+          f"(tol {F32_LOOSE_TOL}, scale-relative)")
+    check(dl <= F32_IDENTITY_TOL and dg <= F32_LOOSE_TOL,
+          "the kernel-pinned step differs from the tree-pinned step")
+
+    # the training step with each candidate pinned, in turns
+    step_fn, opt = make_train_step(loss_fn, tcfg)
+    opt_state = opt.init(dict(model.named_parameters()))
+    times = {"tree": [], kernel: []}
+    for r in range(8):
+        for backend in (("tree", kernel) if r % 2 == 0 else (kernel, "tree")):
+            with ge.pinned_chain(key, backend):
+                t1 = time.perf_counter()
+                opt_state, m = step_fn(model, opt_state, batch)
+                float(m["loss"])
+                times[backend].append((time.perf_counter() - t1) * 1e3)
+    tms = {k: float(np.median(v[1:])) for k, v in times.items()}
+    faster = min(tms, key=tms.get)
+    print(f"[train] training step with each chain candidate pinned (host clock, median of "
+          f"7 after one warm step, in turns): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in tms.items())
+          + f"; forward-only pick {pick}, faster training step {faster}: "
+          + ("same" if faster == pick else "DIFFERENT"))
+    if cuda:
+        profile_step("train step f32", lambda: None,
+                     lambda: (step_fn(model, opt_state, batch), torch.cuda.synchronize()))
+
+    # a few steps with the chain stored at bf16
+    cfg_bf = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    pick_bf = measure(cfg_bf)
+    check(pick_bf == kernel, f"the bf16 pick at the training key is {pick_bf!r}")
+    reset_kernel_stats()
+    _, hist_bf = train_loop(loss_fn, new_model(cfg_bf), new_data(),
+                            dataclasses.replace(tcfg, total_steps=3))
+    sync()
+    launches_bf = kernel_stats()["gaunt_chain_bf16"]
+    losses_bf = [h["loss"] for h in hist_bf]
+    dbf = abs(losses_bf[0] - losses[0]) / max(1.0, abs(losses[0]))
+    print(f"[train] bf16 chain: 3 steps, losses " + " ".join(f"{v:.5f}" for v in losses_bf)
+          + f"; first loss vs f32 rel {dbf:.3e} (tol {BF16_LOOSE_TOL}); gaunt_chain_bf16 "
+          f"launches {launches_bf}")
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist_bf),
+          "a bf16 training loss is not finite")
+    check(dbf <= BF16_LOOSE_TOL, "the bf16 first-step loss differs from the f32 one")
+    if cuda:
+        check(launches_bf == cfg.n_layers * 3, f"gaunt_chain_bf16 launched {launches_bf} "
+                                               f"times in 3 steps")
+    del state, resumed, stopped, model, opt_state
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches, med, peak, tms
+
+
+# --------------------------------------------------------------------------
 # phase 4: times
 # --------------------------------------------------------------------------
 
@@ -773,10 +1122,15 @@ def _device_us(e) -> float:
 
 def device_ms(fn, reps: int = 20):
     """GPU time per call from torch.profiler: the summed device time of the
-    kernels ``fn`` launches, over ``reps`` calls; None when the profiler
-    records no device time (then only the event times stand)."""
-    total = sum(_device_us(e) for e in _profiled_kernels(fn, reps))
-    return total / reps / 1e3 if total > 0 else None
+    kernels ``fn`` launches, over ``reps`` calls; None when two profiled
+    runs in a row record no device time (then only the event times
+    stand).  A profiled run now and then records none; the second is a
+    retry."""
+    for _ in range(2):
+        total = sum(_device_us(e) for e in _profiled_kernels(fn, reps))
+        if total > 0:
+            return total / reps / 1e3
+    return None
 
 
 def phase_times(device, rows: int, Ls=(2, 2, 2), Lout: int = 2, dtype: str = "float32"):
@@ -1951,6 +2305,8 @@ def main() -> int:
         del model, model_bf16, eng, eng_bf16
         gc.collect()
         torch.cuda.empty_cache()
+        phase_autotune(device, cfg, buckets, sizes)
+        phase_train(device, cfg)
         pair_launches, (x1, x2) = phase_pair_main(device, pair_rows)
         (pair_ms, pair_plain_ms, pair_bound_ms, pair_bound_by,
          pair_library_ms) = phase_pair_times(device, x1, x2)

@@ -3,17 +3,18 @@ model build.  Architecture configs live in `repro_torch.configs.<id>` and
 register themselves.
 
 A copy of the reference's ``repro.config`` (``ModelConfig``, ``ShapeConfig``,
-``SHAPES``, the registry) that keeps every field, so a test can compare
-``dataclasses.asdict`` field by field.  The port does not read
-``use_pallas``: on CUDA the WKV scan always runs on the Hopper kernel.
+``SHAPES``, ``TrainConfig``, the registry) that keeps every field, so a
+test can compare ``dataclasses.asdict`` field by field.  The port does not
+read ``use_pallas``: on CUDA the WKV scan always runs on the Hopper kernel,
+nor ``TrainConfig.grad_compression`` (sharded training is not ported).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-__all__ = ["ModelConfig", "ShapeConfig", "register", "get_config", "list_configs",
-           "SHAPES"]
+__all__ = ["ModelConfig", "ShapeConfig", "TrainConfig", "register", "get_config",
+           "list_configs", "SHAPES"]
 
 
 @dataclasses.dataclass
@@ -121,6 +122,25 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    schedule: str = "cosine"
+    microbatch: int = 0  # 0 = no accumulation
+    seed: int = 0
+    checkpoint_every: int = 200
+    keep_checkpoints: int = 3
+    grad_compression: str = "none"  # none | int8_ef (pod axis)
+    log_every: int = 10
 
 
 _REGISTRY: dict[str, ModelConfig] = {}

@@ -1,8 +1,7 @@
 """The paper's force-field configuration: a Gaunt-accelerated MACE model.
 
 A copy of the reference ``repro.configs.gaunt_ff`` with the knobs the port
-honours.  Not carried over yet: ``shard_data`` and ``autotune_cache``
-(sharding and the persistent autotune cache are not ported).
+honours.  Not carried over yet: ``shard_data`` (sharding is not ported).
 """
 from __future__ import annotations
 
@@ -45,6 +44,11 @@ class EquivariantConfig:
     # one bucket of the engine's max_atoms x n_slots); each bucket has its
     # own step — on CUDA its own captured graph — for its padded shape
     serve_buckets: tuple[tuple[int, int], ...] | None = None
+    # persistent autotune cache file (`core/autotune_cache.py`): serve
+    # warmup loads it first, so a warm host seeds every bucket's chain keys
+    # with zero timing runs.  None: $REPRO_TORCH_AUTOTUNE_CACHE, else off.
+    # Pre-populate with `python -m repro_torch.core.autotune_cache --cache <path>`.
+    autotune_cache: str | None = None
 
 
 gaunt_mace_ff = EquivariantConfig(

@@ -40,6 +40,10 @@ Storage dtypes: 'float32', 'bfloat16' and 'float64' (plain routes only),
 as in the reference.  A bf16 plan holds its operands and real constants at
 bf16 and sums in f32 (complex grids stay complex64); its output is bf16.
 
+Both measured selections persist through the per-host autotune cache
+(`core/autotune_cache.py`) when a cache path is configured: a warm process
+answers every measured key from the file with zero timing runs.
+
 Not ported yet: the manybody plan kind (the port's many-body route is
 ``plan_chain``), Fourier-boundary (``Rep``) operands of pairwise plans,
 ``plan_batch``, ``dtype='auto'``, and ``calibrate_fused``.
@@ -49,6 +53,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import os
 import time
 from typing import Callable
 
@@ -798,15 +803,103 @@ class GauntEngine:
     """Plans, caches and autotunes Gaunt ops: pairwise/conv_filter/
     channel_mix plans over the backend registry, and chain plans."""
 
-    def __init__(self):
+    def __init__(self, cache_path: str | None = None):
         self._plans: dict = {}
         self._chains: dict = {}
         # measured picks, keyed by PlanKey (plans) or the chain tuple
         self._measured: dict = {}
+        self._measured_t: dict = {}      # key -> the pick's median seconds
         self.measured_times: dict = {}   # key -> {backend: median seconds}
         self.measured_spread: dict = {}  # key -> {backend: (min, max) seconds}
         self.measure_errors: dict = {}   # PlanKey -> {backend: error} (non-kernel)
+        # chain keys pinned by `pinned_chain`: their pick is not a
+        # measurement, so a flush inside the block must not persist it
+        self._pins: set = set()
+        # persistent autotune cache (core/autotune_cache.py): off unless a
+        # path is set here, by set_autotune_cache, or by
+        # $REPRO_TORCH_AUTOTUNE_CACHE; loaded lazily at the first
+        # measure-mode miss
+        self._cache_path = cache_path
+        self._cache_loaded = False
+        # the last load found a file it could not use (corrupt, unreadable,
+        # another fingerprint) or was declared unusable: measurement is cold
+        self.cache_unusable = False
+        # timed measurement passes (plan backends, chain candidates); a
+        # process booted against a warm cache keeps it at 0
         self.timing_runs = 0
+
+    # -- persistent autotune cache -----------------------------------------
+
+    def set_autotune_cache(self, path: str | None) -> None:
+        """Point this engine at a persistent cache file (None: fall back to
+        $REPRO_TORCH_AUTOTUNE_CACHE, or disabled).  The next measure-mode
+        miss loads it; every new measurement flushes to it."""
+        self._cache_path = path
+        self._cache_loaded = False
+        self.cache_unusable = False
+
+    def cache_path(self) -> str | None:
+        """The effective cache path, or None when persistence is off."""
+        from . import autotune_cache as _ac
+
+        return _ac.resolve_path(self._cache_path)
+
+    def load_autotune_cache(self) -> int:
+        """Load the persisted selections, timings and calibration now
+        (in-process entries win over the file's) -> selections adopted."""
+        self._cache_loaded = True
+        self.cache_unusable = False
+        path = self.cache_path()
+        if path is None:
+            return 0
+        from . import autotune_cache as _ac
+
+        data = _ac.load(path)
+        if data is None:
+            self.cache_unusable = os.path.exists(path)
+            return 0
+        selections, timings, calib = data
+        n = 0
+        for k, b in selections.items():
+            if k not in self._measured:
+                self._measured[k] = b
+                n += 1
+        for k, t in timings.items():
+            self._measured_t.setdefault(k, t)
+        _ac.merge_calibration(calib)
+        return n
+
+    def _maybe_load_cache(self) -> None:
+        if not self._cache_loaded:
+            self.load_autotune_cache()
+
+    def skip_autotune_cache(self) -> None:
+        """Treat the cache as unreadable until the next `set_autotune_cache`
+        or `clear`: nothing is loaded, so every miss measures cold (the
+        serve engine's response to the ``autotune_cache_load`` fault)."""
+        self._cache_loaded = True
+        self.cache_unusable = True
+
+    def flush_autotune_cache(self) -> str | None:
+        """Persist the measurement stores (atomic, merging); pinned picks
+        are left out.  No-op without a cache path -> the path written."""
+        path = self.cache_path()
+        if path is None:
+            return None
+        from . import autotune_cache as _ac
+
+        sel = {k: v for k, v in self._measured.items() if k not in self._pins}
+        _ac.save(path, sel, {k: t for k, t in self._measured_t.items() if k in sel},
+                 calibration=get_calibration())
+        return path
+
+    def _autoflush(self) -> None:
+        """Flush after a new measurement: an unwritable cache file degrades
+        to in-process autotune, never breaks planning."""
+        try:
+            self.flush_autotune_cache()
+        except OSError:
+            pass
 
     # -- pairwise plans ----------------------------------------------------
 
@@ -872,6 +965,7 @@ class GauntEngine:
         if not eligible:
             raise ValueError(f"no eligible backend for {key}")
         if tune == "measure":
+            self._maybe_load_cache()
             hit = self._measured.get(key)
             # a pick measured under requires_grad=False may be gradless
             if hit is not None and any(b.name == hit for b in eligible):
@@ -879,6 +973,8 @@ class GauntEngine:
             name = self._measure(key, eligible)
             if name is not None:
                 self._measured[key] = name
+                self._measured_t[key] = self.measured_times[key][name]
+                self._autoflush()
                 return name
         return min(eligible, key=lambda b: b.cost(key)).name
 
@@ -930,10 +1026,14 @@ class GauntEngine:
         self._plans.clear()
         self._chains.clear()
         self._measured.clear()
+        self._measured_t.clear()
         self.measured_times.clear()
         self.measured_spread.clear()
         self.measure_errors.clear()
         reset_calibration()
+        # a cleared engine loads its persistent cache again at the next miss
+        self._cache_loaded = False
+        self.cache_unusable = False
         self.timing_runs = 0
 
     # -- chain plans -------------------------------------------------------
@@ -1008,9 +1108,11 @@ class GauntEngine:
         absence, is back when the block ends, however it ends."""
         had, old = key in self._measured, self._measured.get(key)
         self._measured[key] = backend
+        self._pins.add(key)
         try:
             yield
         finally:
+            self._pins.discard(key)
             if had:
                 self._measured[key] = old
             else:
@@ -1018,6 +1120,8 @@ class GauntEngine:
 
     def _select_chain(self, Ls, Lout, dts, batch_hint, share_hint, gate, device) -> str:
         key = self.chain_measure_key(Ls, Lout, dts, batch_hint, share_hint, gate, device)
+        # reading the persisted table is host work, safe during a capture
+        self._maybe_load_cache()
         hit = self._measured.get(key)
         if hit is not None:
             return hit
@@ -1055,8 +1159,10 @@ class GauntEngine:
                 spread[name] = (min(ts), max(ts))
         best = min(times, key=times.get)
         self._measured[key] = best
+        self._measured_t[key] = times[best]
         self.measured_times[key] = times
         self.measured_spread[key] = spread
+        self._autoflush()
         return best
 
 

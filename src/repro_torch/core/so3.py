@@ -45,6 +45,7 @@ __all__ = [
     "wigner_d_complex",
     "wigner_D_real",
     "wigner_D_real_packed",
+    "rotation_matrix_zyz",
 ]
 
 
@@ -430,3 +431,19 @@ def wigner_D_real_packed(L: int, alpha: float, beta: float, gamma: float) -> np.
         sl = slice(l * l, (l + 1) * (l + 1))
         out[sl, sl] = wigner_D_real(l, alpha, beta, gamma)
     return out
+
+
+def rotation_matrix_zyz(alpha: float, beta: float, gamma: float) -> np.ndarray:
+    """R = Rz(alpha) Ry(beta) Rz(gamma) acting on column vectors."""
+
+    def rz(a):
+        return np.array(
+            [[math.cos(a), -math.sin(a), 0], [math.sin(a), math.cos(a), 0], [0, 0, 1]]
+        )
+
+    def ry(a):
+        return np.array(
+            [[math.cos(a), 0, math.sin(a)], [0, 1, 0], [-math.sin(a), 0, math.cos(a)]]
+        )
+
+    return rz(alpha) @ ry(beta) @ rz(gamma)

@@ -1,2 +1,2 @@
 """Distribution plumbing of the port: so far the fault-tolerance helpers
-that serving uses (`fault_tolerance`)."""
+that serving and the training loop use (`fault_tolerance`)."""

@@ -1,22 +1,22 @@
-"""Fault-tolerance plumbing: heartbeat and straggler monitor.
+"""Fault-tolerance plumbing: heartbeat, preemption trap, straggler monitor.
 
-A copy of what serving needs of the reference's
-``repro.distributed.fault_tolerance`` (it imports no JAX, but the
-reference's package ``__init__`` does, so the port keeps its own):
-`serve/replicas.py` writes a `Heartbeat` file per replica and watches each
-replica's step times with a `StragglerMonitor`, and `serve/metrics.py` flags
-slow steps with one.  The reference's ``PreemptionGuard`` (a SIGTERM flag
-for the training loop) is left out until a module of the port, such as a
-training loop, needs it.
+A copy of the reference's ``repro.distributed.fault_tolerance`` (it imports
+no JAX, but the reference's package ``__init__`` does, so the port keeps
+its own): `serve/replicas.py` writes a `Heartbeat` file per replica and
+watches each replica's step times with a `StragglerMonitor`,
+`serve/metrics.py` flags slow steps with one, and `train/loop.py` beats a
+heartbeat, monitors its steps and checkpoints and stops when its
+`PreemptionGuard` catches SIGTERM.
 """
 from __future__ import annotations
 
 import json
 import os
+import signal
 import time
 from collections import deque
 
-__all__ = ["Heartbeat", "StragglerMonitor"]
+__all__ = ["Heartbeat", "PreemptionGuard", "StragglerMonitor"]
 
 
 class Heartbeat:
@@ -35,6 +35,30 @@ class Heartbeat:
                 json.dump({"step": step, "t": now, "pid": os.getpid()}, f)
             os.replace(tmp, self.path)
             self._last = now
+
+
+class PreemptionGuard:
+    """SIGTERM/SIGINT -> set flag; the train loop checkpoints and exits.
+    ``uninstall`` puts the handlers that were there before back (the
+    reference keeps its handler for the life of the process)."""
+
+    def __init__(self, signals=(signal.SIGTERM,)):
+        self.should_exit = False
+        self._signals = signals
+        self._previous: dict = {}
+
+    def install(self):
+        for s in self._signals:
+            self._previous[s] = signal.signal(s, self._handler)
+        return self
+
+    def uninstall(self) -> None:
+        for s, h in self._previous.items():
+            signal.signal(s, h)
+        self._previous.clear()
+
+    def _handler(self, signum, frame):
+        self.should_exit = True
 
 
 class StragglerMonitor:

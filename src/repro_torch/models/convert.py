@@ -1,5 +1,5 @@
 """Convert reference (JAX) parameters into the port's: MaceGaunt's state
-dict, and the language model's parameter tree.
+dict and its optimizer state, and the language model's parameter tree.
 
 ``jax.random`` and torch generators give different numbers from one seed,
 so parity runs convert the reference's ``init`` pytrees (as numpy
@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "lm_params_from_jax"]
+__all__ = ["params_from_jax", "opt_state_from_jax", "lm_params_from_jax"]
 
 
 def _t(a) -> torch.Tensor:
@@ -34,6 +34,16 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
         sd[p + "gate_w1"] = _t(lp["gate"]["w1"])
         sd[p + "gate_w2"] = _t(lp["gate"]["w2"])
     return sd
+
+
+def opt_state_from_jax(state: dict) -> dict:
+    """Reference optimizer state of a MaceGaunt ({mu, nu, step} of AdamW,
+    {mu, step} of Lion or SGD; numpy leaves) -> the port's optimizer state
+    (`repro_torch.optim`), each moment tree mapped as `params_from_jax`
+    maps the parameters."""
+    out = {k: params_from_jax(state[k]) for k in ("mu", "nu") if k in state}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32)
+    return out
 
 
 def _tree_t(tree, layer: int | None = None):

@@ -9,7 +9,8 @@ picks it), a second channel mix and the equivariant gate.
 cast, bf16 exit), as in the reference; the conv, the mixes and the gate
 stay f32, the mixes promoting the bf16 exit.  Energy is a sum
 of per-atom readouts of the invariant channels; forces are -dE/dpos by
-autograd.
+autograd, and the training loss (`MaceGaunt.loss`) differentiates them
+once more.
 
 Layouts match the reference: features x [..., n, C, (L+1)^2], positions
 [..., n, 3].  Every method also takes a leading batch of molecules
@@ -200,8 +201,24 @@ class MaceGaunt(nn.Module):
         return (self._atom_energies(species, pos) * mask).sum(-1)
 
     def energy_forces(self, species, pos):
-        """(energy, forces = -dE/dpos)."""
+        """(energy, forces = -dE/dpos), detached: the served evaluation."""
         pos = pos.detach().requires_grad_(True)
         e = self.energy(species, pos)
         (g,) = torch.autograd.grad(e.sum(), pos)
         return e.detach(), -g
+
+    def loss(self, batch: dict, w_e: float = 1.0, w_f: float = 10.0) -> torch.Tensor:
+        """Energy + force matching loss over a batch of molecules: species
+        [S, n], pos [S, n, 3], energy [S], forces [S, n, 3] ->
+        mean_S( w_e (E - E_ref)^2 + w_f mean((F - F_ref)^2) ).
+
+        One pass over the stacked batch (the molecules never interact, so
+        this equals the reference's vmap over molecules).  The forces keep
+        their graph (``create_graph=True``), so ``loss.backward()`` reaches
+        the parameters through the second derivative."""
+        pos = batch["pos"].detach().requires_grad_(True)
+        e = self.energy(batch["species"], pos)
+        (g,) = torch.autograd.grad(e.sum(), pos, create_graph=True)
+        de = (e - batch["energy"]) ** 2
+        df = ((-g - batch["forces"]) ** 2).mean(dim=(-2, -1))
+        return (w_e * de + w_f * df).mean()

@@ -17,10 +17,12 @@ requests over size-bucketed slot pools, after the reference's
   `serve/faults.py` (injection) and the pools' recovery, and
   `serve/replicas.py` puts several engines behind one scheduler.
 
-``warmup()`` seeds every bucket's measured chain keys and builds (on CUDA:
-captures) every bucket's step on ghost-only slots, so the first real
-request pays serving cost only.  The model is an ``nn.Module`` that holds
-its parameters, so the constructor takes no ``params``.
+``warmup()`` loads the persistent autotune cache (``cfg.autotune_cache``),
+seeds every bucket's measured chain keys and builds (on CUDA: captures)
+every bucket's step on ghost-only slots, so the first real request pays
+serving cost only; on a warm host it makes no timing run.  The model is an
+``nn.Module`` that holds its parameters, so the constructor takes no
+``params``.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import numpy as np
 
 from ..core import engine as _engine
 from ..models.equivariant import _resolve_grid_gate
+from . import faults
 from .metrics import ServeMetrics
 from .pools import BucketedPools, BucketSpec
 from .scheduler import REASON_INVALID, REASON_TOO_LARGE, Scheduler
@@ -108,8 +111,16 @@ class EquivariantServeEngine:
 
     # ------------------------------------------------------------- warmup
     def warmup(self) -> None:
-        """Seed every bucket's measured chain keys, then build every
-        bucket's step on ghost-only slots.
+        """Load the persistent autotune cache, seed every bucket's measured
+        chain keys, then build every bucket's step on ghost-only slots.
+
+        The cache (``cfg.autotune_cache``, else $REPRO_TORCH_AUTOTUNE_CACHE,
+        `core/autotune_cache.py`) is loaded first: on a warm host every
+        bucket's keys hit the persisted table and warmup makes zero timing
+        runs.  A cache file that cannot be used (corrupt, unreadable, from
+        another host; or the ``autotune_cache_load`` fault point) is counted
+        in ``autotune_cache_load_failed`` and degrades to cold measurement:
+        serving still comes up.
 
         With ``chain_tune='measure'`` each layer's many-body chain picks its
         backend by timing the candidates at the call's row count, which
@@ -122,6 +133,16 @@ class EquivariantServeEngine:
         captured — with up to three attempts, so a transient failure
         (injected ``compile_fail`` or real) does not keep a host down."""
         cfg = self.model.cfg
+        eng = _engine.get_engine()
+        if cfg.autotune_cache is not None:
+            eng.set_autotune_cache(cfg.autotune_cache)
+        if faults._ACTIVE is not None and faults.fire(
+                "autotune_cache_load", tag=self.tag) is not None:
+            eng.skip_autotune_cache()
+        else:
+            eng._maybe_load_cache()
+        if eng.cache_unusable:
+            self.metrics.counters["autotune_cache_load_failed"] += 1
         if cfg.chain_tune == "measure":
             gate_opts = (False, True) if _resolve_grid_gate(cfg) else (False,)
             for pool in self.pools:

@@ -27,8 +27,8 @@ Injection points (`POINTS`):
 - ``compile_fail``   — a bucket's warmup compile raises (transient; the
   engine's warmup retries);
 - ``autotune_cache_load`` — the persistent autotune cache is unreadable at
-  warmup (the engine falls back to cold measurement, serving still works).
-  The port has no persistent autotune cache yet, so nothing fires it.
+  warmup (`EquivariantServeEngine.warmup` counts it and falls back to cold
+  measurement; serving still works).
 
 Zero overhead when no plan is installed: call sites guard on the
 module-level ``_ACTIVE is None`` check (one attribute load per step), and

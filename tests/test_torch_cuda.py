@@ -1,6 +1,8 @@
 """The Hopper chain, pair, WKV6 and Mamba-2 SSD kernels on the card against
-their plain versions (the chain and pair kernels at f32 and bf16 storage).
-Marked
+their plain versions (the chain and pair kernels at f32 and bf16 storage),
+the served step as a CUDA graph, and the training path on the card (a step
+on the chain kernel against one on the tree, a checkpoint restored onto the
+CPU, a warm autotune cache).  Marked
 ``cuda``: these skip without an sm_90 GPU (run them on the card with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``)."""
 import importlib.util
@@ -478,3 +480,93 @@ def test_graph_replay_after_stage_sees_new_positions_on_card(cuda_device):
     assert (e2[1] - e1[1]).abs().item() == 0         # slot 1 did not
     assert (e2 - e0).abs().max().item() <= 3e-4 * max(1.0, e0.abs().max().item())
     assert (f2 - f0).abs().max().item() <= 3e-4 * max(1e-30, f0.abs().max().item())
+
+
+# --------------------------------------------------------------------------
+# training on the card (train/loop.py, checkpoint/, core/autotune_cache.py)
+# --------------------------------------------------------------------------
+
+def _train_batch(cuda_device, n_mol=2, n_atoms=8):
+    from repro_torch.data import lj_dataset
+
+    d = lj_dataset(n_mol, n_atoms=n_atoms, n_species=4, seed=5)
+    return {k: torch.as_tensor(v, device=cuda_device) for k, v in d.items()}
+
+
+def test_train_step_kernel_matches_tree_on_card(cuda_device):
+    """One training step (loss, double backward, clip, AdamW) with the chain
+    pinned to the kernel and one pinned to the tree, from the same
+    parameters and batch: the loss at 3e-4, every gradient at 2e-3
+    (scale-relative), one `gaunt_chain` launch a layer."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.core.engine import get_engine
+    from repro_torch.train import make_train_step
+
+    batch = _train_batch(cuda_device)
+    c = _graph_model(cuda_device).cfg
+    rows = batch["pos"].shape[0] * batch["pos"].shape[1] * c.channels
+    key = get_engine().chain_measure_key((c.L,) * c.nu, c.L, c.compute_dtype, rows,
+                                         (0,) * c.nu, True, cuda_device)
+    out = {}
+    for backend in ("tree", "fused_hopper"):
+        model = _graph_model(cuda_device)
+        step, opt = make_train_step(lambda m, b: (m.loss(b), {}),
+                                    TrainConfig(lr=1e-3, warmup_steps=1, total_steps=4))
+        params = dict(model.named_parameters())
+        with get_engine().pinned_chain(key, backend):
+            reset_kernel_stats()
+            loss = model.loss(batch)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            launches = kernel_stats()["gaunt_chain"]
+            _, m = step(model, opt.init(params), batch)
+        torch.cuda.synchronize()
+        out[backend] = (loss.item(), [g.detach() for g in grads], launches, m)
+    (lt, gt, nt, _), (lk, gk, nk, mk) = out["tree"], out["fused_hopper"]
+    assert nt == 0 and nk == c.n_layers
+    assert abs(lk - lt) <= 3e-4 * max(1.0, abs(lt))
+    # per parameter, relative to its largest element; a leaf whose gradient
+    # is zero up to rounding (~1e-12 here) at f32 rounding of the largest
+    top = max(b.abs().max().item() for b in gt)
+    for a, b in zip(gk, gt):
+        scale = max(b.abs().max().item(), 1e-6 * top)
+        assert (a - b).abs().max().item() <= 2e-3 * scale
+    assert torch.isfinite(mk["loss"]) and torch.isfinite(mk["grad_norm"])
+
+
+def test_checkpoint_saved_on_card_restores_on_cpu(cuda_device, tmp_path):
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim import adamw, constant_schedule
+
+    model = _graph_model(cuda_device)
+    opt_state = adamw(constant_schedule(1e-3)).init(dict(model.named_parameters()))
+    opt_state["mu"]["species"].normal_()
+    tree = {"model": model.state_dict(), "opt": opt_state}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, tree)
+    mgr.wait()
+    cpu_target = {"model": {k: v.cpu() for k, v in tree["model"].items()},
+                  "opt": {"mu": {k: v.cpu() for k, v in opt_state["mu"].items()},
+                          "nu": {k: v.cpu() for k, v in opt_state["nu"].items()},
+                          "step": opt_state["step"]}}
+    restored, _ = mgr.restore(1, cpu_target, device="cpu")
+    for k, v in tree["model"].items():
+        assert restored["model"][k].device.type == "cpu"
+        assert torch.equal(restored["model"][k], v.cpu())
+    assert torch.equal(restored["opt"]["mu"]["species"], opt_state["mu"]["species"].cpu())
+
+
+def test_warm_autotune_cache_zero_timing_runs_on_card(cuda_device, tmp_path):
+    from repro_torch.core import autotune_cache
+    from repro_torch.core.engine import GauntEngine
+
+    path = str(tmp_path / "cache.json")
+    cold = GauntEngine(cache_path=path)
+    kw = dict(tune="measure", batch_hint=8192, share_hint=(0, 0, 0), gate=True,
+              device=cuda_device)
+    pick = cold.plan_chain((2, 2, 2), 2, **kw).backend
+    assert cold.timing_runs == 1
+    fp = autotune_cache.fingerprint()
+    assert fp["device_type"] == "cuda" and fp["capability"] == [9, 0]
+    warm = GauntEngine(cache_path=path)
+    assert warm.plan_chain((2, 2, 2), 2, **kw).backend == pick
+    assert warm.timing_runs == 0

@@ -40,6 +40,10 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.serve.metrics", "repro_torch.serve.pools",
             "repro_torch.serve.replicas",
             "repro_torch.distributed.fault_tolerance"} <= set(mods)
+    assert {"repro_torch.core.autotune_cache", "repro_torch.optim.optimizers",
+            "repro_torch.optim.schedules", "repro_torch.checkpoint.manager",
+            "repro_torch.train.loop", "repro_torch.data.pipeline", "repro_torch.data.nbody",
+            "repro_torch.examples.train_force_field"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -103,6 +107,22 @@ def test_pair_kernel_wrapper_runs_plain_version_only_for_cpu_tensors():
         gaunt_fused_hopper(x.to("meta").requires_grad_(True), x.to("meta"), 2, 2)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA device"):
         gaunt_fused_hopper(x.to("meta").requires_grad_(True), x.to("meta"), 2, 2)
+
+
+def test_training_entry_points_default_to_cuda(tmp_path):
+    """The training example and the autotune CLI run on the card unless
+    asked for the CPU; the train loop runs where the model's parameters
+    are (`MaceGaunt` defaults to CUDA, above)."""
+    from repro_torch.core import autotune_cache
+    from repro_torch.examples import train_force_field
+
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_force_field.main(["--steps", "0", "--ckpt", str(tmp_path / "ck")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        autotune_cache.main(["--cache", str(tmp_path / "at.json")])
+    assert not os.path.exists(tmp_path / "at.json")
 
 
 @pytest.mark.parametrize("name", ["rwkv6-3b", "zamba2-2.7b"])

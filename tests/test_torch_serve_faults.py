@@ -4,8 +4,9 @@ schedule as the reference's for one seed), step-level recovery (idempotent
 retries, structured rejection past the budget), non-finite quarantine that
 spares bucket-mates, bisection of a batch that fails as a whole, the real
 watchdog, warmup-time compile faults, the straggler cap, and replica
-failover that keeps (priority, FIFO) order.  The reference tests that need
-the persistent autotune cache wait for its port."""
+failover that keeps (priority, FIFO) order; an unreadable autotune cache
+degrades to cold measurement, and failover on a warm cache makes no timing
+run."""
 import dataclasses
 import json
 import time
@@ -18,6 +19,7 @@ from repro.configs.gaunt_ff import gaunt_mace_ff as ref_cfg
 from repro.models.equivariant import MaceGaunt as RefMace
 from repro.serve import faults as ref_faults
 from repro_torch.configs.gaunt_ff import gaunt_mace_ff
+from repro_torch.core import engine as _engine
 from repro_torch.distributed.fault_tolerance import StragglerMonitor
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.equivariant import MaceGaunt
@@ -264,6 +266,38 @@ def test_compile_fail_persistent_raises(small_model):
     assert not eng.pools.pools[0].compiled()
 
 
+def test_autotune_cache_unreadable_degrades(small_model):
+    """An unreadable persistent autotune cache at warmup is survivable: the
+    engine counts the degradation and still serves correctly."""
+    eng = EquivariantServeEngine(small_model, buckets=[(6, 1)])
+    with injected(FaultPlan(seed=0, at={"autotune_cache_load": (0,)})):
+        eng.warmup()
+    assert eng.metrics.counters["autotune_cache_load_failed"] == 1
+    out = eng.run(_reqs(1))[0]
+    assert out.done and not out.rejected
+
+
+def test_corrupt_autotune_cache_degrades(small_model, tmp_path):
+    """A corrupt cache file named by the config is counted like the
+    injected fault, and the engine measures cold and serves."""
+    path = tmp_path / "cache.json"
+    path.write_text("{truncated")
+    model = MaceGaunt(dataclasses.replace(small_model.cfg, chain_tune="measure",
+                                          autotune_cache=str(path)), device="cpu")
+    model.load_state_dict(small_model.state_dict())
+    eng = EquivariantServeEngine(model, buckets=[(6, 1)])
+    _engine.get_engine().clear()  # nothing measured in process: a cold host
+    try:
+        eng.warmup()
+        assert eng.metrics.counters["autotune_cache_load_failed"] == 1
+        assert _engine.get_engine().timing_runs > 0
+        out = eng.run(_reqs(1))[0]
+        assert out.done and not out.rejected
+        assert json.loads(path.read_text())["selections"]  # repaired by the flush
+    finally:
+        _engine.get_engine().set_autotune_cache(None)
+
+
 # ---------------------------------------------------------------------------
 # straggler monitor
 # ---------------------------------------------------------------------------
@@ -367,3 +401,67 @@ def test_each_replica_builds_its_own_steps(small_model):
     out = rset.run(_reqs(4))
     assert all(r.done and not r.rejected for r in out)
     assert all(p.steps_run > 0 for p in pools)
+
+
+# ---------------------------------------------------------------------------
+# acceptance: failover in a subprocess on a warm autotune cache
+# ---------------------------------------------------------------------------
+
+_FAILOVER_CHILD = r"""
+import dataclasses, os
+import numpy as np
+import torch
+from repro_torch.configs.gaunt_ff import gaunt_mace_ff
+from repro_torch.models.equivariant import MaceGaunt
+from repro_torch.serve.engine import EquivariantRequest, EquivariantServeEngine
+from repro_torch.serve.faults import FaultPlan, injected
+from repro_torch.serve.replicas import ReplicaSet
+from repro_torch.core import engine as ce
+
+cfg = dataclasses.replace(gaunt_mace_ff, channels=4, n_layers=1, L=1, L_edge=1,
+                          n_species=4, chain_tune="measure",
+                          autotune_cache=os.environ["CACHE_PATH"])
+model = MaceGaunt(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+
+def factory(i, metrics):
+    eng = EquivariantServeEngine(model, buckets=[(6, 1)], metrics=metrics,
+                                 tag=f"replica{i}")
+    eng.warmup()
+    return eng
+
+rset = ReplicaSet(factory, n_replicas=2, max_fail_streak=2, restart_backoff_s=60.0)
+g = ce.get_engine()
+warm_runs = g.timing_runs
+rng = np.random.default_rng(0)
+reqs = [EquivariantRequest(species=rng.integers(0, 4, 3 + i % 3),
+                           pos=(rng.normal(size=(3 + i % 3, 3)) * 1.5).astype(np.float32),
+                           rid=i, steps=2, step_size=0.01, max_retries=10)
+        for i in range(4)]
+plan = FaultPlan(seed=0, rates={"step_raise": 1.0},
+                 scope=lambda ctx: ctx.get("tag") == "replica0")
+with injected(plan):
+    rset.run(reqs)
+assert all(r.done and not r.rejected for r in reqs), reqs
+m = rset.metrics.summary()
+assert m["failovers"] >= 1, m
+assert not rset.replicas[0].live, "the failing replica must be cordoned"
+g.flush_autotune_cache()
+print("RUNS=" + str(g.timing_runs))
+print("MIDSERVE=" + str(g.timing_runs - warm_runs))
+print("FAILOVER_OK")
+"""
+
+
+def test_failover_completes_on_survivor_with_warm_cache(tmp_path):
+    """In a fresh process one replica of a ReplicaSet fails every step, is
+    cordoned, and its requests complete on the survivor; in a second
+    process on the warm cache the whole run, warmup included, makes zero
+    timing runs, and neither process measures mid-serve."""
+    from test_torch_autotune_cache import run_twice
+
+    cold, warm = run_twice(_FAILOVER_CHILD, str(tmp_path / "failover_cache.json"),
+                           "FAILOVER_OK")
+    assert int(cold["RUNS"]) > 0, "the cold process should have measured"
+    assert int(cold["MIDSERVE"]) == 0 and int(warm["MIDSERVE"]) == 0, \
+        "failover recovery must never trigger mid-serve timing runs"
+    assert int(warm["RUNS"]) == 0, f"warm process ran {warm['RUNS']} timing passes"

@@ -5,7 +5,8 @@ invalid and an oversized request) completes in the same order with the same
 rejection reasons and the same numbers; bucket padding is inert; staged
 inputs are reused only while they are current; admissions stage early in
 the overlap window; per-bucket warmup seeds every key the step asks, so
-serving measures nothing; and the step body, the code each bucket's CUDA
+serving measures nothing, and on a warm autotune cache measures nothing
+itself; and the step body, the code each bucket's CUDA
 graph captures, never copies between host and device."""
 import dataclasses
 
@@ -322,3 +323,50 @@ def test_step_body_makes_no_host_round_trip(backend, compute_dtype, grid_gate):
         with _NoHostRoundTrip():
             e1, f1 = pool._forward(*pool._inputs)
     assert torch.equal(e0, e1) and torch.equal(f0, f1)
+
+
+_BUCKETED_CHILD = r"""
+import dataclasses, json, os
+import numpy as np
+import torch
+from repro_torch.configs.gaunt_ff import gaunt_mace_ff
+from repro_torch.models.equivariant import MaceGaunt
+from repro_torch.serve.engine import EquivariantRequest, EquivariantServeEngine
+from repro_torch.core import engine as ce
+
+cfg = dataclasses.replace(gaunt_mace_ff, channels=4, n_layers=1, L=1, L_edge=1,
+                          n_species=4, chain_tune="measure",
+                          autotune_cache=os.environ["CACHE_PATH"])
+model = MaceGaunt(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+# two buckets whose quantized chain rows differ (4*4=16 vs 12*4=48 rows), so
+# per-bucket warmup seeds two distinct measured chain keys
+eng = EquivariantServeEngine(model, buckets=[(4, 1), (12, 1)], warmup=True)
+rng = np.random.default_rng(0)
+reqs = [EquivariantRequest(species=rng.integers(0, 4, n),
+                           pos=(rng.normal(size=(n, 3)) * 1.5).astype(np.float32), rid=i)
+        for i, n in enumerate([3, 10])]          # one per bucket
+out = eng.run(reqs)
+assert all(r.done and not r.rejected for r in out)
+assert all(p.steps_run > 0 for p in eng.pools)
+g = ce.get_engine()
+g.flush_autotune_cache()
+print("RUNS=" + str(g.timing_runs))
+print("PICKS=" + json.dumps(sorted((repr(k), repr(v)) for k, v in g._measured.items())))
+print("NKEYS=" + str(len(g._measured)))
+print("SERVE_OK")
+"""
+
+
+def test_per_bucket_warmup_zero_timing_runs_on_warm_cache(tmp_path):
+    """A second process pointed at the populated autotune cache makes zero
+    timing runs through the bucketed warmup (every bucket's chain keys
+    answered from disk) and both buckets' first steps, and picks as the
+    cold process did."""
+    from test_torch_autotune_cache import run_twice
+
+    cold, warm = run_twice(_BUCKETED_CHILD, str(tmp_path / "bucketed_cache.json"),
+                           "SERVE_OK")
+    assert int(cold["RUNS"]) > 0, "the cold process should have measured"
+    assert int(cold["NKEYS"]) >= 2, "per-bucket warmup should seed several keys"
+    assert int(warm["RUNS"]) == 0, f"warm process ran {warm['RUNS']} timing passes"
+    assert warm["PICKS"] == cold["PICKS"]
