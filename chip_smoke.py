@@ -61,6 +61,20 @@ result line):
      uninterrupted run, the trained model's rotation symmetry, 3 steps with
      the chain at bf16 (`gaunt_chain_bf16`); the step time, peak memory,
      each pinned candidate's step time and a profiled step (`[train]`);
+  4c. the other equivariant models — `gaunt_segnn_nbody` at full width on
+     100 charged N-body systems (80,000 chain rows a layer, the resident
+     edge product measured with a Fourier entry): finite, equivariant,
+     kernel- vs tree-pinned forward and gradients, one `gaunt_chain` launch
+     a layer, the quadrature gate, 40 SGD steps on the kernel and 40 with
+     CG, a profiled step (`[segnn]`); `SelfmixLayer` at
+     `gaunt_equiformer_selfmix`'s width on 2,560 nodes (81,920 rows): the
+     measured shared-operand key, every route against the tree, one launch
+     a pinned call, times per route, bf16 and 'auto' (`[selfmix]`,
+     `[times] selfmix`); `plan_batch` buckets on the pair kernel (one launch
+     per bucket) and Fourier-boundary buckets (`[batched]`); the measured
+     gate policy at every serve bucket, `gaunt_mace_ff` with
+     grid_gate='auto' served == direct, and this run's autotune file
+     reloaded with zero timing runs (`[policies]`);
   5. pairwise path — the pairwise tensor product `ops.gaunt_tp_fused` at
      (L1, L2, Lout) = (6, 6, 6) on 81,920 rows (EquiformerV2's OC20 width,
      lmax 6 x 128 channels, 640 nodes): the pair kernel launched, finite,
@@ -332,13 +346,22 @@ CHAIN_CASES = [
     ((2, 1, 2), 3, ("sh", "grid", "sh"), "sh", 300, False),
     ((1, 2, 1, 2), 4, ("sh",) * 4, "sh", 129, True),
     ((1, 2, 1, 2), 6, ("sh", "sh", "grid", "sh"), "grid", 129, False),
+    # the other models' chains at their full-width rows: SEGNN's resident
+    # edge product (100 N-body systems x 5 x 5 pairs x 32 channels) and
+    # EquiformerV2's Selfmix (2,560 nodes x 32 channels; dsum 50, dout 25:
+    # the launch past 48 KB of shared memory)
+    ((1, 1), 1, ("sh", "grid"), "sh", 80000, False),
+    ((4, 4), 4, ("sh", "sh"), "sh", 81920, False),
 ]
+# the cases whose errors stand for the kernel's main paths in the record
+MAIN_CHAIN_ROWS = (80000, 81920)
 
 
 def phase_kernel_vs_plain(device, bucket_rows, dtype: str = "float32"):
     """Main-path chain (gated and ungated) at each bucket's rows
     (``bucket_rows``: the rows of every bucket's step), then the reference's
-    test chains with 'grid' entries and exits, at storage ``dtype``: f32
+    test chains with 'grid' entries and exits and the SEGNN and Selfmix
+    chains at their full-width rows, at storage ``dtype``: f32
     within the f32 tiers; bf16 (the kernel's bf16 mode) forward and f32
     gradients within `BF16_KERNEL_TOL`, bf16 gradients within one bf16 ulp.
     -> the largest main-path max abs error."""
@@ -361,13 +384,13 @@ def phase_kernel_vs_plain(device, bucket_rows, dtype: str = "float32"):
               f"B={B} gated={gated}: fwd max_abs_err {err:.3e} rel {rel:.3e} {tol} "
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"kernel disagrees with its plain version for Ls={Ls} B={B} at {dtype}")
-        if CHAIN_CASES[i][4] is None:
+        if CHAIN_CASES[i][4] is None or B in MAIN_CHAIN_ROWS:
             main_err = max(main_err, err)
     return main_err
 
 
 PAIR_CASES = [(1, 1, 2), (2, 2, 4), (3, 2, 3), (4, 4, 8), (6, 6, 6), (6, 6, 12),
-              (8, 8, 8), (8, 8, 16)]
+              (8, 8, 8), (8, 8, 16), (4, 4, 4)]   # (4, 4, 4): a `[batched]` bucket
 PAIR_MAIN = (6, 6, 6)
 
 
@@ -484,6 +507,15 @@ def served_vs_direct(model, reqs, device) -> tuple[float, float]:
     return worst_e, worst_f
 
 
+def _timing_share(ge, before: dict) -> str:
+    """Host seconds the engine spent timing each chain candidate since
+    ``before`` (a copy of `GauntEngine.chain_timing_s`)."""
+    spent = {k: v - before.get(k, 0.0) for k, v in ge.chain_timing_s.items()}
+    return ("timing the chain candidates: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in spent.items() if v > 0) if any(
+        v > 0 for v in spent.values()) else "no chain candidate timed")
+
+
 def phase_main_path(device, cfg, buckets, sizes):
     """The served force field at ``cfg`` through the bucketed engine (its
     compute_dtype sets the chain's storage, the kernel mode counted and the
@@ -501,13 +533,15 @@ def phase_main_path(device, cfg, buckets, sizes):
     tol_id, tol_tr, tol_loose = TIERS[cfg.compute_dtype]
     model = MaceGaunt(cfg, device=device, generator=torch.Generator().manual_seed(0))
     eng = EquivariantServeEngine(model, buckets=buckets)
+    ge = _engine.get_engine()
+    spent = dict(ge.chain_timing_s)
     t0 = time.perf_counter()
     eng.warmup()
     print(f"[{tag}] warmup {time.perf_counter() - t0:.2f} s (buckets "
           + ", ".join(f"{p.spec.label()} {p.spec.n_slots} x {p.spec.max_atoms} atoms, "
                       f"{p.spec.n_slots * p.spec.max_atoms * cfg.channels} chain rows"
-                      for p in eng.pools) + f"; chain storage {cfg.compute_dtype})")
-    ge = _engine.get_engine()
+                      for p in eng.pools) + f"; chain storage {cfg.compute_dtype}); "
+          + _timing_share(ge, spent))
     clock = "CUDA events" if device.type == "cuda" else "host clock"
     picks = {}
     for pool in eng.pools:
@@ -773,6 +807,7 @@ def phase_autotune(device, cfg, buckets, sizes):
             model = MaceGaunt(dataclasses.replace(cfg, autotune_cache=cache), device=device,
                               generator=torch.Generator().manual_seed(0))
             eng = EquivariantServeEngine(model, buckets=buckets)
+            spent = dict(ge.chain_timing_s)
             t0 = time.perf_counter()
             if plan is None:
                 eng.warmup()
@@ -787,8 +822,8 @@ def phase_autotune(device, cfg, buckets, sizes):
                   f"[autotune] {tag}: a request did not complete")
             worst_e, worst_f = served_vs_direct(model, reqs, device)
             failed = eng.metrics.counters["autotune_cache_load_failed"]
-            print(f"[autotune] {tag}: warmup {warm_s:.2f} s, {ge.timing_runs} timing runs, "
-                  f"autotune_cache_load_failed {failed}; picks "
+            print(f"[autotune] {tag}: warmup {warm_s:.2f} s ({_timing_share(ge, spent)}), "
+                  f"{ge.timing_runs} timing runs, autotune_cache_load_failed {failed}; picks "
                   + ", ".join(f"{k[3]} rows gate={k[5]} {v}" for k, v in picks.items())
                   + f"; served {len(reqs)} requests vs direct: energy rel {worst_e:.3e} "
                   f"(tol {F32_IDENTITY_TOL}), forces rel {worst_f:.3e} (tol {F32_LOOSE_TOL})")
@@ -1039,6 +1074,484 @@ def phase_train(device, cfg):
     if cuda:
         torch.cuda.empty_cache()
     return launches, med, peak, tms
+
+
+# --------------------------------------------------------------------------
+# phase 4c: the paper's two other equivariant models, batched plans, and the
+# measured policies
+# --------------------------------------------------------------------------
+
+SEGNN_SYSTEMS, SEGNN_HORIZON = 100, 300   # the EGNN/SEGNN N-body batch: 5 particles each
+SEGNN_STEPS, SEGNN_LR = 40, 5e-3          # as benchmarks/bench_sanity_nbody.py trains
+SEGNN_EQUIVARIANCE_TOL = 2e-3             # tests/test_equivariant_models.py's atol
+SELFMIX_NODES = 2560                      # x 32 channels = 81,920 rows (OC20 width)
+SELFMIX_EQUIVARIANCE_TOL = 3e-3           # tests/test_equivariant_models.py's atol
+BATCH_VS_PLAN_TOL = 1e-6                  # plan_batch buckets vs per-plan calls
+
+
+def _sgd_steps(model, batch, steps: int, lr: float, device, tag: str):
+    """``steps`` plain SGD steps on one batch -> (losses, step ms on the
+    host clock, each step ending in its loss's host read)."""
+    import numpy as np
+    import torch
+
+    params = list(model.parameters())
+    losses, ms = [], []
+    for s in range(steps):
+        t0 = time.perf_counter()
+        loss = model.loss(batch)
+        grads = torch.autograd.grad(loss, params)
+        with torch.no_grad():
+            for p, g in zip(params, grads):
+                p -= lr * g
+        losses.append(float(loss.detach()))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"[segnn] {tag} step {s + 1:3d} loss {losses[-1]:.6f}")
+    check(all(np.isfinite(losses)), f"[segnn] {tag}: a loss is not finite")
+    check(losses[-1] < losses[0], f"[segnn] {tag}: the loss did not fall: {losses}")
+    return losses, ms
+
+
+def phase_segnn(device, n_systems: int = SEGNN_SYSTEMS, steps: int = SEGNN_STEPS,
+                cfg=None):
+    """`gaunt_segnn_nbody` at full width (L=1, L_edge=1, 32 channels, 4
+    layers; chain_tune='measure') on ``n_systems`` charged N-body systems
+    of 5 particles in one pass (n_systems x 5 x 5 x 32 chain rows a layer):
+    the measured resident chain key (entries ('sh', 'fourier')), the
+    forward finite and rotation-equivariant, the kernel-pinned forward and
+    loss gradients against the tree-pinned ones, one `gaunt_chain` launch a
+    layer, the quadrature gate against the SH gate, ``steps`` SGD steps on
+    the kernel (every loss printed, finite, falling) and the same steps with
+    the CG parameterization (Fig. 1(e)), step times, peak memory and a
+    profiled step.  -> gaunt_chain launches in the training run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.gaunt_ff import gaunt_segnn_nbody
+    from repro_torch.core import engine as _engine
+    from repro_torch.data import nbody_dataset
+    from repro_torch.kernels.gaunt_fused import kernel_stats, reset_kernel_stats
+    from repro_torch.models.equivariant import SegnnNBody
+
+    cuda = device.type == "cuda"
+    kernel = "fused_hopper"
+    cfg = cfg or dataclasses.replace(gaunt_segnn_nbody, chain_tune="measure")
+    ge = _engine.get_engine()
+    t0 = time.perf_counter()
+    data = nbody_dataset(n_systems, horizon=SEGNN_HORIZON, seed=0)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in data.items()}
+    S, n = data["pos"].shape[:2]
+    rows = S * n * n * cfg.channels
+    print(f"[segnn] {cfg.name}: L={cfg.L} L_edge={cfg.L_edge} channels={cfg.channels} "
+          f"layers={cfg.n_layers}; nbody_dataset({S}, horizon={SEGNN_HORIZON}, seed=0) "
+          f"made in {time.perf_counter() - t0:.2f} s: {S} systems x {n} particles, "
+          f"{rows} chain rows a layer; card {smi_line() if cuda else 'cpu'}")
+
+    def new_model(c=cfg):
+        return SegnnNBody(c, device=device, generator=torch.Generator().manual_seed(0))
+
+    def fwd(m, pos=None, vel=None):
+        return m(batch["charge"], batch["pos"] if pos is None else pos,
+                 batch["vel"] if vel is None else vel)
+
+    model = new_model()
+    with torch.no_grad():
+        out = fwd(model)
+    _sync(device)
+    key = ge.chain_measure_key((cfg.L, cfg.L_edge), cfg.L, "float32", rows, None, False,
+                               device, ("sh", "fourier"), "sh")
+    times, spread = ge.measured_times[key], ge.measured_spread[key]
+    pick = ge.measured_pick(key)
+    print(f"[segnn] measured resident chain key Ls=(1, 1) entries=('sh', 'fourier') rows="
+          f"{key[3]} ({'CUDA events' if cuda else 'host clock'} per eager call, median of "
+          f"{_engine._MEASURE_REPS}, [min, max]): "
+          + ", ".join(f"{k} {v * 1e3:.4f} ms [{spread[k][0] * 1e3:.4f}, {spread[k][1] * 1e3:.4f}]"
+                      for k, v in times.items()) + f" -> {pick}")
+    check(set(times) == {"tree", "looped", kernel if cuda else "fused_torch"},
+          f"[segnn] the measured candidates are {sorted(times)}")
+    check(out.shape == (S, n, 3) and bool(torch.isfinite(out).all()),
+          "[segnn] the forward is not finite or misshapen")
+
+    # rotation equivariance of the measured forward
+    Q = torch.as_tensor(random_rotation(21), dtype=torch.float32, device=device)
+    with torch.no_grad():
+        out_r = fwd(model, batch["pos"] @ Q.T, batch["vel"] @ Q.T)
+    diff = (out_r - out @ Q.T).abs()
+    excess = float((diff - SEGNN_EQUIVARIANCE_TOL - 1e-3 * (out @ Q.T).abs()).max())
+    print(f"[segnn] forward under rotation: max abs err {float(diff.max()):.3e} "
+          f"(tol {SEGNN_EQUIVARIANCE_TOL} + 1e-3 |x|, the reference test's)")
+    check(excess <= 0, "[segnn] the forward is not rotation-equivariant")
+
+    # kernel-pinned against tree-pinned: forward, loss and gradients
+    params = list(model.parameters())
+    res = {}
+    for backend in ("tree", kernel):
+        with ge.pinned_chain(key, backend):
+            with torch.no_grad():
+                reset_kernel_stats()
+                o = fwd(model)
+                _sync(device)
+                launched = kernel_stats()["gaunt_chain"]
+            loss = model.loss(batch)
+            grads = torch.autograd.grad(loss, params)
+        res[backend] = (o, float(loss.detach()), grads, launched)
+    (o_t, l_t, g_t, _), (o_k, l_k, g_k, n_k) = res["tree"], res[kernel]
+    ferr, frel = rel_err(o_k, o_t)
+    dl = abs(l_k - l_t) / max(1.0, abs(l_t))
+    dg = _grad_err(g_k, g_t)
+    print(f"[segnn] kernel vs tree pinned: forward max abs err {ferr:.3e} rel {frel:.3e} "
+          f"(tol {F32_IDENTITY_TOL}); loss rel {dl:.3e} (tol {F32_IDENTITY_TOL}); worst "
+          f"parameter gradient rel {dg:.3e} (tol {F32_LOOSE_TOL}, scale-relative); "
+          f"gaunt_chain launches per pinned forward {n_k} (expected {cfg.n_layers})")
+    check(frel <= F32_IDENTITY_TOL and dl <= F32_IDENTITY_TOL and dg <= F32_LOOSE_TOL,
+          "[segnn] the kernel-pinned model differs from the tree-pinned one")
+    if cuda:
+        check(n_k == cfg.n_layers, f"[segnn] gaunt_chain launched {n_k} times a forward")
+
+    # the quadrature gate against the SH gate, same parameters
+    on = new_model(dataclasses.replace(cfg, grid_gate="on"))
+    on.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        gerr, grel = rel_err(fwd(on), out)
+    print(f"[segnn] grid_gate='on' (the gate on the S^2 quadrature grid) vs 'off': max abs "
+          f"err {gerr:.3e} rel {grel:.3e} (tol {F32_IDENTITY_TOL})")
+    check(grel <= F32_IDENTITY_TOL, "[segnn] the quadrature gate differs from the SH gate")
+    del on, res, g_t, g_k
+
+    # Fig. 1(e): SGD on the kernel, then with CG parameters, from one init
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    with ge.pinned_chain(key, kernel):
+        reset_kernel_stats()
+        losses_g, ms_g = _sgd_steps(model, batch, steps, SEGNN_LR, device, "gaunt")
+        _sync(device)
+        launches = kernel_stats()["gaunt_chain"]
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    cg = new_model(dataclasses.replace(cfg, tp_impl="cg"))
+    cg.load_state_dict(init)
+    losses_c, ms_c = _sgd_steps(cg, batch, steps, SEGNN_LR, device, "cg")
+    med_g, med_c = float(np.median(ms_g[3:])), float(np.median(ms_c[3:]))
+    print(f"[segnn] {steps} SGD steps (lr {SEGNN_LR}) on the kernel: loss {losses_g[0]:.6f} "
+          f"-> {losses_g[-1]:.6f}, step {med_g:.2f} ms; with CG: loss {losses_c[0]:.6f} -> "
+          f"{losses_c[-1]:.6f}, step {med_c:.2f} ms (host clock, median of steps 4-{steps}, "
+          f"each ending in its loss's host read); final loss gaunt/cg "
+          f"{losses_g[-1] / max(losses_c[-1], 1e-30):.3f}; gaunt_chain launches {launches} "
+          f"(expected {cfg.n_layers} x {steps}); peak memory "
+          + (f"{peak / 2**20:.1f} MiB (max_memory_allocated; {held / 2**20:.1f} MiB held "
+             f"before)" if cuda else "not measured"))
+    if cuda:
+        check(launches == cfg.n_layers * steps,
+              f"[segnn] gaunt_chain launched {launches} times in {steps} steps")
+
+        def step():
+            loss = model.loss(batch)
+            torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+
+        with ge.pinned_chain(key, kernel):
+            profile_step("segnn train step (kernel pinned)", lambda: None, step)
+    del model, cg, batch
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_selfmix(device, nodes: int = SELFMIX_NODES, L: int | None = None,
+                  C: int | None = None):
+    """`SelfmixLayer` at `gaunt_equiformer_selfmix`'s width (L=4, 32
+    channels) on ``nodes`` nodes, tune='measure': the measured shared-operand
+    key (share (0, 0)), the tree-, looped- and kernel-pinned layers and the
+    gaunt_fused route against each other, equivariance, one `gaunt_chain`
+    launch a pinned call, each route's time (CUDA events and host clock, the
+    CG route beside), and compute_dtype bf16 against f32 with the pick that
+    'auto' resolves to.  -> gaunt_chain launches in the kernel-pinned call."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.gaunt_ff import gaunt_equiformer_selfmix as cfg
+    from repro_torch.core import engine as _engine
+    from repro_torch.core.so3 import wigner_D_real_packed
+    from repro_torch.kernels.gaunt_fused import kernel_stats, reset_kernel_stats
+    from repro_torch.models.equivariant import SelfmixLayer
+
+    cuda = device.type == "cuda"
+    L, C = L or cfg.L, C or cfg.channels
+    ge = _engine.get_engine()
+    rng = np.random.default_rng(31)
+    x = torch.as_tensor(rng.normal(size=(nodes, C, (L + 1) ** 2)), dtype=torch.float32,
+                        device=device)
+
+    def layer(**kw):
+        m = SelfmixLayer(L, C, device=device, generator=torch.Generator().manual_seed(0), **kw)
+        with torch.no_grad():  # non-unit per-degree weights: the shared-operand path
+            for w in (m.w1, m.w2, m.w3):
+                w.copy_(torch.linspace(0.6, 1.4, w.numel(), device=device))
+        return m
+
+    base = layer(tune="measure")
+    with torch.no_grad():
+        base(x)
+    _sync(device)
+    rows = nodes * C
+    key = ge.chain_measure_key((L, L), L, "float32", rows, (0, 0), False, device)
+    times, spread = ge.measured_times[key], ge.measured_spread[key]
+    pick = ge.measured_pick(key)
+    print(f"[selfmix] {cfg.name}: L={L} channels={C}, {nodes} nodes ({rows} rows); "
+          f"measured key Ls=({L}, {L}) share (0, 0) rows={key[3]} "
+          f"({'CUDA events' if cuda else 'host clock'} per eager call, median of "
+          f"{_engine._MEASURE_REPS}, [min, max]): "
+          + ", ".join(f"{k} {v * 1e3:.4f} ms [{spread[k][0] * 1e3:.4f}, {spread[k][1] * 1e3:.4f}]"
+                      for k, v in times.items()) + f" -> {pick}")
+    routes = {}
+    launches = 0
+    with torch.no_grad():
+        for backend in ("tree", "looped", "fused_hopper"):
+            with ge.pinned_chain(key, backend):
+                reset_kernel_stats()
+                routes[backend] = base(x)
+                _sync(device)
+                n_k = kernel_stats()["gaunt_chain"]
+            if backend == "fused_hopper":
+                launches = n_k
+        fused = layer(tp_impl="gaunt_fused")
+        fused.load_state_dict(base.state_dict())
+        routes["gaunt_fused"] = fused(x)
+    worst = max(rel_err(v, routes["tree"])[1] for v in routes.values())
+    print(f"[selfmix] routes against the tree: "
+          + ", ".join(f"{k} rel {rel_err(v, routes['tree'])[1]:.3e}" for k, v in routes.items())
+          + f" (tol {F32_IDENTITY_TOL}); gaunt_chain launches per kernel-pinned call "
+          f"{launches} (expected 1)")
+    check(worst <= F32_IDENTITY_TOL, "[selfmix] the routes disagree")
+    if cuda:
+        check(launches == 1, f"[selfmix] gaunt_chain launched {launches} times in one call")
+    D = torch.as_tensor(wigner_D_real_packed(L, 0.5, 1.1, -0.8), dtype=torch.float32,
+                        device=device)
+    with torch.no_grad():
+        y1 = base(x)
+        y2 = base(torch.einsum("ij,ncj->nci", D, x))
+        want = torch.einsum("ij,ncj->nci", D, y1)
+    excess = float(((y2 - want).abs() - SELFMIX_EQUIVARIANCE_TOL - 1e-3 * want.abs()).max())
+    print(f"[selfmix] under rotation: max abs err {float((y2 - want).abs().max()):.3e} "
+          f"(tol {SELFMIX_EQUIVARIANCE_TOL} + 1e-3 |x|, the reference test's)")
+    check(excess <= 0, "[selfmix] the layer is not rotation-equivariant")
+    if cuda:
+        cg = layer(tp_impl="cg")
+        cg.load_state_dict(base.state_dict())
+        calls = {}
+        for backend in ("tree", "looped", "fused_hopper"):
+            calls[f"chain {backend}"] = (backend, base)
+        calls["gaunt_fused"] = (None, fused)
+        calls["cg (another parameterization)"] = (None, cg)
+        parts = []
+        with torch.no_grad():
+            for name, (backend, m) in calls.items():
+                if backend is None:
+                    ev = event_ms(lambda: m(x))
+                    hm, _ = host_ms(lambda: m(x), device, 21)
+                else:
+                    with ge.pinned_chain(key, backend):
+                        ev = event_ms(lambda: m(x))
+                        hm, _ = host_ms(lambda: m(x), device, 21)
+                parts.append(f"{name} {ev:.4f} ms events / {hm:.4f} ms host")
+        print(f"[times] selfmix layer ({nodes} x {C} x {(L + 1) ** 2}, {smi_line()}): "
+              + ", ".join(parts) + " (CUDA events median of 50; host clock median of 21, "
+              "each call synchronised)")
+    # bf16 storage, and what 'auto' resolves to
+    bf = layer(tune="measure", compute_dtype="bfloat16")
+    bf.load_state_dict(base.state_dict())
+    auto = layer(tune="measure", compute_dtype="auto")
+    auto.load_state_dict(base.state_dict())
+    with torch.no_grad():
+        ebf, rbf = rel_err(bf(x).float(), y1)
+        auto(x)
+        again = layer(tune="measure", compute_dtype="auto")
+        again.load_state_dict(auto.state_dict())
+        runs = ge.timing_runs
+        kept = again.storage_dtype(x[: nodes // 2])
+    auto_key = ge.chain_measure_key((L, L), L, "auto", rows, (0, 0), False, device)
+    bkey = ge.chain_measure_key((L, L), L, "bfloat16", rows, (0, 0), False, device)
+    t, sp = ge.measured_times.get(auto_key, {}), ge.measured_spread.get(auto_key, {})
+    print(f"[selfmix] compute_dtype='bfloat16' (pick {ge.measured_pick(bkey)}) vs f32: max "
+          f"abs err {ebf:.3e} rel {rbf:.3e} (tol {BF16_IDENTITY_TOL}); 'auto' resolves to "
+          f"{auto.storage_dtype(x)} ("
+          + ", ".join(f"{k} {v * 1e3:.4f} ms, fastest {sp[k][0] * 1e3:.4f}"
+                      for k, v in t.items())
+          + f"; {'CUDA events' if cuda else 'host clock'}, median of 20; bf16 only below "
+          f"the fastest f32); a layer "
+          f"loaded from its state keeps {kept} at half the rows with "
+          f"{ge.timing_runs - runs} timing runs")
+    check(rbf <= BF16_IDENTITY_TOL, "[selfmix] the bf16 layer differs from the f32 one")
+    check(kept == auto.storage_dtype(x) and ge.timing_runs == runs,
+          "[selfmix] a reloaded layer did not keep the stored dtype")
+    del x, routes, base, fused, bf, auto, again
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_batched(device, rows: int = 20480):
+    """`plan_batch` with two degree signatures in three items, pinned to
+    `fused_hopper` (requires_grad=False), against `pair_plain` on the same
+    rows (the kernel's own check, at every bucket's shape) and against
+    per-plan calls (the bucketing's check): one `gaunt_pair` launch per
+    bucket; then a bucket of Fourier-boundary operands (resident filters)
+    on a spectral backend against per-plan calls.  -> gaunt_pair launches
+    in the batched call."""
+    import numpy as np
+    import torch
+    from repro_torch.core import constants as _c
+    from repro_torch.core import engine as _engine
+    from repro_torch.core.rep import Rep
+    from repro_torch.kernels.gaunt_fused import kernel_stats, pair_plain, reset_kernel_stats
+
+    cuda = device.type == "cuda"
+    rng = np.random.default_rng(41)
+
+    def r(L, n):
+        return torch.as_tensor(rng.normal(size=(n, (L + 1) ** 2)), dtype=torch.float32,
+                               device=device)
+
+    items = [(6, 6, 6, rows), (4, 4, 4, rows // 2), (6, 6, 6, rows // 4)]
+    ins = [(r(L1, n), r(L2, n)) for L1, L2, _, n in items]
+    bp = _engine.plan_batch(items, backend="fused_hopper", requires_grad=False, device=device)
+    with torch.no_grad():
+        reset_kernel_stats()
+        outs = bp.apply(ins)
+        _sync(device)
+        launches = kernel_stats()["gaunt_pair"]
+        worst, plain = 0.0, 0.0
+        for (L1, L2, Lout, n), (x1, x2), got in zip(items, ins, outs):
+            p = _engine.plan(L1, L2, Lout, backend="fused_hopper", requires_grad=False,
+                             device=device)
+            worst = max(worst, rel_err(got, p.apply(x1, x2))[0])
+            mats = [_c.to_torch(m, device) for m in _c.pair_matrices(L1, L2, Lout)]
+            plain = max(plain, rel_err(got, pair_plain(x1, x2, *mats))[1])
+    print(f"[batched] plan_batch {[it[:3] for it in items]} at {[it[3] for it in items]} rows "
+          f"on fused_hopper: {len(bp.buckets)} buckets, gaunt_pair launches {launches} "
+          f"(expected {len(bp.buckets)}); vs pair_plain rel {plain:.3e} (tol "
+          f"{PAIR_VS_PLAIN_TOL}); vs per-plan calls max abs err {worst:.3e} "
+          f"(tol {BATCH_VS_PLAN_TOL})")
+    check(plain <= PAIR_VS_PLAIN_TOL, "[batched] a bucket differs from pair_plain")
+    check(worst <= BATCH_VS_PLAN_TOL, "[batched] a bucket differs from its per-plan call")
+    if cuda:
+        check(launches == len(bp.buckets), f"[batched] gaunt_pair launched {launches} times")
+    # resident filters (a 'fourier' second operand) in one bucket
+    L = 4
+    item = _engine.BatchItem(L1=L, L2=L, Lout=L,
+                             options=(("boundary", ("sh", "fourier", "sh")),))
+    n = rows // 4
+    xs = [r(L, n), r(L, n // 2)]
+    fs = [Rep.from_sh(r(L, n), L).to_fourier("dense"),
+          Rep.from_sh(r(L, n // 2), L).to_fourier("dense")]
+    for backend in ("fft", "rfft"):
+        bpr = _engine.plan_batch([item, item], backend=backend, requires_grad=False,
+                                 device=device)
+        p = _engine.plan(L, L, L, backend=backend, options={"boundary": ("sh", "fourier", "sh")},
+                         requires_grad=False, device=device)
+        with torch.no_grad():
+            got = bpr.apply(list(zip(xs, fs)))
+            rel = max(rel_err(g, p.apply(a, f))[1] for g, a, f in zip(got, xs, fs))
+        print(f"[batched] Fourier-boundary bucket ({L}, {L}, {L}) on {backend}, items of {n} "
+              f"and {n // 2} rows with resident filters: vs per-plan calls rel {rel:.3e} "
+              f"(tol {F32_IDENTITY_TOL})")
+        check(rel <= F32_IDENTITY_TOL, f"[batched] the {backend} boundary bucket differs")
+    return launches
+
+
+def phase_policies(device, buckets, sizes):
+    """The measured gate policy (`select_gate`) for the force field's chain
+    at each serve bucket's rows; `gaunt_mace_ff` with grid_gate='auto'
+    served through the bucketed engine, served == direct; then the autotune
+    file of this run's measurements (the new key types included) reloaded by
+    a fresh engine with zero timing runs."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.configs.gaunt_ff import gaunt_mace_ff
+    from repro_torch.core import engine as _engine
+    from repro_torch.models.equivariant import MaceGaunt
+    from repro_torch.serve.engine import EquivariantServeEngine
+
+    ge = _engine.get_engine()
+    cfg = dataclasses.replace(gaunt_mace_ff, chain_tune="measure", grid_gate="auto")
+    Ls, share = (cfg.L,) * cfg.nu, (0,) * cfg.nu
+    bucket_rows = [s.n_slots * s.max_atoms * cfg.channels for s in buckets]
+    for rows in bucket_rows:
+        pick = ge.select_gate(Ls, cfg.L, batch_hint=rows, share_hint=share, device=device)
+        key = ge.chain_measure_key(Ls, cfg.L, "float32", rows, share, False, device) + \
+            (("gate", "policy"),)
+        t, sp = ge.measured_times.get(key, {}), ge.measured_spread.get(key, {})
+        print(f"[policies] select_gate Ls={Ls} rows={rows}: "
+              + ", ".join(f"{k} {v * 1e3:.4f} ms (fastest {sp[k][0] * 1e3:.4f})"
+                          for k, v in t.items())
+              + f" ({'CUDA events' if device.type == 'cuda' else 'host clock'}, median of "
+              f"20, each chain on its measured pick, the sh side with its gate epilogue; "
+              f"'grid' only below the fastest 'sh') -> {pick}")
+    model = MaceGaunt(cfg, device=device, generator=torch.Generator().manual_seed(0))
+    eng = EquivariantServeEngine(model, buckets=buckets)
+    eng.warmup()
+    print(f"[policies] the served model's grid gate, resolved once at warmup (the "
+          f"largest bucket's rows, {max(bucket_rows)}): "
+          f"{'on' if model.grid_gate_on(max(bucket_rows), device) else 'off'}")
+    reqs = make_requests(sizes, cfg.n_species, seed=1400)
+    eng.run(reqs)
+    check(all(r.done and not r.rejected for r in reqs), "[policies] a request did not complete")
+    worst_e, worst_f = served_vs_direct(model, reqs, device)
+    print(f"[policies] gaunt_mace_ff grid_gate='auto' served ({len(reqs)} requests, "
+          f"{len(buckets)} buckets) vs direct: energy rel {worst_e:.3e} (tol "
+          f"{F32_IDENTITY_TOL}), forces rel {worst_f:.3e} (tol {F32_LOOSE_TOL})")
+    check(worst_e <= F32_IDENTITY_TOL and worst_f <= F32_LOOSE_TOL,
+          "[policies] served results differ from direct evaluation")
+    # the resolved gate is part of the model's state: a reload keeps it
+    # without timing, at any rows
+    gate = model.grid_gate_on(max(bucket_rows), device)
+    again = MaceGaunt(cfg, device=device)
+    again.load_state_dict(model.state_dict())
+    runs = ge.timing_runs
+    kept = again.grid_gate_on(min(bucket_rows) // 2, device)
+    print(f"[policies] a model loaded from the served model's state: grid gate "
+          f"{'on' if kept else 'off'} (stored {'on' if gate else 'off'}), "
+          f"{ge.timing_runs - runs} timing runs")
+    check(kept == gate and ge.timing_runs == runs,
+          "[policies] a reloaded model did not keep the stored grid gate")
+    del eng, model, again
+    # the slice's other key types: hits after [segnn] and [selfmix], measured
+    # here when this phase runs alone
+    _engine.plan_chain((1, 1), 1, tune="measure", batch_hint=SEGNN_SYSTEMS * 25 * 32,
+                       entry_hint=("sh", "fourier"), device=device)
+    _engine.plan_chain((4, 4), 4, tune="measure", batch_hint=SELFMIX_NODES * 32,
+                       share_hint=(0, 0), dtype="auto", device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "autotune.json")
+        ge.set_autotune_cache(path)
+        ge.flush_autotune_cache()
+        ge.set_autotune_cache(None)
+        with open(path) as f:
+            sel = json.load(f)["selections"]
+        kinds = {"auto": sum(e["key"]["dtype"] == "auto" for e in sel),
+                 "gate policy": sum(["gate", "policy"] in e["key"].get("extra", [])
+                                    for e in sel),
+                 "non-SH bases": sum(any(x[0] == "entries" for x in e["key"].get("extra", []))
+                                     for e in sel)}
+        check(all(kinds.values()), f"[policies] the cache file lacks a new key type: {kinds}")
+        warm = _engine.GauntEngine(cache_path=path)
+        n = warm.load_autotune_cache()
+        replay = 0
+        for k, b in ge._measured.items():
+            if isinstance(k, tuple) and k not in ge._pins:
+                check(warm.measured_pick(k) == b, f"[policies] key {k} reloaded as "
+                                                  f"{warm.measured_pick(k)}, not {b}")
+                replay += 1
+        for rows in bucket_rows:
+            warm.select_gate(Ls, cfg.L, batch_hint=rows, share_hint=share, device=device)
+        print(f"[policies] autotune file of this run: {len(sel)} selections ("
+              + ", ".join(f"{k} {v}" for k, v in kinds.items())
+              + f"); a fresh engine loaded {n}, {replay} chain keys as picked, "
+              f"select_gate at every bucket: {warm.timing_runs} timing runs")
+        check(warm.timing_runs == 0, "[policies] the reloaded cache still timed")
 
 
 # --------------------------------------------------------------------------
@@ -2307,6 +2820,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_autotune(device, cfg, buckets, sizes)
         phase_train(device, cfg)
+        # the paper's two other models, batched plans and the measured policies
+        phase_segnn(device)
+        phase_selfmix(device)
+        phase_batched(device)
+        phase_policies(device, buckets, sizes)
         pair_launches, (x1, x2) = phase_pair_main(device, pair_rows)
         (pair_ms, pair_plain_ms, pair_bound_ms, pair_bound_by,
          pair_library_ms) = phase_pair_times(device, x1, x2)

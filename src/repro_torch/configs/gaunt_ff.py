@@ -1,4 +1,6 @@
-"""The paper's force-field configuration: a Gaunt-accelerated MACE model.
+"""The paper's own model configs: Gaunt-accelerated equivariant networks —
+the MACE-like force field, the SEGNN-like N-body net and the EquiformerV2
+Selfmix layer.
 
 A copy of the reference ``repro.configs.gaunt_ff`` with the knobs the port
 honours.  Not carried over yet: ``shard_data`` (sharding is not ported).
@@ -11,7 +13,7 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class EquivariantConfig:
     name: str
-    kind: str            # mace
+    kind: str            # mace | segnn | equiformer_selfmix
     L: int = 2           # max feature degree
     L_edge: int = 2      # SH filter degree
     channels: int = 64
@@ -20,7 +22,7 @@ class EquivariantConfig:
     nu: int = 3          # many-body order (MACE)
     cutoff: float = 5.0
     n_radial: int = 8
-    tp_impl: str = "gaunt"
+    tp_impl: str = "gaunt"    # gaunt | gaunt_fused | gaunt_auto | cg
     conv_impl: str = "escn"   # only 'escn' is ported
     hidden: int = 128
     # keep the layer-constant edge geometry resident: the eSCN alignment
@@ -33,11 +35,15 @@ class EquivariantConfig:
     # storage dtype of the many-body chain ('float32' | 'bfloat16';
     # 'float64' on the plain path): operands and sampling matrices at this
     # dtype, sums in f32, the chain exit at it; the conv, the mixes and the
-    # gate stay f32.  'auto' (the measured dtype pick) is not ported
+    # gate stay f32.  'auto' with chain_tune='measure' times both storage
+    # dtypes per chain key and keeps bf16 only where it wins (float32
+    # otherwise)
     compute_dtype: str = "float32"
     # 'on' fuses the gate into the many-body chain (gate-before-mb_mix, a
-    # reparameterization: fix it per checkpoint); 'off' gates in SH after
-    # the mb_mix channel mix
+    # reparameterization: fix it per checkpoint) and, in SEGNN, evaluates
+    # the gate on the S^2 quadrature grid; 'off' gates in SH after the
+    # mb_mix channel mix; 'auto' asks the engine's measured gate policy
+    # (`GauntEngine.select_gate`) and needs chain_tune='measure' (else off)
     grid_gate: str = "off"
     # serve bucket ladder: ((max_atoms, n_slots), ...) for
     # `EquivariantServeEngine` when it gets no ``buckets`` argument (None:
@@ -53,4 +59,11 @@ class EquivariantConfig:
 
 gaunt_mace_ff = EquivariantConfig(
     name="gaunt-mace-ff", kind="mace", L=2, L_edge=3, channels=64, n_layers=2, nu=3
+)
+gaunt_segnn_nbody = EquivariantConfig(
+    name="gaunt-segnn-nbody", kind="segnn", L=1, L_edge=1, channels=32, n_layers=4
+)
+gaunt_equiformer_selfmix = EquivariantConfig(
+    name="gaunt-equiformer-selfmix", kind="equiformer_selfmix", L=4, L_edge=4,
+    channels=32, n_layers=2
 )

@@ -2,8 +2,9 @@
 
 Public API:
     GauntEngine / plan      the plan/dispatch layer over the pairwise backends
+    plan_batch              ragged multi-degree workloads, one call per bucket
     plan_chain / ChainPlan  whole chained products (the many-body stage)
-    Rep                     basis-tagged activations (sh | fourier residency)
+    Rep                     basis-tagged activations (sh | fourier | quad)
     GauntTensorProduct      full O(L^3) tensor product (fft / direct / packed / rfft)
     EquivariantConv         x (x) Y(rhat) on the eSCN rotation-aligned path
     manybody_gaunt_product  nu-fold products (one chain plan)
@@ -19,6 +20,7 @@ from .engine import (  # noqa: F401
     available_backends,
     get_engine,
     plan,
+    plan_batch,
     plan_chain,
 )
 from .gaunt import GauntTensorProduct, expand_degree_weights  # noqa: F401

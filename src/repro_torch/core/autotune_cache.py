@@ -23,7 +23,13 @@ File format (schema-versioned, human-inspectable):
 
 Chain keys are the engine's plain tuples (`GauntEngine.chain_measure_key`:
 Ls, Lout, dtype, batch_hint, share, gate, device type); plan keys are
-`PlanKey`s.  Both kinds round-trip.
+`PlanKey`s.  Both kinds round-trip.  A chain key may carry trailing tagged
+entries, written under ``"extra"``: the operands' and exit's bases
+(``("entries", ...), ("out", ...)``, only when they are not all SH) and
+``("gate", "policy")`` for `GauntEngine.select_gate`, whose "backend" is
+'grid' or 'sh'.  A key whose dtype is 'auto' (plan or chain) names the
+storage dtype that measured faster.  A file written before these keys
+existed has no ``"extra"`` and loads as it did: the schema is unchanged.
 
 Trust rules, as in the reference:
 
@@ -33,8 +39,10 @@ Trust rules, as in the reference:
   file behaves the same: ``load`` returns None and the engine measures in
   process, never raising.
 * Stale entries are dropped one by one on load: an unregistered backend, a
-  chain backend that is not a chain flavour, an unknown kind or storage
-  dtype, or a key measured on another device type than the fingerprint's.
+  chain backend that is not a chain flavour, a gate policy that is not
+  'grid' or 'sh', an 'auto' key whose pick is not a storage dtype, an
+  unknown kind or storage dtype, or a key measured on another device type
+  than the fingerprint's.
 * Only measurements that ran are persisted (the engine caches no failed
   measurement, and a pick pinned by `GauntEngine.pinned_chain` is not a
   measurement), so a loaded entry has a real timing behind it.
@@ -133,10 +141,13 @@ def _encode_key(key) -> dict:
 
     if isinstance(key, PlanKey):
         return {"type": "plan", **dataclasses.asdict(key)}
-    Ls, Lout, dts, batch_hint, share, gate, device = key
-    return {"type": "chain", "Ls": list(Ls), "Lout": Lout, "dtype": dts,
-            "batch_hint": batch_hint, "share": list(share), "gate": gate,
-            "device": device}
+    Ls, Lout, dts, batch_hint, share, gate, device = key[:7]
+    d = {"type": "chain", "Ls": list(Ls), "Lout": Lout, "dtype": dts,
+         "batch_hint": batch_hint, "share": list(share), "gate": gate,
+         "device": device}
+    if len(key) > 7:
+        d["extra"] = [list(e) for e in key[7:]]
+    return d
 
 
 def _decode_key(d: dict):
@@ -148,7 +159,8 @@ def _decode_key(d: dict):
                        extra=_tuplify(d["extra"]), device=d["device"])
     if d["type"] == "chain":
         return (_tuplify(d["Ls"]), d["Lout"], d["dtype"], d["batch_hint"],
-                _tuplify(d["share"]), bool(d["gate"]), d["device"])
+                _tuplify(d["share"]), bool(d["gate"]), d["device"],
+                *_tuplify(d.get("extra", [])))
     raise KeyError(f"unknown key type {d['type']!r}")
 
 
@@ -158,10 +170,20 @@ def _entry_valid(key, backend, device_type: str) -> bool:
 
     if not isinstance(backend, str):
         return False
+    dts = key.dtype if isinstance(key, PlanKey) else key[2]
+    if dts == "auto":
+        picks = ("float32", "bfloat16")  # the storage dtype that won
+    elif dts not in _RDTYPE:
+        return False
+    elif isinstance(key, PlanKey):
+        picks = _REGISTRY
+    elif ("gate", "policy") in key[7:]:
+        picks = ("grid", "sh")
+    else:
+        picks = CHAIN_BACKENDS
     if isinstance(key, PlanKey):
-        return (key.device == device_type and key.kind in KINDS
-                and key.dtype in _RDTYPE and backend in _REGISTRY)
-    return key[6] == device_type and key[2] in _RDTYPE and backend in CHAIN_BACKENDS
+        return key.device == device_type and key.kind in KINDS and backend in picks
+    return key[6] == device_type and backend in picks
 
 
 def load(path: str | None):

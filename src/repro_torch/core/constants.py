@@ -73,6 +73,10 @@ __all__ = [
     "pair_fragments",
     "pair_fragments_bf16",
     "gaunt_dense",
+    "quad_sample_sh",
+    "quad_project_sh",
+    "quad_sample_fourier",
+    "quad_project_fourier",
     "to_torch",
 ]
 
@@ -530,6 +534,41 @@ def _b_fragments_bf16(bits: np.ndarray) -> np.ndarray:
     b = bits.reshape(K // 16, 2, 4, 2, N // 8, 8)  # [kt, h, t, j, nt, g]: k = 16kt+8h+2t+j
     return np.ascontiguousarray(b.transpose(0, 4, 5, 2, 1, 3)).reshape(
         K // 16, N // 8, 32, 4).view(np.int16)
+
+
+# --------------------------------------------------------------------------
+# S^2 quadrature matrices (Gauss-Legendre x equispaced phi)
+# --------------------------------------------------------------------------
+#
+# float64 (complex128) by default, equal to the reference's builders bit for
+# bit; ``dtype`` casts once ('float32', 'bfloat16' as `bf16_round` values,
+# 'complex64' for the complex projection), as every builder here does.
+
+
+@lru_cache(maxsize=None)
+def quad_sample_sh(L: int, n_theta: int, n_phi: int, dtype: str = "float64") -> np.ndarray:
+    """A [(L+1)^2, G]: SH coefficients -> quadrature-grid samples."""
+    return _cast(_fx.s2quad_sample_sh(L, n_theta, n_phi), dtype)
+
+
+@lru_cache(maxsize=None)
+def quad_project_sh(Lout: int, n_theta: int, n_phi: int, dtype: str = "float64") -> np.ndarray:
+    """P [G, (Lout+1)^2]: weighted quadrature projection back onto SH."""
+    return _cast(_fx.s2quad_project_sh(Lout, n_theta, n_phi), dtype)
+
+
+@lru_cache(maxsize=None)
+def quad_sample_fourier(L: int, n_theta: int, n_phi: int,
+                        dtype: str = "float64") -> np.ndarray:
+    """M [2 (2L+1)(L+1), G]: real-stacked half grid -> quadrature samples."""
+    return _cast(_fx.s2quad_sample_fourier(L, n_theta, n_phi), dtype)
+
+
+@lru_cache(maxsize=None)
+def quad_project_fourier(L: int, n_theta: int, n_phi: int,
+                         dtype: str = "complex128") -> np.ndarray:
+    """Z [G, 2L+1, L+1]: quadrature samples -> half grid (complex)."""
+    return _fx.s2quad_project_fourier(L, n_theta, n_phi).astype(dtype)
 
 
 @lru_cache(maxsize=None)

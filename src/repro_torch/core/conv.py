@@ -114,8 +114,8 @@ class EquivariantConv:
 
     def __init__(self, L1: int, L2: int, Lout: int | None = None, method: str = "escn"):
         if method != "escn":
-            raise NotImplementedError(f"conv method {method!r} is not ported "
-                                      "(only 'escn')")
+            raise NotImplementedError(f"conv method {method!r} is not ported (only "
+                                      "'escn'; 'general' is ROADMAP Queue 1 item 4c)")
         self.L1, self.L2 = L1, L2
         self.Lout = L1 + L2 if Lout is None else Lout
         self.method = method

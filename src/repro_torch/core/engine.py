@@ -19,34 +19,50 @@ backends on the plan's device (``tune='measure'``).  ``fused_torch`` and
 the collocation product in torch ops and on the hand-written sm_90a kernel
 (`kernels.gaunt_fused.gaunt_fused_hopper`, no gradient).
 
+The spectral pairwise backends (fft, direct, packed, rfft) take
+Fourier-resident operands and can return a resident product:
+``options={'boundary': ('sh'|'fourier',) * 3}`` (x1, x2, out).
+
+Batched plans (``plan_batch``): items that share a degree signature form a
+bucket, and each bucket is one call on its inner plan over the
+concatenated, tail-padded rows; per-item outputs are sliced back.
+
 Chain plans (``plan_chain``), the main path's many-body stage:
 
 * ``tree`` — the resident spectral pass: each distinct operand converts to
   a Hermitian half grid once (degree-resolved when the same tensor enters
   under different per-degree weights), grids combine by a divide-and-conquer
   tree of `conv2d_herm` (rfft), and one projection runs at the exit.
+* ``looped`` — the pre-residency left fold of pairwise spectral plans, a
+  full SH round trip per product (a measured candidate, so the autotuner
+  prices what residency buys).
 * ``fused_torch`` — the n-way collocation product in plain torch ops.
 * ``fused_hopper`` — the same product on the chain kernel
   (`kernels.gaunt_fused.gaunt_chain_fused_hopper`).
 
 ``plan_chain(tune='measure')`` times the candidates on the caller's device
-— ``tree`` and ``fused_hopper`` on CUDA, ``tree`` and ``fused_torch`` on the
-CPU — and caches the winner per (chain shape, rows, gate, device).  In both
-measured selections a kernel candidate that raises is not skipped: a kernel
-that fails to build or launch must surface, not quietly lose the
-measurement.
+— ``tree``, ``looped`` and ``fused_hopper`` on CUDA, ``fused_torch`` in the
+kernel's place on the CPU, ``looped`` left out for a resident exit — and
+caches the winner per (chain shape, rows, sharing, gate, device, and the
+operands' and exit's bases when they are not all SH).  In every measured
+selection a kernel candidate that raises is not skipped: a kernel that
+fails to build or launch must surface, not quietly lose the measurement.
 
 Storage dtypes: 'float32', 'bfloat16' and 'float64' (plain routes only),
 as in the reference.  A bf16 plan holds its operands and real constants at
 bf16 and sums in f32 (complex grids stay complex64); its output is bf16.
+``dtype='auto'`` with ``tune='measure'`` times the f32 and bf16 siblings
+and keeps bf16 only where it wins (float32 under heuristic tuning), and
+`GauntEngine.select_gate` picks where a chain's gate runs ('grid' fused
+into the chain, or 'sh' after it) by timing both.
 
-Both measured selections persist through the per-host autotune cache
+Every measured selection persists through the per-host autotune cache
 (`core/autotune_cache.py`) when a cache path is configured: a warm process
 answers every measured key from the file with zero timing runs.
 
-Not ported yet: the manybody plan kind (the port's many-body route is
-``plan_chain``), Fourier-boundary (``Rep``) operands of pairwise plans,
-``plan_batch``, ``dtype='auto'``, and ``calibrate_fused``.
+Not ported yet (ROADMAP Queue 1 item 4): ``calibrate_fused``, the
+manybody plan kind (the port's many-body route is ``plan_chain``), and
+sharding (``shard_spec``, Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -71,6 +87,8 @@ __all__ = [
     "PlanKey",
     "Backend",
     "GauntPlan",
+    "BatchItem",
+    "BatchedGauntPlan",
     "CHAIN_BACKENDS",
     "ChainPlan",
     "GauntEngine",
@@ -83,10 +101,11 @@ __all__ = [
     "build_escn",
     "get_engine",
     "plan",
+    "plan_batch",
     "plan_chain",
 ]
 
-CHAIN_BACKENDS = ("tree", "fused_torch", "fused_hopper")
+CHAIN_BACKENDS = ("tree", "looped", "fused_torch", "fused_hopper")
 
 _RDTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
 _CDTYPE = {"float32": torch.complex64, "bfloat16": torch.complex64,
@@ -100,8 +119,6 @@ def _dtype_str(dtype) -> str:
     their real width, as the wrappers' cdtype does)."""
     s = dtype if isinstance(dtype, str) else str(dtype).replace("torch.", "")
     s = {"complex64": "float32", "complex128": "float64"}.get(s, s)
-    if s == "auto":
-        raise NotImplementedError("dtype='auto' is not ported yet")
     if s not in _RDTYPE:
         raise ValueError(f"unsupported dtype {s!r} (expected one of {sorted(_RDTYPE)})")
     return s
@@ -216,6 +233,8 @@ class Backend:
     supports_grad: bool = True
     dtypes: frozenset = frozenset({"float32", "bfloat16", "float64"})
     kernel: bool = False
+    # spectral backends take and return Fourier-resident operands (Reps)
+    fourier_boundary: bool = False
     # conv_filter backends that accept precomputed WignerBlocks geometry
     wigner_geometry: bool = False
 
@@ -223,6 +242,9 @@ class Backend:
         if key.dtype not in self.dtypes:
             return False
         if requires_grad and not self.supports_grad:
+            return False
+        bound = key.opt("boundary")
+        if bound and "fourier" in bound and not self.fourier_boundary:
             return False
         if key.opt("geometry") and not self.wigner_geometry:
             return False
@@ -258,6 +280,268 @@ class GauntPlan:
         k = self.key
         return (f"{k.kind}(L1={k.L1}, L2={k.L2}, Lout={k.Lout}, dtype={k.dtype}, "
                 f"batch_hint={k.batch_hint}, device={k.device}) -> {self.backend}")
+
+
+# --------------------------------------------------------------------------
+# batched plans: ragged multi-degree workloads, one call per degree bucket
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchItem:
+    """One entry of a batched workload: a degree signature and its expected
+    rows.  ``size`` is a planning hint (it feeds the bucket's batch_hint);
+    the row count comes from the tensors at apply time.  ``options`` are the
+    item's plan options as sorted (name, value) pairs (e.g. ``boundary``).
+    ``Ls`` is the reference's manybody signature, which the port does not
+    plan (ROADMAP Queue 1 item 4b)."""
+
+    L1: int | None = None
+    L2: int | None = None
+    Lout: int | None = None
+    Ls: tuple | None = None
+    size: int | None = None
+    options: tuple = ()
+
+    def signature(self) -> tuple:
+        return (self.L1, self.L2, self.Lout, self.Ls, self.options)
+
+
+def _as_batch_item(it) -> BatchItem:
+    if isinstance(it, BatchItem):
+        return it
+    if isinstance(it, dict):
+        d = dict(it)
+        if "options" in d:
+            d["options"] = tuple(sorted(dict(d["options"]).items()))
+        if d.get("Ls") is not None:
+            d["Ls"] = tuple(int(L) for L in d["Ls"])
+        return BatchItem(**d)
+    it = tuple(it)
+    if len(it) == 3:
+        return BatchItem(L1=it[0], L2=it[1], Lout=it[2])
+    if len(it) == 4:
+        return BatchItem(L1=it[0], L2=it[1], Lout=it[2], size=it[3])
+    raise ValueError(f"batch item {it!r}: expected (L1, L2, Lout[, size]), "
+                     "a dict, or a BatchItem")
+
+
+def _split_leads(leads: list) -> tuple:
+    """Operand leading shapes -> (row prefix, inner broadcast dims).  The
+    prefix is the longest run of leading dims on which every operand agrees
+    (right-aligned): those flatten into rows.  The inner dims are where the
+    operands broadcast (one edge direction against C channels); they pass
+    through to the backend, which broadcasts them itself."""
+    full = tuple(torch.broadcast_shapes(*leads))
+    n = len(full)
+    padded = [(1,) * (n - len(ld)) + tuple(ld) for ld in leads]
+    k = 0
+    while k < n and all(p[k] == full[k] for p in padded):
+        k += 1
+    return full[:k], full[k:]
+
+
+def _op_parts(op) -> tuple:
+    """(leaves, event ranks, rebuild) of one operand: packed SH rows and raw
+    directions have event rank 1, Rep grids and Wigner blocks rank 2, and
+    ``rebuild`` wraps new leaves back into the operand's type."""
+    from .conv import WignerBlocks
+    from .rep import Rep
+
+    if isinstance(op, Rep):
+        meta = (op.L, op.basis, op.form, op.sdtype)
+        return [op.data], (2,), lambda ls: Rep(ls[0], *meta)
+    if isinstance(op, WignerBlocks):
+        return list(op.blocks), (2,) * len(op.blocks), lambda ls: WignerBlocks(tuple(ls))
+    return [op], (1,), lambda ls: ls[0]
+
+
+def _norm_operand(op, j: int, item: BatchItem, form: str):
+    """SH Reps unwrap to their data; Fourier Reps check their bandlimit
+    against the item's degree and take the bucket plan's storage form."""
+    from .rep import Rep
+
+    if isinstance(op, Rep):
+        if op.basis == "sh":
+            return op.data
+        degs = (item.L1, item.L2)
+        if j < len(degs) and op.L != degs[j]:
+            raise ValueError(f"operand {j}: resident bandlimit {op.L} != "
+                             f"planned degree {degs[j]}")
+        return op.with_form(form)
+    return op
+
+
+def _bucket_body(plan: GauntPlan, kind: str, item: BatchItem, granularity: int,
+                 form: str, item_ops, item_ws):
+    """Flatten, broadcast, concatenate and pad the items' operands, run the
+    bucket's plan once, slice each item's output back out (the reference's
+    ``_bucket_batch_body``, eager)."""
+    from .rep import Rep
+
+    rd = _RDTYPE[plan.key.dtype]
+    wdeg = (item.L1 + 1, item.L2 + 1, item.Lout + 1)
+    item_parts = [[_op_parts(_norm_operand(op, j, item, form)) for j, op in enumerate(ops)]
+                  for ops in item_ops]
+    struct0 = [p[1] for p in item_parts[0]]
+    for t, parts in enumerate(item_parts):
+        if [p[1] for p in parts] != struct0:
+            raise ValueError(f"item {t}: operand structure (Rep/WignerBlocks/"
+                             "array mix) differs from the bucket's first item "
+                             f"({[p[1] for p in parts]} vs {struct0})")
+    splits = []
+    for parts, ws in zip(item_parts, item_ws):
+        leads = [tuple(leaf.shape[: leaf.dim() - er]) for leaves, ers, _ in parts
+                 for leaf, er in zip(leaves, ers)]
+        prefix, inner = _split_leads(leads)
+        # a weight whose lead reaches beyond the operands' broadcast shape
+        # broadens the output, which the row layout cannot express: the item
+        # goes all-inner (one row) and the backend broadcasts it
+        w_leads = [tuple(w.shape[:-1]) for w in ws if w is not None]
+        pi = prefix + inner
+        if any(tuple(torch.broadcast_shapes(wl, pi)) != pi for wl in w_leads):
+            prefix, inner = (), tuple(torch.broadcast_shapes(pi, *w_leads))
+        splits.append((prefix, inner))
+    if len({inner for _, inner in splits}) > 1:
+        splits = [(prefix + inner, ()) for prefix, inner in splits]
+    rows = [int(np.prod(p)) if p else 1 for p, _ in splits]
+    # per operand, per leaf: per item [rows, *inner, *event]
+    cols = [[[] for _ in p[0]] for p in item_parts[0]]
+    for t, parts in enumerate(item_parts):
+        prefix, inner = splits[t]
+        rank = len(prefix) + len(inner)
+        for j, (leaves, ers, _) in enumerate(parts):
+            for q, (x, er) in enumerate(zip(leaves, ers)):
+                lead, ev = tuple(x.shape[: x.dim() - er]), tuple(x.shape[x.dim() - er:])
+                pl = (1,) * (rank - len(lead)) + lead
+                # broadcast the row prefix only: a size-1 inner dim stays
+                # size 1 (the backend broadcasts it)
+                x = x.reshape(*pl, *ev).expand(*prefix, *pl[len(prefix):], *ev)
+                cols[j][q].append(x.reshape(rows[t], *pl[len(prefix):], *ev))
+    if len(item_ops) > 1:
+        # one item may still carry a size-1 inner dim the others have in full
+        for j, (_, ers, _) in enumerate(item_parts[0]):
+            for q, col in enumerate(cols[j]):
+                if len({tuple(x.shape[1: x.dim() - ers[q]]) for x in col}) > 1:
+                    for t, x in enumerate(col):
+                        ev = tuple(x.shape[x.dim() - ers[q]:])
+                        col[t] = x.expand(rows[t], *splits[t][1], *ev)
+    ws_cat = []
+    for j in range(3):
+        if all(ws[j] is None for ws in item_ws):
+            ws_cat.append(None)
+            continue
+        parts = []
+        for t, ws in enumerate(item_ws):
+            prefix, inner = splits[t]
+            w = ws[j]
+            if w is None:
+                parts.append(torch.ones((rows[t], *inner, wdeg[j]), dtype=rd,
+                                        device=cols[0][0][t].device))
+            else:
+                parts.append(w.expand(*prefix, *inner, wdeg[j])
+                             .reshape(rows[t], *inner, wdeg[j]).to(rd))
+        ws_cat.append(torch.cat(parts, dim=0))
+    total = sum(rows)
+    pad = -(-total // granularity) * granularity - total
+    ops_cat = []
+    for j, (_, ers, rebuild) in enumerate(item_parts[0]):
+        cat = []
+        for q, col in enumerate(cols[j]):
+            x = torch.cat(col, dim=0) if len(col) > 1 else col[0]
+            if pad:
+                fill = x.new_zeros((pad, *x.shape[1:]))
+                if kind == "conv_filter" and j == 1 and ers[q] == 1:
+                    # raw directions pad with e_z: the alignment rotation of
+                    # a zero vector is NaN
+                    fill[..., 2] = 1
+                x = torch.cat([x, fill], dim=0)
+            cat.append(x)
+        ops_cat.append(rebuild(cat))
+    if pad:
+        ws_cat = [None if w is None else
+                  torch.cat([w, w.new_ones((pad, *w.shape[1:]))], dim=0) for w in ws_cat]
+    out = plan.apply(*ops_cat, *ws_cat)
+    leaf = out.data if isinstance(out, Rep) else out
+    res, off = [], 0
+    for t in range(len(item_ops)):
+        o = leaf[off:off + rows[t]].reshape(*splits[t][0], *leaf.shape[1:])
+        res.append(Rep(o, out.L, out.basis, out.form) if isinstance(out, Rep) else o)
+        off += rows[t]
+    return res
+
+
+@dataclasses.dataclass(frozen=True)
+class _Bucket:
+    """Items sharing one degree signature, resolved to one inner plan."""
+
+    item_ids: tuple
+    plan: GauntPlan
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedGauntPlan:
+    """A bucketed multi-degree workload; ``apply`` makes one call on each
+    bucket's inner plan (see `GauntEngine.plan_batch`).
+
+    ``donate`` is accepted for the reference's API and donates nothing: a
+    bucket concatenates its items into fresh buffers and never writes the
+    caller's, so there is no buffer a caller could hand over."""
+
+    kind: str
+    dtype: str
+    items: tuple
+    buckets: tuple
+    granularity: int = 1
+    donate: bool = False
+
+    def plans(self) -> list:
+        return [b.plan for b in self.buckets]
+
+    def describe(self) -> str:
+        lines = [f"plan_batch(kind={self.kind}, dtype={self.dtype}, "
+                 f"items={len(self.items)}, buckets={len(self.buckets)}, "
+                 f"granularity={self.granularity}, donate={self.donate})"]
+        for b in self.buckets:
+            lines.append(f"  items {list(b.item_ids)} -> {b.plan.describe()}")
+        return "\n".join(lines)
+
+    def apply(self, inputs, weights=None) -> list:
+        """Run every item -> outputs aligned with ``items``.
+
+        inputs  : element i is item i's operand pair — (x1, x2) for
+                  pairwise, (x, rhat or WignerBlocks) for conv_filter; SH
+                  tensors or, on a 'fourier' boundary, Reps.
+        weights : optional, element i is item i's (w1, w2, w3) (None
+                  entries allowed) or None.
+        """
+        inputs = list(inputs)
+        if len(inputs) != len(self.items):
+            raise ValueError(f"apply got {len(inputs)} inputs for "
+                             f"{len(self.items)} items")
+        weights = [None] * len(self.items) if weights is None else list(weights)
+        if len(weights) != len(self.items):
+            raise ValueError(f"apply got {len(weights)} weight entries for "
+                             f"{len(self.items)} items")
+        outs = [None] * len(self.items)
+        for bucket in self.buckets:
+            item0 = self.items[bucket.item_ids[0]]
+            ops, ws = [], []
+            for i in bucket.item_ids:
+                o = tuple(inputs[i])
+                if len(o) != 2:
+                    raise ValueError(f"item {i}: expected 2 operands, got {len(o)}")
+                w = (None,) * 3 if weights[i] is None else tuple(weights[i])
+                if len(w) != 3:
+                    raise ValueError(f"item {i}: expected 3 weight slots, got {len(w)}")
+                ops.append(o)
+                ws.append(w)
+            form = "half" if bucket.plan.backend == "rfft" else "dense"
+            res = _bucket_body(bucket.plan, self.kind, item0, self.granularity, form,
+                               ops, ws)
+            for t, i in enumerate(bucket.item_ids):
+                outs[i] = res[t]
+        return outs
 
 
 # --------------------------------------------------------------------------
@@ -359,8 +643,9 @@ def _build_chain(Ls: tuple, Lout: int, dtype: str) -> Callable:
 
 
 def _wrap_chain_gate(base: Callable, Lout: int) -> Callable:
-    """Gate the tree backend at its exit: on the packed SH coefficients
-    (before ``w_out``) or on the resident grid for a 'fourier' exit."""
+    """Gate a spectral chain backend (tree, looped) at its exit: on the
+    packed SH coefficients (before ``w_out``) or on the resident grid for a
+    'fourier' exit."""
 
     def apply(xs, ws, w_out, out_basis, gate_params):
         out = base(xs, ws, None, out_basis, None)
@@ -368,6 +653,38 @@ def _wrap_chain_gate(base: Callable, Lout: int) -> Callable:
             return _gate_rep(gate_params, out)
         # the f32 gate MLP gates a bf16 exit in f32, rounded once back
         return _wmul(_gate_sh(gate_params, out).to(out.dtype), w_out, Lout)
+
+    return apply
+
+
+def _build_chain_looped(Ls: tuple, Lout: int, dtype: str,
+                        engine: "GauntEngine") -> Callable:
+    """The pre-residency strategy as a chain backend: a left fold of
+    pairwise spectral plans, each product paying its full SH round trip —
+    kept so the measured autotuner prices what residency buys."""
+    from .rep import Rep
+
+    rd = _RDTYPE[dtype]
+
+    def apply(xs, ws, w_out, out_basis, gate_params):
+        if out_basis != "sh":
+            raise ValueError("the looped chain backend has no resident exit; "
+                             "plan with backend='tree' for out_basis='fourier'")
+        for i, x in enumerate(xs):
+            if isinstance(x, Rep):
+                # a resident operand leaves the basis here (lossless at its
+                # own bandlimit): the fold works in SH
+                xs[i] = x.to_sh(rdtype=rd).data if x.is_fourier else x.data
+            xs[i] = _chain_entry_cast(xs[i], rd)
+        acc = _wmul(xs[0], ws[0], Ls[0])
+        La = Ls[0]
+        for i, (x, L) in enumerate(zip(xs[1:], Ls[1:]), start=1):
+            Lt = Lout if i == len(Ls) - 1 else La + L
+            p = engine.plan(La, L, Lt, kind="pairwise", dtype=dtype,
+                            backend=spectral_default(La, L), device=x.device)
+            acc = p.apply(acc, x, None, ws[i])
+            La += L
+        return _wmul(acc.to(rd), w_out, Lout)
 
     return apply
 
@@ -664,17 +981,50 @@ def _build_dense_einsum(key: PlanKey) -> Callable:
     return apply_pair
 
 
+def _resident_grid(op, L: int, form: str):
+    """A 'fourier' boundary operand: a Rep (validated) or a raw grid."""
+    from .rep import Rep
+
+    if isinstance(op, Rep):
+        if op.basis != "fourier":
+            raise ValueError("boundary='fourier' operand must be Fourier-resident "
+                             f"(got basis={op.basis!r}; convert with .to_fourier())")
+        if op.L != L:
+            raise ValueError(f"resident operand bandlimit {op.L} != planned degree {L}")
+        return op.with_form(form).data
+    return op
+
+
 def _build_spectral(key: PlanKey, conversion: str, conv: str) -> Callable:
+    """The spectral pairwise backends; a 'fourier' boundary skips that
+    operand's conversion (its grid enters as is) or the exit projection
+    (the product grid leaves as a resident Rep)."""
     from .gaunt import conv2d_full, conv2d_herm, fourier_to_sh, sh_to_fourier
 
     cd, rd = _CDTYPE[key.dtype], _RDTYPE[key.dtype]
+    form = "half" if conversion == "half" else "dense"
     conv_fn = conv2d_herm if conversion == "half" else conv2d_full
     L1, L2, Lout = key.L1, key.L2, key.Lout
+    b1, b2, bo = key.opt("boundary") or ("sh", "sh", "sh")
+
+    def convert_in(x, w, L, b):
+        if b == "fourier":
+            if w is not None:
+                raise ValueError("per-degree weights need an SH operand; apply "
+                                 "them before converting to the Fourier basis")
+            return _resident_grid(x, L, form)
+        return sh_to_fourier(_wmul(x, w, L), L, conversion, cd)
 
     def apply_pair(x1, x2, w1=None, w2=None, w3=None):
-        F1 = sh_to_fourier(_wmul(x1, w1, L1), L1, conversion, cd)
-        F2 = sh_to_fourier(_wmul(x2, w2, L2), L2, conversion, cd)
-        out = fourier_to_sh(conv_fn(F1, F2, conv), L1 + L2, Lout, conversion, rd)
+        F3 = conv_fn(convert_in(x1, w1, L1, b1), convert_in(x2, w2, L2, b2), conv)
+        if bo == "fourier":
+            from .rep import Rep
+
+            if w3 is not None:
+                raise ValueError("w3 applies in SH; a Fourier-boundary output "
+                                 "cannot carry per-degree output weights")
+            return Rep(F3, L1 + L2, "fourier", form)
+        out = fourier_to_sh(F3, L1 + L2, Lout, conversion, rd)
         return _wmul(out, w3, Lout)
 
     return apply_pair
@@ -749,24 +1099,28 @@ register_backend(Backend(
     kinds=frozenset({"pairwise", "conv_filter"}),
     build=lambda key: _build_spectral(key, "dense", "fft"),
     cost=lambda key: _spectral_common(key, "fft", packed=False),
+    fourier_boundary=True,
 ))
 register_backend(Backend(
     name="direct",
     kinds=frozenset({"pairwise", "conv_filter"}),
     build=lambda key: _build_spectral(key, "dense", "direct"),
     cost=lambda key: _spectral_common(key, "direct", packed=False),
+    fourier_boundary=True,
 ))
 register_backend(Backend(
     name="packed",
     kinds=frozenset({"pairwise", "conv_filter"}),
     build=lambda key: _build_spectral(key, "packed", key.opt("conv", "fft")),
     cost=lambda key: _spectral_common(key, key.opt("conv", "fft"), packed=True),
+    fourier_boundary=True,
 ))
 register_backend(Backend(
     name="rfft",
     kinds=frozenset({"pairwise", "conv_filter"}),
     build=lambda key: _build_spectral(key, "half", key.opt("conv", "rfft")),
     cost=_cost_rfft,
+    fourier_boundary=True,
 ))
 register_backend(Backend(
     name="fused_torch",
@@ -805,6 +1159,7 @@ class GauntEngine:
 
     def __init__(self, cache_path: str | None = None):
         self._plans: dict = {}
+        self._batched: dict = {}
         self._chains: dict = {}
         # measured picks, keyed by PlanKey (plans) or the chain tuple
         self._measured: dict = {}
@@ -827,6 +1182,9 @@ class GauntEngine:
         # timed measurement passes (plan backends, chain candidates); a
         # process booted against a warm cache keeps it at 0
         self.timing_runs = 0
+        # host seconds spent timing each chain candidate (its build, two
+        # warm calls and the timed ones): what a cold warmup pays per name
+        self.chain_timing_s: dict = {}
 
     # -- persistent autotune cache -----------------------------------------
 
@@ -912,22 +1270,35 @@ class GauntEngine:
         """Resolve (and cache) a plan.  ``backend=None`` -> engine selection:
         ``tune='heuristic'`` (cost model) or ``'measure'`` (timed on
         ``device`` at ``batch_hint`` rows).  ``dtype`` is the storage dtype
-        ('float32' | 'bfloat16' | 'float64').  ``device`` is the device the
-        plan is selected for: None means cuda, and raises without a GPU (pass
-        ``device="cpu"``).  ``requires_grad=False`` admits gradless backends
-        (``fused_hopper``)."""
+        ('float32' | 'bfloat16' | 'float64'); 'auto' with ``tune='measure'``
+        times the f32 and bf16 siblings and keeps bf16 only where it wins
+        (float32 under heuristic tuning).  ``options={'boundary': (b1, b2,
+        bo)}`` ('sh' | 'fourier' each) makes x1, x2 or the output
+        Fourier-resident on the spectral backends.  ``device`` is the device
+        the plan is selected for: None means cuda, and raises without a GPU
+        (pass ``device="cpu"``).  ``requires_grad=False`` admits gradless
+        backends (``fused_hopper``)."""
         if kind == "manybody":
-            raise NotImplementedError("manybody plans are not ported; the port's "
-                                      "many-body route is plan_chain")
+            raise NotImplementedError("manybody plans are not ported (ROADMAP Queue 1 "
+                                      "item 4b); the port's many-body route is plan_chain")
         if kind not in KINDS:
             raise ValueError(f"unknown kind {kind!r} (expected one of {KINDS})")
         if tune not in ("heuristic", "measure"):
             raise ValueError(f"unknown tune {tune!r} (expected 'heuristic'|'measure')")
         options = dict(options or {})
-        bound = options.pop("boundary", None)
-        if bound is not None and tuple(bound) != ("sh", "sh", "sh"):
-            raise NotImplementedError("Fourier-boundary operands of pairwise plans "
-                                      "are not ported yet")
+        bound = options.get("boundary")
+        if bound is not None:
+            bound = tuple(bound)
+            if kind != "pairwise":
+                raise ValueError("boundary options are only defined for "
+                                 "pairwise plans (chains cover the rest)")
+            if len(bound) != 3 or any(b not in ("sh", "fourier") for b in bound):
+                raise ValueError(f"boundary must be 3 entries of 'sh'|'fourier', "
+                                 f"got {bound!r}")
+            if bound == ("sh", "sh", "sh"):
+                options.pop("boundary")  # the default: do not fragment the cache
+            else:
+                options["boundary"] = bound
         geom = options.get("geometry")
         if geom is not None:
             if kind != "conv_filter":
@@ -940,10 +1311,19 @@ class GauntEngine:
         Lout = L1 + L2 if Lout is None else Lout
         if Lout > L1 + L2:
             raise ValueError("Lout cannot exceed the total degree (Gaunt selection rule)")
+        if bound is not None and bound[2] == "fourier" and Lout != L1 + L2:
+            raise ValueError("a Fourier-boundary output keeps the full product "
+                             f"grid (L={L1 + L2}); plan with Lout={L1 + L2} and "
+                             "project at the chain exit")
+        extra = tuple(sorted(options.items()))
+        dev = resolve_device(device).type
         if isinstance(dtype, str) and dtype == "auto":
-            raise NotImplementedError("dtype='auto' is not ported yet")
-        key = PlanKey(L1, L2, Lout, kind, batch_hint, _dtype_str(dtype),
-                      tuple(sorted(options.items())), resolve_device(device).type)
+            dts = self._select_dtype(
+                lambda d: PlanKey(L1, L2, Lout, kind, batch_hint, d, extra, dev),
+                tune=tune, requires_grad=requires_grad)
+        else:
+            dts = _dtype_str(dtype)
+        key = PlanKey(L1, L2, Lout, kind, batch_hint, dts, extra, dev)
         cache_key = (key, backend, tune, requires_grad)
         hit = self._plans.get(cache_key)
         if hit is not None:
@@ -957,6 +1337,70 @@ class GauntEngine:
                              f"(requires_grad={requires_grad})")
         p = self._plans[cache_key] = GauntPlan(key, name, _build_plan_apply(spec, key))
         return p
+
+    def plan_batch(self, items, *, kind: str = "pairwise", dtype="float32",
+                   backend: str | None = None, tune: str = "heuristic",
+                   requires_grad: bool = True, donate: bool = False,
+                   shard_spec=None, pad_to: int | None = None,
+                   device=None) -> BatchedGauntPlan:
+        """Plan a ragged multi-degree workload as bucketed calls.
+
+        items: (L1, L2, Lout[, size]) tuples, dicts or `BatchItem`s.  Items
+        sharing a degree signature (and options) form one bucket: their
+        operands flatten to rows, concatenate, tail-pad to ``pad_to`` rows
+        and run as ONE call on the bucket's plan, and the per-item results
+        are sliced back — equal to per-plan calls (every backend is
+        row-parallel).  A bucket's ``batch_hint`` is the sum of its items'
+        ``size`` hints.  ``dtype='auto'`` resolves per bucket, as ``plan``
+        does.  ``donate`` is accepted and donates nothing (see
+        `BatchedGauntPlan`); ``shard_spec`` is not ported (ROADMAP Queue 1
+        item 10).
+        """
+        if shard_spec is not None:
+            raise NotImplementedError("sharded batched plans (shard_spec) are not "
+                                      "ported (ROADMAP Queue 1 item 10)")
+        if kind == "manybody":
+            raise NotImplementedError("manybody plans are not ported (ROADMAP Queue 1 "
+                                      "item 4b); the port's many-body route is plan_chain")
+        if kind not in KINDS:
+            raise ValueError(f"unknown kind {kind!r} (expected one of {KINDS})")
+        if kind == "channel_mix":
+            raise ValueError("plan_batch does not support kind='channel_mix': "
+                             "w_mix is not a row-batched operand (use plan())")
+        norm = []
+        for it in items:
+            it = _as_batch_item(it)
+            if it.L1 is None or it.L2 is None:
+                raise ValueError(f"kind={kind!r} batch items need L1 and L2")
+            if it.Lout is None:
+                it = dataclasses.replace(it, Lout=it.L1 + it.L2)
+            norm.append(it)
+        norm = tuple(norm)
+        if not norm:
+            raise ValueError("plan_batch needs at least one item")
+        dts = "auto" if (isinstance(dtype, str) and dtype == "auto") else _dtype_str(dtype)
+        g = max(1, int(pad_to or 1))
+        dev = resolve_device(device)
+        cache_key = (norm, kind, dts, backend, tune, requires_grad, donate, g, dev.type)
+        hit = self._batched.get(cache_key)
+        if hit is not None:
+            return hit
+        groups: dict = {}
+        for i, it in enumerate(norm):
+            groups.setdefault(it.signature(), []).append(i)
+        buckets = []
+        for idxs in groups.values():
+            it0 = norm[idxs[0]]
+            known = [norm[i].size for i in idxs if norm[i].size]
+            p = self.plan(it0.L1, it0.L2, it0.Lout, kind=kind,
+                          batch_hint=sum(known) if known else None, dtype=dts,
+                          backend=backend, options=dict(it0.options) or None,
+                          tune=tune, requires_grad=requires_grad, device=dev)
+            buckets.append(_Bucket(item_ids=tuple(idxs), plan=p))
+        bp = self._batched[cache_key] = BatchedGauntPlan(
+            kind=kind, dtype=dts, items=norm, buckets=tuple(buckets), granularity=g,
+            donate=donate)
+        return bp
 
     def select(self, key: PlanKey, tune: str = "heuristic",
                requires_grad: bool = True) -> str:
@@ -993,7 +1437,7 @@ class GauntEngine:
         args = _synthetic_inputs(key, dev)
         self.timing_runs += 1
         times, spread, errors = {}, {}, {}
-        with torch.no_grad():
+        with torch.no_grad(), _uncounted():
             for spec in eligible:
                 if spec.kernel and dev.type != "cuda":
                     continue
@@ -1024,6 +1468,7 @@ class GauntEngine:
         """Drop every plan and measurement and restore the default cost
         calibration: a cleared engine behaves like a fresh one."""
         self._plans.clear()
+        self._batched.clear()
         self._chains.clear()
         self._measured.clear()
         self._measured_t.clear()
@@ -1035,21 +1480,30 @@ class GauntEngine:
         self._cache_loaded = False
         self.cache_unusable = False
         self.timing_runs = 0
+        self.chain_timing_s.clear()
 
     # -- chain plans -------------------------------------------------------
 
     def plan_chain(self, Ls, Lout: int | None = None, *, dtype="float32",
                    backend: str | None = None, tune: str = "heuristic",
                    batch_hint: int | None = None, share_hint: tuple | None = None,
+                   entry_hint: tuple | None = None, out_hint: str = "sh",
                    gate: bool = False, device=None) -> ChainPlan:
         """Plan  x_1 (x) ... (x) x_n  (n >= 2, Lout defaults to sum(Ls)).
 
         ``backend`` pins one of `CHAIN_BACKENDS`; otherwise ``tune='measure'``
-        times the device's candidates at ``batch_hint`` rows (``share_hint``:
-        per-operand duplicate-group indices, so a shared operand is measured
-        as shared) on ``device`` (default cuda), and ``tune='heuristic'``
-        picks 'tree'.
+        times the device's candidates at ``batch_hint`` rows on ``device``
+        (default cuda), and ``tune='heuristic'`` picks 'tree'.  The hints
+        make the measurement look like the real call: ``share_hint`` gives
+        per-operand duplicate-group indices (a shared operand is timed as
+        shared), ``entry_hint`` ('sh' | 'fourier' per operand) times
+        'fourier' slots as resident half-grid Reps, and ``out_hint``
+        ('sh' | 'fourier') times every candidate with that exit ('looped',
+        which has no resident exit, is left out for 'fourier').
         ``gate=True`` plans the models' gate as a chain-interior stage.
+        ``dtype='auto'`` with ``tune='measure'`` times the chain at f32 and
+        bf16 and keeps bf16 only where it wins by more than the f32 spread
+        (float32 otherwise; `_resolve_auto`).
         """
         Ls = tuple(int(L) for L in Ls)
         if len(Ls) < 2:
@@ -1057,24 +1511,39 @@ class GauntEngine:
         Lout = sum(Ls) if Lout is None else int(Lout)
         if Lout > sum(Ls):
             raise ValueError("Lout cannot exceed the total degree (Gaunt selection rule)")
-        dts = _dtype_str(dtype)
         if backend is not None and backend not in CHAIN_BACKENDS:
             raise ValueError(f"unknown chain backend {backend!r} "
                              f"(expected one of {CHAIN_BACKENDS})")
+        if tune not in ("heuristic", "measure"):
+            raise ValueError(f"unknown tune {tune!r} (expected 'heuristic'|'measure')")
+        if entry_hint is not None:
+            entry_hint = tuple(entry_hint)
+            if len(entry_hint) != len(Ls) or any(e not in ("sh", "fourier")
+                                                 for e in entry_hint):
+                raise ValueError(f"entry_hint must be {len(Ls)} entries of "
+                                 f"'sh'|'fourier', got {entry_hint!r}")
+        if out_hint not in ("sh", "fourier"):
+            raise ValueError(f"out_hint must be 'sh'|'fourier', got {out_hint!r}")
+        if share_hint is not None:
+            share_hint = tuple(int(g) for g in share_hint)
+            if len(share_hint) != len(Ls):
+                raise ValueError(f"share_hint must have {len(Ls)} group indices, "
+                                 f"got {share_hint!r}")
+        hints = (batch_hint, share_hint, entry_hint, out_hint)
+        if isinstance(dtype, str) and dtype == "auto":
+            dts = self._select_chain_dtype(Ls, Lout, hints, gate, tune, device)
+        else:
+            dts = _dtype_str(dtype)
         if backend is None:
-            if tune == "measure":
-                backend = self._select_chain(Ls, Lout, dts, batch_hint, share_hint,
-                                             gate, resolve_device(device))
-            elif tune == "heuristic":
-                backend = "tree"
-            else:
-                raise ValueError(f"unknown tune {tune!r} (expected 'heuristic'|'measure')")
+            backend = (self._select_chain(Ls, Lout, dts, hints, gate, resolve_device(device))
+                       if tune == "measure" else "tree")
         key = (Ls, Lout, dts, backend, gate)
         hit = self._chains.get(key)
         if hit is not None:
             return hit
-        if backend == "tree":
-            apply = _build_chain(Ls, Lout, dts)
+        if backend in ("tree", "looped"):
+            apply = (_build_chain(Ls, Lout, dts) if backend == "tree"
+                     else _build_chain_looped(Ls, Lout, dts, self))
             if gate:
                 apply = _wrap_chain_gate(apply, Lout)
         else:
@@ -1085,16 +1554,25 @@ class GauntEngine:
 
     @staticmethod
     def chain_measure_key(Ls: tuple, Lout: int, dts: str, batch_hint: int | None,
-                          share_hint: tuple | None, gate: bool, device) -> tuple:
-        """The measured-selection key: rows quantize to a power-of-two ladder
-        capped at 16384, as in the reference."""
+                          share_hint: tuple | None, gate: bool, device,
+                          entry_hint: tuple | None = None, out_hint: str = "sh") -> tuple:
+        """The measured-selection key: (Ls, Lout, dtype, rows, share, gate,
+        device type), rows quantized to a power-of-two ladder capped at
+        16384 as in the reference.  The operands' and exit's bases join the
+        key only when they differ from all-'sh' / 'sh' (the way the
+        reference appends its gate entry only when gated), so every all-SH
+        key, and every cache file holding one, stays as it was."""
         if batch_hint is not None:
             q = 8
             while q < min(batch_hint, 16384):
                 q *= 2
             batch_hint = q
         share = tuple(share_hint) if share_hint else tuple(range(len(Ls)))
-        return (Ls, Lout, dts, batch_hint, share, bool(gate), torch.device(device).type)
+        key = (Ls, Lout, dts, batch_hint, share, bool(gate), torch.device(device).type)
+        entries = tuple(entry_hint) if entry_hint else ("sh",) * len(Ls)
+        if any(e != "sh" for e in entries) or out_hint != "sh":
+            key += (("entries", entries), ("out", out_hint))
+        return key
 
     def measured_pick(self, key: tuple) -> str | None:
         """The chain backend cached for ``key`` (a `chain_measure_key`), or
@@ -1118,52 +1596,219 @@ class GauntEngine:
             else:
                 self._measured.pop(key, None)
 
-    def _select_chain(self, Ls, Lout, dts, batch_hint, share_hint, gate, device) -> str:
-        key = self.chain_measure_key(Ls, Lout, dts, batch_hint, share_hint, gate, device)
-        # reading the persisted table is host work, safe during a capture
+    def _synthetic_chain(self, Ls, key, device, gated: bool):
+        """Seeded operands for timing a chain key — one tensor per (share
+        group, degree, basis), 'fourier' slots as resident half-grid Reps —
+        and, for a gated chain, a synthetic gate MLP sized so the per-row
+        scalar path costs what the models' [rows, C] @ [C, hidden] gate head
+        costs (as the reference; at the accumulation dtype, as the models'
+        gate weights are)."""
+        from .rep import Rep
+
+        B, share = key[3] or 256, key[4]
+        entries = dict(key[7:]).get("entries", ("sh",) * len(Ls))
+        rng = np.random.default_rng(0)
+        rd = _RDTYPE[key[2]]
+        made: dict = {}
+        xs = []
+        for L, g, e in zip(Ls, share, entries):
+            if (g, L, e) not in made:
+                x = torch.as_tensor(rng.normal(size=(B, num_coeffs(L))), dtype=rd,
+                                    device=device)
+                made[(g, L, e)] = Rep.from_sh(x, L).to_fourier("half") if e == "fourier" else x
+            xs.append(made[(g, L, e)])
+        acc = _ACC[key[2]]
+        gp = ({"w1": torch.as_tensor(rng.normal(size=(B, 16)), dtype=acc, device=device),
+               "w2": torch.as_tensor(rng.normal(size=(16, B)), dtype=acc, device=device)}
+              if gated else None)
+        return xs, gp
+
+    def _cached_or_timing(self, key, device):
+        """The cached pick for ``key`` (the persisted table is read first),
+        or None when it must be timed; timing under a CUDA-graph capture
+        raises (it synchronises the device, and a guess would bake an
+        unmeasured pick into the graph)."""
         self._maybe_load_cache()
         hit = self._measured.get(key)
         if hit is not None:
             return hit
         if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
-            # timing synchronises the device, which a capture forbids; a guess
-            # would bake an unmeasured pick into the graph
             raise RuntimeError(
-                f"chain key {key} is not measured and this stream is capturing a "
+                f"measured key {key} is not measured and this stream is capturing a "
                 f"CUDA graph: measure it before the capture (the serve engine's "
                 f"warmup seeds every bucket's keys)")
-        self.timing_runs += 1
-        kernel = "fused_hopper" if device.type == "cuda" else "fused_torch"
-        B, share = key[3] or 256, key[4]
-        rng = np.random.default_rng(0)
-        rd, acc = _RDTYPE[dts], _ACC[dts]
-        made: dict = {}
-        xs = []
-        for L, g in zip(Ls, share):
-            if (g, L) not in made:
-                made[(g, L)] = torch.as_tensor(rng.normal(size=(B, num_coeffs(L))),
-                                               dtype=rd, device=device)
-            xs.append(made[(g, L)])
-        # synthetic gate MLP sized so the per-row scalar path costs what the
-        # models' [rows, C] @ [C, hidden] gate head costs (as the reference)
-        # (at the accumulation dtype, as the models' gate weights are)
-        gp = ({"w1": torch.as_tensor(rng.normal(size=(B, 16)), dtype=acc, device=device),
-               "w2": torch.as_tensor(rng.normal(size=(16, B)), dtype=acc, device=device)}
-              if gate else None)
-        times, spread = {}, {}
-        with torch.no_grad():
-            for name in ("tree", kernel):
-                cp = self.plan_chain(Ls, Lout, dtype=dts, backend=name, gate=gate)
-                ts = _time_calls(lambda: cp.apply(xs, gate_params=gp), device)
-                times[name] = float(np.median(ts))
-                spread[name] = (min(ts), max(ts))
-        best = min(times, key=times.get)
+        return None
+
+    def _record(self, key, times: dict, spread: dict, pick=None) -> str:
+        """Cache a timed selection (the fastest unless ``pick`` is given)
+        and flush it to the autotune cache."""
+        best = min(times, key=times.get) if pick is None else pick
         self._measured[key] = best
-        self._measured_t[key] = times[best]
+        self._measured_t[key] = min(times.values())
         self.measured_times[key] = times
         self.measured_spread[key] = spread
         self._autoflush()
         return best
+
+    def _select_chain(self, Ls, Lout, dts, hints, gate, device) -> str:
+        batch_hint, share_hint, entry_hint, out_hint = hints
+        key = self.chain_measure_key(Ls, Lout, dts, batch_hint, share_hint, gate, device,
+                                     entry_hint, out_hint)
+        hit = self._cached_or_timing(key, device)
+        if hit is not None:
+            return hit
+        self.timing_runs += 1
+        kernel = "fused_hopper" if device.type == "cuda" else "fused_torch"
+        names = ("tree", "looped", kernel) if out_hint == "sh" else ("tree", kernel)
+        xs, gp = self._synthetic_chain(Ls, key, device, gate)
+        times, spread = {}, {}
+        with torch.no_grad(), _uncounted():
+            for name in names:
+                t0 = time.perf_counter()
+                cp = self.plan_chain(Ls, Lout, dtype=dts, backend=name, gate=gate)
+                ts = _time_calls(lambda: cp.apply(xs, out_basis=out_hint, gate_params=gp),
+                                 device)
+                self.chain_timing_s[name] = (self.chain_timing_s.get(name, 0.0)
+                                             + time.perf_counter() - t0)
+                times[name] = float(np.median(ts))
+                spread[name] = (min(ts), max(ts))
+        return self._record(key, times, spread)
+
+    def _resolve_auto(self, key, tune: str, device, default: str, candidates: dict) -> str:
+        """One measured 'auto' policy — a plan's or a chain's storage dtype,
+        the gate's grid-vs-SH — cached under ``key``.  Under
+        ``tune='measure'`` a miss times each of ``candidates`` (name -> a
+        builder returning the zero-argument call to time, or None when that
+        candidate cannot run here) and keeps ``default`` unless another is
+        faster by more than the default's measured spread: its median below
+        the default's fastest call.  Heuristic tuning resolves to
+        ``default`` without timing or caching, and so does a miss where
+        nothing could be timed."""
+        hit = self._cached_or_timing(key, device)
+        if hit is not None:
+            return hit
+        if tune != "measure":
+            return default
+        self.timing_runs += 1
+        times, spread = {}, {}
+        with torch.no_grad(), _uncounted():
+            for name, build in candidates.items():
+                fn = build()
+                if fn is None:
+                    continue
+                ts = _time_calls(fn, device)
+                times[name] = float(np.median(ts))
+                spread[name] = (min(ts), max(ts))
+        if not times:
+            return default
+        best = min(times, key=times.get)
+        floor = spread[default][0] if default in times else math.inf
+        return self._record(key, times, spread, pick=best if times[best] < floor else default)
+
+    def _select_chain_dtype(self, Ls, Lout, hints, gate, tune, device) -> str:
+        """Resolve a chain's ``dtype='auto'`` (`_resolve_auto`): the chain at
+        f32 and at bf16, each on its measured pick, timed on the same
+        synthetic operands; cached under the key's 'auto' sibling."""
+        batch_hint, share_hint, entry_hint, out_hint = hints
+        dev = torch.device("cuda" if device is None else device)
+
+        def key(dts):
+            return self.chain_measure_key(Ls, Lout, dts, batch_hint, share_hint, gate, dev,
+                                          entry_hint, out_hint)
+
+        def sibling(dts):
+            def build():
+                cp = self.plan_chain(Ls, Lout, dtype=dts, tune="measure",
+                                     batch_hint=batch_hint, share_hint=share_hint,
+                                     entry_hint=entry_hint, out_hint=out_hint, gate=gate,
+                                     device=dev)
+                xs, gp = self._synthetic_chain(Ls, key(dts), dev, gate)
+                return lambda: cp.apply(xs, out_basis=out_hint, gate_params=gp)
+            return build
+
+        return self._resolve_auto(key("auto"), tune, dev, "float32",
+                                  {d: sibling(d) for d in ("float32", "bfloat16")})
+
+    def select_gate(self, Ls, Lout: int | None = None, *, dtype="float32",
+                    batch_hint: int | None = None, entry_hint: tuple | None = None,
+                    out_hint: str = "sh", share_hint: tuple | None = None,
+                    tune: str = "measure", device=None) -> str:
+        """The measured grid-vs-SH gate policy of one chain workload, the
+        decision behind ``grid_gate='auto'`` -> 'grid' | 'sh'.
+
+        Times the gate-fused chain (``plan_chain(..., gate=True)``) against
+        the ungated chain followed by the SH gate epilogue; for a resident
+        ``out_hint='fourier'`` the epilogue pays the exit -> gate -> re-entry
+        round trip that the fusion elides.  Each chain runs its own measured
+        pick, and 'grid' wins only by more than the spread of 'sh'
+        (`_resolve_auto`).  Cached under the chain's measure key plus
+        ("gate", "policy") and persisted with the autotune table;
+        ``tune='heuristic'`` resolves to 'sh' without timing."""
+        from .rep import Rep
+
+        Ls = tuple(int(L) for L in Ls)
+        Lout = sum(Ls) if Lout is None else int(Lout)
+        dev = resolve_device(device)
+        hints = (batch_hint, share_hint, entry_hint, out_hint)
+        if isinstance(dtype, str) and dtype == "auto":
+            dts = self._select_chain_dtype(Ls, Lout, hints, True, tune, dev)
+        else:
+            dts = _dtype_str(dtype)
+        key = self.chain_measure_key(Ls, Lout, dts, batch_hint, share_hint, False, dev,
+                                     entry_hint, out_hint) + (("gate", "policy"),)
+        kw = dict(dtype=dts, tune="measure", batch_hint=batch_hint, entry_hint=entry_hint,
+                  out_hint=out_hint, share_hint=share_hint, device=dev)
+
+        def grid():
+            cp = self.plan_chain(Ls, Lout, gate=True, **kw)
+            xs, gp = self._synthetic_chain(Ls, key, dev, True)
+            return lambda: cp.apply(xs, out_basis=out_hint, gate_params=gp)
+
+        def sh():
+            cp = self.plan_chain(Ls, Lout, **kw)
+            xs, gp = self._synthetic_chain(Ls, key, dev, True)
+            if out_hint == "fourier":
+                def fn():
+                    rep = cp.apply(xs, out_basis="fourier")
+                    return Rep.from_sh(_gate_sh(gp, rep.to_sh().data), rep.L).to_fourier("half")
+                return fn
+            return lambda: _gate_sh(gp, cp.apply(xs))
+
+        return self._resolve_auto(key, tune, dev, "sh", {"grid": grid, "sh": sh})
+
+    def _select_dtype(self, make_key: Callable, tune: str, requires_grad: bool) -> str:
+        """Resolve a plan's ``dtype='auto'`` (`_resolve_auto`): the best
+        backend of each storage sibling (``make_key(dtype)``), timed on the
+        same synthetic inputs; a sibling no backend serves is left out.
+        Cached under ``make_key('auto')``."""
+        auto_key = make_key("auto")
+        dev = torch.device(auto_key.device)
+
+        def sibling(dts):
+            def build():
+                key = make_key(dts)
+                if not any(b.eligible(key, requires_grad) for b in _REGISTRY.values()):
+                    return None
+                spec = _REGISTRY[self.select(key, tune="measure", requires_grad=requires_grad)]
+                apply, args = _build_plan_apply(spec, key), _synthetic_inputs(key, dev)
+                return lambda: apply(*args)
+            return build
+
+        return self._resolve_auto(auto_key, tune, dev, "float32",
+                                  {d: sibling(d) for d in ("float32", "bfloat16")})
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """Leave the conversion counters as they were: the conversions a timed
+    measurement runs are not the caller's computation."""
+    from . import rep as _rep
+
+    snap = dict(_rep._COUNTS)
+    try:
+        yield
+    finally:
+        _rep._COUNTS.update(snap)
 
 
 _MEASURE_REPS = 20
@@ -1234,3 +1879,8 @@ def plan(*args, **kw) -> GauntPlan:
 
 def plan_chain(*args, **kw) -> ChainPlan:
     return _ENGINE.plan_chain(*args, **kw)
+
+
+def plan_batch(*args, **kw) -> BatchedGauntPlan:
+    """Module-level shorthand for ``get_engine().plan_batch(...)``."""
+    return _ENGINE.plan_batch(*args, **kw)

@@ -39,6 +39,15 @@ __all__ = [
     "sh_to_fourier_half",
     "fourier_to_sh_half",
     "pack_hermitian",
+    "grid_resize",
+    "grid_resize_half",
+    "s2quad_size",
+    "s2quad_angles",
+    "s2quad_exact_degree",
+    "s2quad_sample_sh",
+    "s2quad_project_sh",
+    "s2quad_sample_fourier",
+    "s2quad_project_fourier",
 ]
 
 
@@ -219,3 +228,123 @@ def pack_hermitian(F, L: int):
     and every convolution of such grids).
     """
     return F[..., L:]
+
+
+def _pad(F, widths):
+    """Zero-pad the last two axes by ((u0, u1), (v0, v1)): numpy arrays and
+    torch tensors alike."""
+    if isinstance(F, np.ndarray):
+        return np.pad(F, [(0, 0)] * (F.ndim - 2) + list(widths))
+    import torch.nn.functional as tF
+
+    (u0, u1), (v0, v1) = widths
+    return tF.pad(F, (v0, v1, u0, u1))
+
+
+def grid_resize(F, L_from: int, L_to: int):
+    """Centered bandlimit change of a full grid: zero-pad up or truncate down.
+
+    Padding (L_to > L_from) is exact.  Truncation is exact only when the
+    resident function is bandlimited at L_to; an exit that needs a
+    *projection* to lower degrees goes through `fourier_to_sh` instead.
+    """
+    d = L_to - L_from
+    if d == 0:
+        return F
+    if d > 0:
+        return _pad(F, ((d, d), (d, d)))
+    c = -d
+    return F[..., c:-c, c:-c]
+
+
+def grid_resize_half(Fh, L_from: int, L_to: int):
+    """`grid_resize` for half grids: u pads both sides, v pads the far end."""
+    d = L_to - L_from
+    if d == 0:
+        return Fh
+    if d > 0:
+        return _pad(Fh, ((d, d), (0, d)))
+    c = -d
+    return Fh[..., c:-c, : L_to + 1]
+
+
+# --------------------------------------------------------------------------
+# S^2 quadrature: Gauss-Legendre theta nodes x equispaced phi
+# --------------------------------------------------------------------------
+#
+# The torus product grid above is exact by bandlimit counting for products
+# of bandlimited signals; general pointwise nonlinearities need a true
+# sphere quadrature.  Gauss-Legendre nodes in cos(theta) with n_t points
+# integrate polynomials in cos(theta) up to degree 2 n_t - 1 exactly; the
+# equispaced phi sum with n_p points kills e^{im phi} exactly for
+# 0 < |m| < n_p.  A product of real SH of total degree D integrates exactly
+# iff D <= s2quad_exact_degree(n_t, n_p) = min(2 n_t - 1, n_p - 1).
+# `s2quad_size(L, os)` picks (n_t, n_p) = (os (L+1), 2 os (L+1)), so the
+# default os = 2 resolves degree 4L + 3.
+
+
+def s2quad_size(L: int, os: int = 2) -> tuple[int, int]:
+    """Default (n_theta, n_phi) for a degree-L signal at oversampling ``os``."""
+    if os < 1:
+        raise ValueError(f"oversampling factor must be >= 1, got {os}")
+    nt = os * (L + 1)
+    return nt, 2 * nt
+
+
+def s2quad_angles(n_theta: int, n_phi: int):
+    """(theta [n_t], w_theta [n_t], phi [n_p]): Gauss-Legendre nodes and
+    weights in x = cos(theta), and uniform phi."""
+    x, w = np.polynomial.legendre.leggauss(n_theta)
+    return np.arccos(x), w, 2 * math.pi * np.arange(n_phi) / n_phi
+
+
+def s2quad_exact_degree(n_theta: int, n_phi: int) -> int:
+    """Max total SH degree whose sphere integral this quadrature is exact for."""
+    return min(2 * n_theta - 1, n_phi - 1)
+
+
+def _s2quad_xyz(n_theta: int, n_phi: int) -> np.ndarray:
+    theta, _, phi = s2quad_angles(n_theta, n_phi)
+    tt, pp = np.meshgrid(theta, phi, indexing="ij")
+    return np.stack(
+        [np.sin(tt) * np.cos(pp), np.sin(tt) * np.sin(pp), np.cos(tt)], axis=-1
+    ).reshape(-1, 3)
+
+
+def s2quad_sample_sh(L: int, n_theta: int, n_phi: int) -> np.ndarray:
+    """A [(L+1)^2, G]: real SH on the quadrature grid (float64); ``x @ A``
+    turns packed SH coefficients into sample values."""
+    return real_sph_harm(L, _s2quad_xyz(n_theta, n_phi)).T.copy()
+
+
+def s2quad_project_sh(Lout: int, n_theta: int, n_phi: int) -> np.ndarray:
+    """P [G, (Lout+1)^2]: P[g, k] = w_g Y_k(omega_g), w_g = w_GL(theta_g)
+    2 pi / n_phi; ``V @ P`` recovers the coefficients exactly while the
+    sampled content's degree + Lout stays within `s2quad_exact_degree`."""
+    _, w, _ = s2quad_angles(n_theta, n_phi)
+    S = real_sph_harm(Lout, _s2quad_xyz(n_theta, n_phi))
+    wg = np.repeat(w, n_phi) * (2 * math.pi / n_phi)
+    return S * wg[:, None]
+
+
+def s2quad_sample_fourier(L: int, n_theta: int, n_phi: int) -> np.ndarray:
+    """M [2 (2L+1)(L+1), G]: a resident half grid, stacked as the real
+    vector [Re F; Im F], to its sphere samples at the quadrature angles in
+    one real matmul (theta in (0, pi) lies inside the torus domain)."""
+    theta, _, phi = s2quad_angles(n_theta, n_phi)
+    us = np.arange(-L, L + 1)
+    vs = np.arange(0, L + 1)
+    Et = np.exp(1j * np.outer(us, theta))
+    Ep = np.exp(1j * np.outer(vs, phi))
+    c = np.where(vs == 0, 1.0, 2.0)
+    E = np.einsum("ua,vb,v->uvab", Et, Ep, c).reshape(
+        (2 * L + 1) * (L + 1), n_theta * n_phi)
+    return np.concatenate([E.real, -E.imag], axis=0)
+
+
+def s2quad_project_fourier(L: int, n_theta: int, n_phi: int) -> np.ndarray:
+    """Z [G, 2L+1, L+1] complex: quadrature samples -> half grid, the
+    projection to SH and the SH -> Fourier conversion as one matrix."""
+    P = s2quad_project_sh(L, n_theta, n_phi)
+    y = sh_to_fourier_half(L)
+    return np.einsum("gk,kuv->guv", P, y)

@@ -27,6 +27,7 @@ import torch
 
 from . import constants as _const
 from .fourier import pack_hermitian
+from .rep import count_conversion
 from .irreps import degree_slices, l_array, num_coeffs
 
 __all__ = [
@@ -68,7 +69,9 @@ def _packed_gather(L: int, device, dtype):
 def sh_to_fourier(x: torch.Tensor, L: int, conversion: str = "dense",
                   cdtype=torch.complex64) -> torch.Tensor:
     """x [..., (L+1)^2] real -> centered grid: 'dense' and 'packed'
-    [..., 2L+1, 2L+1], 'half' [..., 2L+1, L+1] (the v >= 0 columns)."""
+    [..., 2L+1, 2L+1], 'half' [..., 2L+1, L+1] (the v >= 0 columns).
+    Ticks the 'sh_to_fourier' counter (`core.rep`)."""
+    count_conversion("sh_to_fourier")
     if conversion != "packed":
         y = _conv_tensor(conversion, L, cdtype, x.device)
         return torch.einsum("...i,iuv->...uv", x.to(y.dtype), y)
@@ -86,7 +89,9 @@ def sh_to_fourier(x: torch.Tensor, L: int, conversion: str = "dense",
 def fourier_to_sh(F: torch.Tensor, Lf: int, Lout: int, conversion: str = "dense",
                   rdtype=torch.float32) -> torch.Tensor:
     """Centered grid -> real irreps [..., (Lout+1)^2] ('dense' and 'packed'
-    expect the full grid, 'half' the Hermitian half form)."""
+    expect the full grid, 'half' the Hermitian half form).  Ticks the
+    'fourier_to_sh' counter."""
+    count_conversion("fourier_to_sh")
     cname = _CNAME[F.dtype]
     if conversion == "dense":
         z = _const.z_dense(Lf, Lout, cname)
@@ -150,7 +155,9 @@ def sh_to_fourier_bydeg(x: torch.Tensor, L: int, conversion: str = "dense",
 
     Slice l is the grid contribution of degree l alone, so any per-degree
     reweighting w . x converts as ``einsum('...l,...luv->...uv', w, Fl)`` —
-    one conversion serves every reweighted copy of the same tensor."""
+    one conversion serves every reweighted copy of the same tensor (and
+    ticks the 'sh_to_fourier' counter once)."""
+    count_conversion("sh_to_fourier")
     y = _conv_tensor(conversion, L, cdtype, x.device)
     xc = x.to(y.dtype)
     parts = [torch.einsum("...i,iuv->...uv", xc[..., sl], y[sl])

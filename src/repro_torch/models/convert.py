@@ -1,5 +1,6 @@
-"""Convert reference (JAX) parameters into the port's: MaceGaunt's state
-dict and its optimizer state, and the language model's parameter tree.
+"""Convert reference (JAX) parameters into the port's: the state dicts of
+MaceGaunt, SegnnNBody and SelfmixLayer, MaceGaunt's optimizer state, and
+the language model's parameter tree.
 
 ``jax.random`` and torch generators give different numbers from one seed,
 so parity runs convert the reference's ``init`` pytrees (as numpy
@@ -11,7 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "opt_state_from_jax", "lm_params_from_jax"]
+__all__ = ["params_from_jax", "segnn_params_from_jax", "selfmix_params_from_jax",
+           "opt_state_from_jax", "lm_params_from_jax"]
 
 
 def _t(a) -> torch.Tensor:
@@ -34,6 +36,27 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
         sd[p + "gate_w1"] = _t(lp["gate"]["w1"])
         sd[p + "gate_w2"] = _t(lp["gate"]["w2"])
     return sd
+
+
+def segnn_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """Reference SegnnNBody pytree {embed, out, layers[{radial{w1,w2}, mix,
+    self_mix, gate{w1,w2}}]} -> ``SegnnNBody.load_state_dict`` input."""
+    sd = {"embed": _t(tree["embed"]), "out": _t(tree["out"])}
+    for i, lp in enumerate(tree["layers"]):
+        p = f"layers.{i}."
+        sd[p + "radial_w1"] = _t(lp["radial"]["w1"])
+        sd[p + "radial_w2"] = _t(lp["radial"]["w2"])
+        sd[p + "mix"] = _t(lp["mix"])
+        sd[p + "self_mix"] = _t(lp["self_mix"])
+        sd[p + "gate_w1"] = _t(lp["gate"]["w1"])
+        sd[p + "gate_w2"] = _t(lp["gate"]["w2"])
+    return sd
+
+
+def selfmix_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """Reference SelfmixLayer pytree {w1, w2, w3, mix} ->
+    ``SelfmixLayer.load_state_dict`` input."""
+    return {k: _t(tree[k]) for k in ("w1", "w2", "w3", "mix")}
 
 
 def opt_state_from_jax(state: dict) -> dict:

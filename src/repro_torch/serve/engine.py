@@ -32,7 +32,6 @@ import time
 import numpy as np
 
 from ..core import engine as _engine
-from ..models.equivariant import _resolve_grid_gate
 from . import faults
 from .metrics import ServeMetrics
 from .pools import BucketedPools, BucketSpec
@@ -127,11 +126,15 @@ class EquivariantServeEngine:
         cannot happen inside a captured graph (`engine._select_chain`
         raises there).  A bucket's step presents n_slots * max_atoms *
         channels rows (all slots in one pass), so each bucket's key is
-        measured here at that count: at float32 and at the config's storage
+        measured here at that count: at float32 and at the model's storage
         dtype, gated and ungated when the grid gate is on, as the reference
-        does.  Then each bucket's step is built — on CUDA its graph is
-        captured — with up to three attempts, so a transient failure
-        (injected ``compile_fail`` or real) does not keep a host down."""
+        does.  The model's 'auto' storage dtype and grid gate are resolved
+        first, once for the model at the largest bucket's rows, and kept in
+        its state (`MaceGaunt.storage_dtype`, `MaceGaunt.grid_gate_on`): a
+        model loaded from a state that holds them is not timed.  Then each
+        bucket's step is built — on CUDA its graph is captured — with up to
+        three attempts, so a transient failure (injected ``compile_fail`` or
+        real) does not keep a host down."""
         cfg = self.model.cfg
         eng = _engine.get_engine()
         if cfg.autotune_cache is not None:
@@ -143,11 +146,15 @@ class EquivariantServeEngine:
             eng._maybe_load_cache()
         if eng.cache_unusable:
             self.metrics.counters["autotune_cache_load_failed"] += 1
+        # the model's 'auto' decisions are resolved before any step is
+        # built: every bucket, and direct evaluation, run one function
+        big = max(p.spec.n_slots * p.spec.max_atoms for p in self.pools) * cfg.channels
+        dts = self.model.storage_dtype(big, self.model.device)
+        gate_opts = (False, True) if self.model.grid_gate_on(big, self.model.device) else (False,)
         if cfg.chain_tune == "measure":
-            gate_opts = (False, True) if _resolve_grid_gate(cfg) else (False,)
             for pool in self.pools:
                 rows = pool.spec.n_slots * pool.spec.max_atoms * cfg.channels
-                for d in dict.fromkeys(["float32", cfg.compute_dtype]):
+                for d in dict.fromkeys(["float32", dts]):
                     for g in gate_opts:
                         _engine.plan_chain((cfg.L,) * cfg.nu, cfg.L, tune="measure",
                                            batch_hint=rows, share_hint=(0,) * cfg.nu,

@@ -419,15 +419,15 @@ def test_chain_plan_bf16_matches_the_reference(backend, gated):
 def test_bf16_plans_and_measured_chain_key():
     """bf16 plans key on 'bfloat16'; the measured chain pick times its
     candidates at bf16 (f32 synthetic gate weights, as the models' are);
-    'auto' stays unported."""
+    'auto' resolves to float32 under heuristic tuning."""
     eng = port_engine.GauntEngine()
     cp = eng.plan_chain((2, 2, 2), 2, tune="measure", batch_hint=64, share_hint=(0, 0, 0),
                         gate=True, device="cpu", dtype="bfloat16")
     key = eng.chain_measure_key((2, 2, 2), 2, "bfloat16", 64, (0, 0, 0), True, "cpu")
-    assert set(eng.measured_times[key]) == {"tree", "fused_torch"}
+    assert set(eng.measured_times[key]) == {"tree", "looped", "fused_torch"}
     assert cp.dtype == "bfloat16" and eng.timing_runs == 1
-    with pytest.raises(NotImplementedError, match="auto"):
-        eng.plan_chain((2, 2, 2), 2, dtype="auto", device="cpu")
+    assert eng.plan_chain((2, 2, 2), 2, dtype="auto", device="cpu").dtype == "float32"
+    assert eng.timing_runs == 1
     assert port_engine._dtype_str(torch.bfloat16) == "bfloat16"
 
 

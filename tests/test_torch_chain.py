@@ -164,7 +164,7 @@ def test_measured_chain_pick_on_cpu_is_a_cpu_candidate():
     cp = eng.plan_chain((2, 2, 2), 2, tune="measure", batch_hint=64,
                         share_hint=(0, 0, 0), gate=True, device="cpu")
     key = eng.chain_measure_key((2, 2, 2), 2, "float32", 64, (0, 0, 0), True, "cpu")
-    assert set(eng.measured_times[key]) == {"tree", "fused_torch"}
+    assert set(eng.measured_times[key]) == {"tree", "looped", "fused_torch"}
     assert cp.backend == min(eng.measured_times[key], key=eng.measured_times[key].get)
     assert eng.timing_runs == 1
     eng.plan_chain((2, 2, 2), 2, tune="measure", batch_hint=60,  # same rung: cached

@@ -208,12 +208,19 @@ def test_calibration_set_and_reset_track_the_reference():
 
 
 def test_plan_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="plan_chain"):
+    with pytest.raises(NotImplementedError, match="item 4b"):
         port_engine.plan(kind="manybody", device="cpu")
-    with pytest.raises(NotImplementedError, match="Fourier-boundary"):
-        port_engine.plan(2, 2, 4, options={"boundary": ("fourier", "sh", "sh")}, device="cpu")
-    with pytest.raises(NotImplementedError, match="auto"):
-        port_engine.plan(2, 2, 4, dtype="auto", device="cpu")
+    # Fourier boundaries are ported on the spectral backends only
+    pf = port_engine.plan(2, 2, 4, options={"boundary": ("fourier", "sh", "sh")},
+                          device="cpu")
+    assert pf.key.opt("boundary") == ("fourier", "sh", "sh")
+    with pytest.raises(ValueError, match="cannot serve"):
+        port_engine.plan(2, 2, 4, options={"boundary": ("fourier", "sh", "sh")},
+                         backend="dense_einsum", device="cpu")
+    # 'auto' resolves to float32 under heuristic tuning, with no timing
+    eng = port_engine.GauntEngine()
+    assert eng.plan(2, 2, 4, dtype="auto", device="cpu").key.dtype == "float32"
+    assert eng.timing_runs == 0
     # bf16 storage is ported: the plan keys on it
     pb = port_engine.plan(2, 2, 4, dtype="bfloat16", device="cpu")
     assert pb.key.dtype == "bfloat16" and pb is not port_engine.plan(2, 2, 4, device="cpu")

@@ -53,7 +53,10 @@ def test_energy_forces_match_reference(grid_gate, chain_tune):
 def test_converted_params_round_trip():
     ref, params, model = _port()
     sd = model.state_dict()
-    assert set(sd) == set(params_from_jax(jax.tree.map(np.asarray, params)))
+    # beside the parameters, the state holds the model's stored 'auto'
+    # decisions, which the reference has no state for
+    assert set(sd) == set(params_from_jax(jax.tree.map(np.asarray, params))) | {
+        "grid_gate_pick", "dtype_pick"}
     assert np.array_equal(sd["layers.1.gate_w2"].numpy(),
                           np.asarray(params["layers"][1]["gate"]["w2"]))
 

@@ -88,6 +88,26 @@ def test_pairwise_entry_points_default_to_cuda():
     assert gaunt_tp_fused(x, x, 2, 2, device="cpu").shape == (3, 25)
 
 
+def test_other_models_and_batched_plans_default_to_cuda():
+    """SegnnNBody, SelfmixLayer and plan_batch run on CUDA unless given
+    device='cpu', as every entry point of the port does."""
+    from repro_torch.configs.gaunt_ff import gaunt_segnn_nbody
+    from repro_torch.core.engine import plan_batch
+    from repro_torch.models.equivariant import SegnnNBody, SelfmixLayer
+
+    small = dataclasses.replace(gaunt_segnn_nbody, channels=2, n_layers=1)
+    makers = (lambda **kw: SegnnNBody(small, **kw), lambda **kw: SelfmixLayer(1, 2, **kw),
+              lambda **kw: plan_batch([(1, 1, 2)], **kw))
+    for make in makers:
+        if torch.cuda.is_available():
+            make()
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
+        make(device="cpu")
+    assert SegnnNBody(small, device="cpu").device.type == "cpu"
+
+
 def test_kernel_wrapper_runs_plain_version_only_for_cpu_tensors():
     x = torch.randn(3, 9)
     out = gaunt_chain_fused_hopper([x, x, x], (2, 2, 2), 2)
