@@ -75,6 +75,20 @@ result line):
      gate policy at every serve bucket, `gaunt_mace_ff` with
      grid_gate='auto' served == direct, and this run's autotune file
      reloaded with zero timing runs (`[policies]`);
+  4d. the paper's general convolution — full-width `gaunt_mace_ff` with
+     conv_impl='general' (the filter Y(r) on its Fourier grid once per
+     geometry, a direct 2D convolution a layer) served through the same
+     buckets, each step a CUDA graph: served == direct, general == eSCN at
+     the same parameters, rotation, one chain launch a layer a replay,
+     each bucket's graph and eager step against [main]'s eSCN step, a
+     profiled 32-atom graph step, a fresh engine warm from the phase's
+     autotune file, 6 `train_loop` steps and a kernel- vs tree-pinned step
+     (`[general]`); `plan(kind='manybody')` on each of its five backends at
+     8,192 rows against the tree chain, forward and gradients, ms a call,
+     and `plan_batch` with two Ls buckets (`[manybody]`); `calibrate_fused`
+     at f32 and bf16, reloaded measured, and the offline `--fast` sweep
+     then `--verify-warm` with zero timing runs (`[calibrate]`); the
+     quickstart twin on the card (`[quickstart]`);
   5. pairwise path — the pairwise tensor product `ops.gaunt_tp_fused` at
      (L1, L2, Lout) = (6, 6, 6) on 81,920 rows (EquiformerV2's OC20 width,
      lmax 6 x 128 channels, 640 nodes): the pair kernel launched, finite,
@@ -1555,6 +1569,340 @@ def phase_policies(device, buckets, sizes):
 
 
 # --------------------------------------------------------------------------
+# phase 4d: the paper's general convolution, the manybody plans, the cost
+# model's calibration, the quickstart
+# --------------------------------------------------------------------------
+
+GENERAL_TRAIN_STEPS = 6
+MANYBODY_ROWS = 8192
+
+
+def phase_general(device, cfg, buckets, sizes, escn_times=None, train_steps=GENERAL_TRAIN_STEPS):
+    """Full-width `gaunt_mace_ff` with conv_impl='general' (the filter Y(r)
+    on its Fourier grid once per geometry, a direct 2D convolution a layer)
+    served through the bucketed engine, each bucket's step a CUDA graph:
+    served == direct, general == eSCN at the same parameters, rotation,
+    one chain launch a layer a replay, each bucket's graph and eager step
+    against [main]'s eSCN step (``escn_times``), a profiled 32-atom graph
+    step, a fresh engine warm from this phase's autotune file; then a few
+    `train_loop` steps and a kernel- vs tree-pinned step."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.core import engine as _engine
+    from repro_torch.examples.train_force_field import LJBatches
+    from repro_torch.kernels.gaunt_fused import kernel_stats, reset_kernel_stats
+    from repro_torch.models.equivariant import MaceGaunt
+    from repro_torch.serve.engine import EquivariantServeEngine
+    from repro_torch.train import train_loop
+
+    cuda = device.type == "cuda"
+    kernel = "fused_hopper" if cuda else "fused_torch"
+    gcfg = dataclasses.replace(cfg, conv_impl="general")
+    ge = _engine.get_engine()
+    model = MaceGaunt(gcfg, device=device, generator=torch.Generator().manual_seed(0))
+    eng = EquivariantServeEngine(model, buckets=buckets)
+    runs = ge.timing_runs
+    t0 = time.perf_counter()
+    eng.warmup()
+    print(f"[general] {gcfg.name} conv_impl='general' L={gcfg.L} L_edge={gcfg.L_edge} "
+          f"channels={gcfg.channels} layers={gcfg.n_layers} nu={gcfg.nu}: warmup "
+          f"{time.perf_counter() - t0:.2f} s, {ge.timing_runs - runs} timing runs")
+    conv = model.conv
+    picks = {}
+    for pool in eng.pools:
+        key = _bucket_key(ge, gcfg, pool, device)
+        picks[pool.spec.label()] = ge.measured_pick(key)
+        n = pool.spec.max_atoms
+        print(f"[general] bucket {pool.spec.label()}: conv backend {conv.backend!r} "
+              f"(resident filter: a dense {2 * gcfg.L_edge + 1}x{2 * gcfg.L_edge + 1} grid "
+              f"per edge, built once per geometry; {pool.spec.n_slots * n * n * gcfg.channels:,}"
+              f" edge-channel rows a layer, {(2 * gcfg.L_edge + 1) ** 2} shifted "
+              f"{2 * gcfg.L + 1}x{2 * gcfg.L + 1} copies into a "
+              f"{2 * (gcfg.L + gcfg.L_edge) + 1}-wide grid); chain pick "
+              f"{picks[pool.spec.label()]}"
+              + (f"; graph captured in {pool.capture_s * 1e3:.1f} ms, graph memory "
+                 f"{pool.graph_bytes / 2**20:.1f} MiB, kernel launches per replay "
+                 f"{pool.launches or '{}'}" if cuda else ""))
+        if cuda:
+            check(pool.compiled() and pool.graph_bytes is not None,
+                  f"[general] bucket {pool.spec.label()}: no graph after warmup")
+            if picks[pool.spec.label()] == kernel:
+                check(pool.launches.get("gaunt_chain") == gcfg.n_layers,
+                      f"[general] bucket {pool.spec.label()}: {pool.launches} chain "
+                      f"launches per replay, not one a layer")
+    reqs = make_requests(sizes, gcfg.n_species, seed=100)
+    replays = [p.replays for p in eng.pools]
+    reset_kernel_stats()
+    eng.run(reqs)
+    if cuda:
+        torch.cuda.synchronize()
+    launches = kernel_stats()["gaunt_chain"]
+    per_bucket = {p.spec.label(): (p.replays - r0, p.launches.get("gaunt_chain", 0)
+                                   * (p.replays - r0)) for p, r0 in zip(eng.pools, replays)}
+    print(f"[general] served {len(reqs)} requests: gaunt_chain launches {launches} "
+          f"(counted through graph replays; per bucket (replays, launches): {per_bucket})")
+    check(all(r.done and not r.rejected for r in reqs), "[general] a request did not complete")
+    if cuda:
+        check(launches == sum(v for _, v in per_bucket.values()) and launches > 0,
+              f"[general] gaunt_chain launches {launches} differ from the graphs' "
+              f"replays {per_bucket}")
+    worst_e, worst_f = served_vs_direct(model, reqs, device)
+    print(f"[general] served vs direct: energy rel {worst_e:.3e} (tol {F32_IDENTITY_TOL}), "
+          f"forces rel {worst_f:.3e} (tol {F32_LOOSE_TOL})")
+    check(worst_e <= F32_IDENTITY_TOL and worst_f <= F32_LOOSE_TOL,
+          "[general] served results differ from direct evaluation")
+    # the two convolutions compute one function
+    escn = MaceGaunt(cfg, device=device)
+    escn.load_state_dict(model.state_dict())
+    worst_e = worst_f = 0.0
+    for r in reqs[-3:]:
+        sp, pos = (torch.as_tensor(a, device=device) for a in (r.species, r.pos))
+        e0, f0 = model.energy_forces(sp, pos)
+        e1, f1 = escn.energy_forces(sp, pos)
+        worst_e = max(worst_e, rel_err(e0, e1)[1])
+        worst_f = max(worst_f, float((f0 - f1).abs().max()) / max(1e-30, float(f1.abs().max())))
+    print(f"[general] general vs eSCN at the same parameters ({len(reqs[-3:])} molecules): "
+          f"energy rel {worst_e:.3e} (tol {F32_IDENTITY_TOL}), forces rel {worst_f:.3e} "
+          f"(tol {F32_LOOSE_TOL})")
+    check(worst_e <= F32_IDENTITY_TOL and worst_f <= F32_LOOSE_TOL,
+          "[general] the general and eSCN models differ")
+    del escn
+    r0 = reqs[-1]
+    Q = random_rotation(7)
+    sp = torch.as_tensor(r0.species, device=device)
+    e0, f0 = model.energy_forces(sp, torch.as_tensor(r0.pos, device=device))
+    e1, f1 = model.energy_forces(sp, torch.as_tensor((r0.pos @ Q.T).astype(np.float32),
+                                                     device=device))
+    f0, f1 = f0.cpu().numpy(), f1.cpu().numpy()
+    de = abs(float(e1) - float(e0)) / max(1.0, abs(float(e0)))
+    df = float(np.abs(f1 - f0 @ Q.T).max()) / max(1e-30, float(np.abs(f0).max()))
+    print(f"[general] rotation: energy rel {de:.3e} (tol {F32_TRANSFORM_TOL}), forces rel "
+          f"{df:.3e} (tol {F32_LOOSE_TOL})")
+    check(de <= F32_TRANSFORM_TOL and df <= F32_LOOSE_TOL, "[general] rotation check failed")
+    if cuda:
+        times = phase_graph_times(eng, "serve general conv")
+        for label, (gh, gev, xh, xev) in times.items():
+            if escn_times and label in escn_times:
+                eh, eev = escn_times[label][:2]
+                print(f"[times] bucket {label}: general graph step {gh:.3f} ms host / "
+                      f"{gev:.3f} ms events against [main]'s eSCN graph step {eh:.3f} / "
+                      f"{eev:.3f} ms: x{gh / eh:.2f} host")
+        large = eng.pools.pools[-1]
+
+        def admit():
+            for r in make_requests([large.spec.max_atoms] * large.spec.n_slots,
+                                   gcfg.n_species, seed=900):
+                check(eng.add_request(r), "no free slot for the profiled step")
+
+        profile_step(f"serve step general conv {large.spec.n_slots} x "
+                     f"{large.spec.max_atoms} atoms graph", admit, eng.step)
+    # a fresh engine warm from this phase's autotune file
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "autotune.json")
+        ge.set_autotune_cache(path)
+        ge.flush_autotune_cache()
+        ge.clear()
+        warm = MaceGaunt(dataclasses.replace(gcfg, autotune_cache=path), device=device,
+                         generator=torch.Generator().manual_seed(0))
+        weng = EquivariantServeEngine(warm, buckets=buckets)
+        weng.warmup()
+        wpicks = {p.spec.label(): ge.measured_pick(_bucket_key(ge, gcfg, p, device))
+                  for p in weng.pools}
+        print(f"[general] a fresh engine from this phase's autotune file: "
+              f"{ge.timing_runs} timing runs, picks {wpicks}")
+        check(ge.timing_runs == 0 and wpicks == picks,
+              "[general] the autotune file did not warm the general engine")
+        ge.set_autotune_cache(None)
+        del weng, warm
+    del eng
+    # training through the general conv: the loss's double backward runs
+    # through the direct 2D convolution's slice adds
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=train_steps,
+                       log_every=1, grad_clip=10.0)
+
+    def loss_fn(m, b):
+        return m.loss(b), {}
+
+    def new_data():
+        return LJBatches(n=TRAIN_MOLECULES, batch=TRAIN_MOLECULES, seed=0, n_atoms=TRAIN_ATOMS)
+
+    rows = TRAIN_MOLECULES * TRAIN_ATOMS * gcfg.channels
+    _engine.plan_chain((gcfg.L,) * gcfg.nu, gcfg.L, tune="measure", batch_hint=rows,
+                       share_hint=(0,) * gcfg.nu, gate=True, device=device)
+    key = ge.chain_measure_key((gcfg.L,) * gcfg.nu, gcfg.L, "float32", rows,
+                               (0,) * gcfg.nu, True, device)
+    marks = []
+    t0 = time.perf_counter()
+    _, hist = train_loop(loss_fn, MaceGaunt(gcfg, device=device,
+                                            generator=torch.Generator().manual_seed(0)),
+                         new_data(), tcfg, hooks={"log": lambda m: marks.append(
+                             time.perf_counter())})
+    losses = [h["loss"] for h in hist]
+    step_ms = np.diff([t0] + marks) * 1e3
+    print(f"[general] train_loop {train_steps} steps on {TRAIN_MOLECULES} x {TRAIN_ATOMS}-atom "
+          f"LJ batches (chain pick {ge.measured_pick(key)}): losses "
+          + " ".join(f"{v:.5f}" for v in losses)
+          + f"; step time {float(np.median(step_ms[1:])):.2f} ms (host clock, median of "
+          f"steps 2-{train_steps}), first {step_ms[0]:.1f} ms")
+    check(len(hist) == train_steps and all(np.isfinite(h["loss"]) and
+                                           np.isfinite(h["grad_norm"]) for h in hist),
+          "[general] a training loss or gradient norm is not finite")
+    batch = {k: torch.as_tensor(v, device=device) for k, v in new_data().next_batch().items()}
+    tm = MaceGaunt(gcfg, device=device, generator=torch.Generator().manual_seed(0))
+    params = list(tm.parameters())
+    out = {}
+    for backend in ("tree", kernel):
+        with ge.pinned_chain(key, backend):
+            loss = tm.loss(batch)
+            out[backend] = (float(loss.detach()), torch.autograd.grad(loss, params))
+    (lt, gt), (lk, gk) = out["tree"], out[kernel]
+    dl, dg = abs(lk - lt) / max(1.0, abs(lt)), _grad_err(gk, gt)
+    print(f"[general] one step's loss and gradients, kernel vs tree pinned: loss rel "
+          f"{dl:.3e} (tol {F32_IDENTITY_TOL}), worst parameter gradient rel {dg:.3e} (tol "
+          f"{F32_LOOSE_TOL})")
+    check(dl <= F32_IDENTITY_TOL and dg <= F32_LOOSE_TOL,
+          "[general] the kernel-pinned training step differs from the tree-pinned one")
+    del model, tm, out, gk, gt
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_manybody(device, rows: int = MANYBODY_ROWS):
+    """`plan(kind='manybody', Ls=(2, 2, 2), Lout=2)` pinned to each backend
+    against the tree chain on the same operands, forward and gradients, ms
+    per call; then `plan_batch` with two Ls buckets against per-plan
+    calls."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine as _engine
+
+    Ls, Lout = (2, 2, 2), 2
+    gen = torch.Generator(device=device).manual_seed(11)
+    xs = [torch.randn(rows, 9, device=device, generator=gen) for _ in Ls]
+    W = torch.randn(rows, 9, device=device, generator=gen)
+    tree = _engine.plan_chain(Ls, Lout, backend="tree", device=device)
+
+    def fwd_grad(apply):
+        leaves = [x.clone().requires_grad_(True) for x in xs]
+        out = apply(leaves)
+        return out.detach(), torch.autograd.grad((out * W).sum(), leaves)
+
+    ref, ref_g = fwd_grad(lambda a: tree.apply(a))
+    clock = "CUDA events, median of 50" if device.type == "cuda" else "not timed on the CPU"
+    for backend in _engine.available_backends("manybody"):
+        p = _engine.plan(kind="manybody", Ls=Ls, Lout=Lout, backend=backend, device=device)
+        out, g = fwd_grad(p.apply)
+        err = rel_err(out, ref)[1]
+        gerr = _grad_err(g, ref_g)
+        ms = event_ms(lambda: p.apply(xs)) if device.type == "cuda" else float("nan")
+        print(f"[manybody] Ls={Ls} Lout={Lout} {rows} rows on {backend}: forward vs the tree "
+              f"chain rel {err:.3e} (tol {F32_IDENTITY_TOL}), gradients rel {gerr:.3e} (tol "
+              f"{F32_LOOSE_TOL}); {ms:.4f} ms a call ({clock})")
+        check(err <= F32_IDENTITY_TOL and gerr <= F32_LOOSE_TOL,
+              f"[manybody] the {backend} manybody plan differs from the tree chain")
+    if device.type == "cuda":
+        print(f"[manybody] the tree chain itself: {event_ms(lambda: tree.apply(xs)):.4f} ms a "
+              f"call ({clock})")
+    items = [_engine.BatchItem(Ls=Ls, Lout=Lout), _engine.BatchItem(Ls=(1, 2)),
+             _engine.BatchItem(Ls=Ls, Lout=Lout)]
+    bp = _engine.plan_batch(items, kind="manybody", device=device)
+    ins = [xs, [torch.randn(rows // 2, 4, device=device, generator=gen), xs[0][: rows // 2]],
+           [x[: rows // 4] for x in xs]]
+    outs = bp.apply(ins)
+    worst = 0.0
+    for it, op, o in zip(items, ins, outs):
+        p = _engine.plan(kind="manybody", Ls=it.Ls, Lout=it.Lout, backend=bp.buckets[
+            0 if it.Ls == Ls else 1].plan.backend, device=device)
+        worst = max(worst, rel_err(o, p.apply(op))[1])
+    print(f"[manybody] plan_batch of {len(items)} items in {len(bp.buckets)} Ls buckets ("
+          + ", ".join(f"{b.item_ids} -> {b.plan.backend}" for b in bp.buckets)
+          + f"): vs per-plan calls rel {worst:.3e} (tol {BATCH_VS_PLAN_TOL})")
+    check(len(bp.buckets) == 2 and worst <= BATCH_VS_PLAN_TOL,
+          "[manybody] plan_batch differs from per-plan calls")
+
+
+def phase_calibrate(device, sweep: bool = True):
+    """`calibrate_fused` at f32 and bf16 (the factor, both times), the factor
+    reloaded measured from the autotune cache by a fresh engine with zero
+    timing runs; then the offline sweep (`--fast`) on a fresh engine and
+    again with ``--verify-warm``, which must make zero timing runs."""
+    import os
+    import tempfile
+
+    from repro_torch.core import autotune_cache
+    from repro_torch.core import engine as _engine
+
+    saved = _engine.get_calibration()
+    ge = _engine.get_engine()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "calib.json")
+            eng = _engine.GauntEngine(cache_path=path)
+            for d in ("float32", "bfloat16"):
+                t0 = time.perf_counter()
+                rec = eng.calibrate_fused(dtype=d, device=device)
+                print(f"[calibrate] calibrate_fused L={rec['L']} B={rec['B']} {d}: factor "
+                      f"{rec['factor']} (fused_torch {rec['fused_torch_us']} us, dense_einsum "
+                      f"{rec['dense_einsum_us']} us a call, median of 5, synchronised; "
+                      f"{time.perf_counter() - t0:.2f} s)")
+            check(eng.timing_runs == 2, "[calibrate] calibrate_fused is one timing run a dtype")
+            measured = _engine.get_calibration()
+            _engine.reset_calibration()
+            warm = _engine.GauntEngine(cache_path=path)
+            warm.load_autotune_cache()
+            cal = _engine.get_calibration()
+            ok = all(cal[k] == measured[k] for k in ("fused_skinny", "fused_skinny:bfloat16"))
+            print(f"[calibrate] reloaded from the autotune file: fused_skinny "
+                  f"{cal['fused_skinny']} measured {cal['fused_skinny_measured']}, bf16 "
+                  f"{cal['fused_skinny:bfloat16']} measured "
+                  f"{cal['fused_skinny:bfloat16_measured']}; {warm.timing_runs} timing runs")
+            check(ok and cal["fused_skinny_measured"] and cal["fused_skinny:bfloat16_measured"]
+                  and warm.timing_runs == 0, "[calibrate] the factors did not reload measured")
+            if sweep:
+                sweep_path = os.path.join(tmp, "sweep.json")
+                argv = ["--fast", "--cache", sweep_path, "--device", device.type]
+                for tag, extra in (("sweep", []), ("verify-warm", ["--verify-warm"])):
+                    _engine.reset_calibration()
+                    _engine._ENGINE = _engine.GauntEngine()
+                    t0 = time.perf_counter()
+                    rc = autotune_cache.main(argv + extra)
+                    runs = _engine.get_engine().timing_runs
+                    print(f"[calibrate] offline sweep ({tag}): exit {rc}, {runs} timing runs, "
+                          f"{time.perf_counter() - t0:.2f} s")
+                    check(rc == 0, f"[calibrate] the offline sweep ({tag}) exited {rc}")
+                check(runs == 0, "[calibrate] --verify-warm made timing runs")
+    finally:
+        _engine._ENGINE = ge
+        _engine.reset_calibration()
+        _engine.set_calibration(**saved)
+
+
+def phase_quickstart(device) -> dict:
+    """The quickstart twin on the device: every max-abs error below 1e-5,
+    its times printed beside the card."""
+    from repro_torch.examples.quickstart import main as quickstart
+
+    res = quickstart(device)
+    worst = max(res["errors"].values())
+    print(f"[quickstart] {len(res['errors'])} comparisons, worst max-abs error {worst:.3e} "
+          f"(tol {QUICKSTART_TOL}); times "
+          + ", ".join(f"{k} {v:.1f} us" for k, v in res["times_us"].items())
+          + f" on {res['device']}")
+    check(worst <= QUICKSTART_TOL, f"[quickstart] an error is above {QUICKSTART_TOL}: "
+                                   f"{res['errors']}")
+    return res
+
+
+QUICKSTART_TOL = 1e-5
+
+
+# --------------------------------------------------------------------------
 # phase 4: times
 # --------------------------------------------------------------------------
 
@@ -2802,7 +3150,7 @@ def main() -> int:
         launches_bf16, model_bf16, eng_bf16 = phase_main_path(device, cfg_bf16, buckets, sizes)
         (kernel_ms_bf16, plain_ms_bf16, bound_ms_bf16,
          bound_by_bf16) = phase_times(device, rows, dtype="bfloat16")
-        phase_graph_times(eng, "serve f32 chain")
+        escn_times = phase_graph_times(eng, "serve f32 chain")
         phase_graph_times(eng_bf16, "serve bf16 chain")
         step_ms = serve_step_ms(model, n_slots, max_atoms)
         step_ms_bf16 = serve_step_ms(model_bf16, n_slots, max_atoms)
@@ -2825,6 +3173,11 @@ def main() -> int:
         phase_selfmix(device)
         phase_batched(device)
         phase_policies(device, buckets, sizes)
+        # the paper's general convolution, the manybody plans, calibration
+        phase_general(device, cfg, buckets, sizes, escn_times)
+        phase_manybody(device)
+        phase_calibrate(device)
+        phase_quickstart(device)
         pair_launches, (x1, x2) = phase_pair_main(device, pair_rows)
         (pair_ms, pair_plain_ms, pair_bound_ms, pair_bound_by,
          pair_library_ms) = phase_pair_times(device, x1, x2)

@@ -23,10 +23,11 @@ class EquivariantConfig:
     cutoff: float = 5.0
     n_radial: int = 8
     tp_impl: str = "gaunt"    # gaunt | gaunt_fused | gaunt_auto | cg
-    conv_impl: str = "escn"   # only 'escn' is ported
+    conv_impl: str = "escn"   # escn | general (the paper's 2D Fourier convolution)
     hidden: int = 128
-    # keep the layer-constant edge geometry resident: the eSCN alignment
-    # rotation and Wigner recursion run once per geometry, not per layer
+    # keep the layer-constant edge geometry resident: the general conv's
+    # filter grid (`EquivariantConv.filter_rep`), or the eSCN alignment
+    # rotation and Wigner recursion, built once per geometry, not per layer
     fourier_resident: bool = True
     # chain-backend policy: 'heuristic' keeps the spectral tree, 'measure'
     # times the chain backends (tree vs the collocation kernel) at the real

@@ -301,11 +301,20 @@ _CHAINS = (((1, 1, 1), 1, 512), ((2, 2), 2, 64), ((2, 2, 2), 2, 128),
 
 def _sweep(eng, fast: bool, device, serve_rows: tuple) -> int:
     """Measure the known workload grid into ``eng``'s table on ``device``,
-    at both storage dtypes -> the number of new selections."""
+    at both storage dtypes and the 'auto' family, with the cost model's
+    calibration per dtype, so a process that loads the file boots warm
+    with any ``compute_dtype`` and ``grid_gate`` -> the number of new
+    selections."""
     from ..configs.gaunt_ff import gaunt_mace_ff as cfg
+    from .engine import _calib_key, get_calibration
 
     n0 = len(eng._measured)
-    dtypes = ("float32", "bfloat16")
+    dtypes = ("float32", "bfloat16", "auto")
+    # the fused cost factor per storage dtype; a factor already measured
+    # (here or in the loaded file) is kept: calibrate_fused always times
+    for d in ("float32", "bfloat16"):
+        if not get_calibration().get(_calib_key(d) + "_measured"):
+            eng.calibrate_fused(dtype=d, device=device)
     for L in (_PLAN_LS[:4] if fast else _PLAN_LS):
         for B in (64, 1024):
             for d in dtypes:
@@ -317,13 +326,16 @@ def _sweep(eng, fast: bool, device, serve_rows: tuple) -> int:
         for d in dtypes:
             eng.plan_chain(Ls, Lout, tune="measure", batch_hint=B, dtype=d, device=device)
     # the force field's many-body chain at every serve bucket's rows, the
-    # keys a serve warmup seeds (gated for grid_gate='on', ungated for 'off')
+    # keys a serve warmup seeds: ungated for grid_gate='off', gated for
+    # 'on', and the gate policy that 'auto' asks for
+    Ls, share = (cfg.L,) * cfg.nu, (0,) * cfg.nu
     for rows in serve_rows:
         for d in dtypes:
             for gate in (False, True):
-                eng.plan_chain((cfg.L,) * cfg.nu, cfg.L, tune="measure",
-                               batch_hint=int(rows), share_hint=(0,) * cfg.nu,
-                               dtype=d, gate=gate, device=device)
+                eng.plan_chain(Ls, cfg.L, tune="measure", batch_hint=int(rows),
+                               share_hint=share, dtype=d, gate=gate, device=device)
+            eng.select_gate(Ls, cfg.L, dtype=d, batch_hint=int(rows), share_hint=share,
+                            device=device)
     return len(eng._measured) - n0
 
 

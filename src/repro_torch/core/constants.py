@@ -78,6 +78,8 @@ __all__ = [
     "quad_sample_fourier",
     "quad_project_fourier",
     "to_torch",
+    "cache_stats",
+    "clear_all",
 ]
 
 
@@ -575,6 +577,34 @@ def quad_project_fourier(L: int, n_theta: int, n_phi: int,
 def gaunt_dense(L1: int, L2: int, Lout: int, dtype: str = "float32") -> np.ndarray:
     """The exact dense real-Gaunt tensor [(L1+1)^2, (L2+1)^2, (Lout+1)^2]."""
     return _cast(real_gaunt_tensor(L1, L2, Lout), dtype)
+
+
+# --------------------------------------------------------------------------
+# introspection
+# --------------------------------------------------------------------------
+
+_CACHED = (
+    _y_raw, _z_raw, y_dense, z_dense, y_packed, z_packed, y_half, z_half, z_half_l0,
+    pack_index, filter_fourier_col, conv_u_index, cg_11_blocks, chain_sample_sh,
+    chain_sample_grid, chain_project_sh, chain_project_grid, chain_matrices, chain_l0,
+    fused_matrices, sphere_point_classes, chain_matrices_folded, pair_matrices,
+    pair_matrices_tf32, pair_fragments, pair_fragments_bf16, quad_sample_sh,
+    quad_project_sh, quad_sample_fourier, quad_project_fourier, gaunt_dense,
+)
+
+
+def cache_stats() -> dict[str, tuple[int, int, int]]:
+    """{builder name: (hits, misses, currsize)} over every cached builder."""
+    return {f.__name__: (ci.hits, ci.misses, ci.currsize)
+            for f in _CACHED for ci in (f.cache_info(),)}
+
+
+def clear_all() -> None:
+    """Drop every cached constant, and its device copies (tests, memory
+    pressure).  A plan built before keeps the tensors it already holds."""
+    for f in _CACHED:
+        f.cache_clear()
+    _TORCH.clear()
 
 
 # --------------------------------------------------------------------------

@@ -1,10 +1,17 @@
-"""Equivariant convolution (paper §3.3, class 2): x_i (x)_Gaunt Y(r_ij), on
-the eSCN rotation-aligned path.
+"""Equivariant convolution (paper §3.3, class 2): x_i (x)_Gaunt Y(r_ij).
 
-Rotate the frame so the edge lands on the zenith; the filter then has only
-m = 0 components, S_{l,m}(e_z) = delta_{m0} sqrt((2l+1)/4pi), its torus grid
-is the single v = 0 column, and the 2D convolution degenerates to a banded
-1D convolution along u:  out = D^T [ (D x) (x)_Gaunt Y(e_z) ].
+Two paths, tested equal:
+
+general : the paper's own method: evaluate the SH filter Y(r_hat), move it
+          to the 2D Fourier basis, and run the Gaunt tensor product as a 2D
+          convolution of the two grids (a pairwise spectral plan; with
+          `EquivariantConv.filter_rep` the filter's grid is built once per
+          geometry and reused by every layer).
+escn    : rotate the frame so the edge lands on the zenith; the filter then
+          has only m = 0 components, S_{l,m}(e_z) = delta_{m0}
+          sqrt((2l+1)/4pi), its torus grid is the single v = 0 column, and
+          the 2D convolution degenerates to a banded 1D convolution along u:
+          out = D^T [ (D x) (x)_Gaunt Y(e_z) ].
 
 Wigner rotations are built differentiably from the rotation matrix by the CG
 intertwiner recursion  D^l = C^T (D^{l-1} (x) D^1) C, so forces flow through
@@ -17,6 +24,7 @@ import dataclasses
 import torch
 
 from . import constants as _const
+from . import engine as _engine
 from .engine import build_escn
 
 __all__ = [
@@ -105,28 +113,120 @@ class WignerBlocks:
 
 class EquivariantConv:
     """Gaunt equivariant convolution  (x (x) Y(rhat)) with the paper's
-    w_{l1} w_{l2} w_l per-degree weights, on the eSCN backend.
+    w_{l1} w_{l2} w_l per-degree weights.
 
-    ``__call__(x, rhat)`` takes raw directions [..., 3] or the
-    `WignerBlocks` of :meth:`geometry_rep`; leading dims broadcast between
-    x and the geometry.
+    ``method='escn'`` (default): the ``escn_aligned`` backend, built directly
+    (`engine.build_escn`).  ``method='general'``: the filter Y(rhat)
+    materialized and convolved with x on a pairwise spectral backend,
+    'direct' when max(L1, L2) <= 4 and 'fft' above, through a one-item
+    `engine.plan_batch` conv_filter bucket (the edge leading dims run as one
+    call).  ``method='auto'``: the engine's selection among every
+    conv_filter backend.  ``backend`` pins any registered backend.
+    ``cdtype`` names the plans' storage (complex64: float32), ``rdtype`` the
+    output's dtype.  ``device`` is the plans' device for the general and
+    auto methods (None: cuda, raising without a GPU); ``batch_hint`` and
+    ``tune`` feed their selection.  ``donate`` is accepted and donates
+    nothing; ``shard_spec`` is not ported (ROADMAP Queue 1 item 10).
+
+    ``__call__(x, rhat)`` takes raw directions [..., 3], the `WignerBlocks`
+    of :meth:`geometry_rep` (eSCN), or the Fourier-resident filter of
+    :meth:`filter_rep` (spectral backends); leading dims broadcast between x
+    and the geometry.
     """
 
-    def __init__(self, L1: int, L2: int, Lout: int | None = None, method: str = "escn"):
-        if method != "escn":
-            raise NotImplementedError(f"conv method {method!r} is not ported (only "
-                                      "'escn'; 'general' is ROADMAP Queue 1 item 4c)")
+    def __init__(self, L1: int, L2: int, Lout: int | None = None, method: str = "escn",
+                 cdtype=torch.complex64, rdtype=torch.float32,
+                 backend: str | None = None, batch_hint: int | None = None,
+                 tune: str = "heuristic", donate: bool = False, shard_spec=None,
+                 device=None):
+        if shard_spec is not None:
+            raise NotImplementedError("sharded convolutions (shard_spec) are not "
+                                      "ported (ROADMAP Queue 1 item 10)")
         self.L1, self.L2 = L1, L2
         self.Lout = L1 + L2 if Lout is None else Lout
         self.method = method
-        self._raw = build_escn(L1, L2, self.Lout)
-        self._geom = build_escn(L1, L2, self.Lout, geometry="wigner")
+        self.cdtype, self.rdtype = cdtype, rdtype
+        self._dtype = _engine._dtype_str(cdtype)
+        if backend is None:
+            if method == "escn":
+                backend = "escn_aligned"
+            elif method == "general":
+                backend = _engine.spectral_default(L1, L2)
+            elif method != "auto":
+                raise ValueError(f"unknown method {method!r}")
+        self._bplan = self._plan = None
+        if backend == "escn_aligned":
+            self.backend = backend
+            self._raw = build_escn(L1, L2, self.Lout, dtype=self._dtype)
+        else:
+            self._bplan = _engine.plan_batch(
+                [_engine.BatchItem(L1=L1, L2=L2, Lout=self.Lout, size=batch_hint)],
+                kind="conv_filter", dtype=self._dtype, backend=backend, tune=tune,
+                donate=donate, device=device)
+            self._plan = self._bplan.buckets[0].plan
+            self.backend = self._plan.backend
+            self._raw = None
+        self._geom = (build_escn(L1, L2, self.Lout, geometry="wigner", dtype=self._dtype)
+                      if self.backend == "escn_aligned" else None)
+        self._resident_plan = None
+
+    @property
+    def plan(self):
+        """The conv_filter plan of the general and auto methods (None on the
+        directly built eSCN route)."""
+        return self._plan
+
+    def _spectral_backend(self) -> str:
+        """A Fourier-boundary backend matching this conv's choice."""
+        if self.backend in ("fft", "direct", "packed", "rfft"):
+            return self.backend
+        return _engine.spectral_default(self.L1, self.L2)
+
+    def filter_rep(self, rhat: torch.Tensor, w2=None):
+        """Materialize Y(rhat) and convert it to a Fourier-resident Rep once
+        per geometry: a half grid when the spectral backend is rfft, else a
+        dense one.  Differentiable in rhat, so forces flow through it.
+        ``w2`` (per-degree filter weights [..., L2+1]) is folded in here: a
+        resident operand takes no per-degree weights downstream."""
+        from .gaunt import expand_degree_weights
+        from .rep import Rep
+        from .so3 import real_sph_harm_torch
+
+        filt = real_sph_harm_torch(self.L2, rhat)
+        if w2 is not None:
+            filt = filt * expand_degree_weights(w2, self.L2).to(filt.dtype)
+        conversion = "half" if self._spectral_backend() == "rfft" else "dense"
+        return Rep.from_sh(filt, self.L2).to_fourier(conversion, self.cdtype)
 
     def geometry_rep(self, rhat: torch.Tensor) -> WignerBlocks:
         """Hoist the alignment rotation and the Wigner recursion out of the
-        layer loop: build the blocks once per geometry."""
+        layer loop: build the blocks once per geometry (eSCN only; the
+        general path's counterpart is :meth:`filter_rep`)."""
+        if self.backend != "escn_aligned":
+            raise ValueError("geometry_rep is the eSCN (rotation-aligned) residency "
+                             f"hook; this conv uses {self.backend!r}: use filter_rep "
+                             "for the general path")
         return WignerBlocks.from_rhat(rhat, max(self.L1, self.Lout))
 
     def __call__(self, x, rhat, w1=None, w2=None, w3=None) -> torch.Tensor:
-        fn = self._geom if isinstance(rhat, WignerBlocks) else self._raw
-        return fn(x, rhat, w1, w2, w3).float()
+        from .rep import Rep
+
+        if isinstance(rhat, WignerBlocks):
+            if self._geom is None:
+                raise ValueError("WignerBlocks geometry needs the eSCN backend; this "
+                                 f"conv uses {self.backend!r}")
+            return self._geom(x, rhat, w1, w2, w3).to(self.rdtype)
+        if isinstance(rhat, Rep):
+            if w2 is not None:
+                raise ValueError("fold w2 into filter_rep(rhat, w2=...): a resident "
+                                 "filter cannot be reweighted")
+            if self._resident_plan is None:
+                self._resident_plan = _engine.plan(
+                    self.L1, self.L2, self.Lout, kind="pairwise",
+                    backend=self._spectral_backend(), dtype=self._dtype,
+                    options={"boundary": ("sh", "fourier", "sh")},
+                    device=rhat.data.device)
+            return self._resident_plan.apply(x, rhat, w1, None, w3).to(self.rdtype)
+        if self._raw is not None:
+            return self._raw(x, rhat, w1, w2, w3).to(self.rdtype)
+        return self._bplan.apply([(x, rhat)], weights=[(w1, w2, w3)])[0].to(self.rdtype)

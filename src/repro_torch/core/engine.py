@@ -9,7 +9,15 @@ Pairwise plans (``plan``):
     kind         backends
     pairwise     dense_einsum | fft | direct | packed | rfft | fused_torch | fused_hopper
     conv_filter  escn_aligned + every pairwise backend (filter materialized)
+    manybody     dense_einsum | fft | direct | packed | rfft
     channel_mix  dense_einsum | fused_torch
+
+``kind='manybody'`` takes the operands' degrees ``Ls`` instead of L1/L2 and
+applies to a list of operands: ``plan(kind='manybody', Ls=(2, 2, 2),
+Lout=2).apply([x1, x2, x3], weights=None)``.  It is the per-plan batched
+route of `manybody_gaunt_product` (an explicit ``backend``, or
+``conversion='packed'``); its default route is a chain plan.  The fused
+backends do not list the kind: the chain plans are their many-body path.
 
 A plan is keyed by `PlanKey` ``(L1, L2, Lout, kind, batch_hint, dtype,
 options, device)`` and resolved to a registered `Backend`, by the
@@ -30,9 +38,14 @@ concatenated, tail-padded rows; per-item outputs are sliced back.
 Chain plans (``plan_chain``), the main path's many-body stage:
 
 * ``tree`` — the resident spectral pass: each distinct operand converts to
-  a Hermitian half grid once (degree-resolved when the same tensor enters
-  under different per-degree weights), grids combine by a divide-and-conquer
-  tree of `conv2d_herm` (rfft), and one projection runs at the exit.
+  a grid once (degree-resolved when the same tensor enters under different
+  per-degree weights), the grids combine by a divide-and-conquer tree of 2D
+  convolutions (``tree=False``: the sequential left fold), and one
+  projection runs at the exit.  ``conversion`` picks Hermitian half grids
+  ('half', the default) or dense ones, ``conv`` the grid combination:
+  'rfft' (half grids only), 'fft' or 'direct'; by default 'direct' for a
+  2-operand chain of max degree <= 4 and 'rfft' otherwise, as in the
+  reference.
 * ``looped`` — the pre-residency left fold of pairwise spectral plans, a
   full SH round trip per product (a measured candidate, so the autotuner
   prices what residency buys).
@@ -60,9 +73,10 @@ Every measured selection persists through the per-host autotune cache
 (`core/autotune_cache.py`) when a cache path is configured: a warm process
 answers every measured key from the file with zero timing runs.
 
-Not ported yet (ROADMAP Queue 1 item 4): ``calibrate_fused``, the
-manybody plan kind (the port's many-body route is ``plan_chain``), and
-sharding (``shard_spec``, Queue 1 item 10).
+`GauntEngine.calibrate_fused` measures the cost model's skinny-matmul
+factor per storage dtype on the device, and the autotune cache persists it.
+
+Not ported: sharding (``shard_spec`` raises, ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -166,26 +180,28 @@ def _gate_sh(p, x):
 
 
 def _gate_rep(p, rep):
-    """Apply the gate on a half-grid resident Rep without leaving the basis:
-    the l=0 scalars come from the z-transform's l0 row, the grid scales by
-    g and beta*Y00 lands on the (u, v) = (0, 0) mode."""
+    """Apply the gate on a resident Rep without leaving the basis: the l=0
+    scalars come from the z-transform's l0 row, the grid scales by g and
+    beta*Y00 lands on the (u, v) = (0, 0) mode.  A dense grid is gated in
+    its half form (lossless for the real functions a chain carries)."""
     from .rep import Rep
 
-    Fh, L = rep.data, rep.L
+    form = rep.form
+    Fh, L = rep.with_form("half").data, rep.L
     z0 = constants.to_torch(constants.z_half_l0(L, str(Fh.dtype)[6:]), Fh.device)
     s = torch.einsum("...uv,uv->...", Fh, z0).real
     g, beta = _gate_coeffs(p, s)
     Fh = Fh * g[..., None, None].to(Fh.dtype)
     bump = torch.zeros_like(Fh)
     bump[..., L, 0] = (beta * _GATE_C0).to(Fh.dtype)
-    return Rep(Fh + bump, L, "fourier", "half")
+    return Rep(Fh + bump, L, "fourier", "half").with_form(form)
 
 
 # --------------------------------------------------------------------------
 # plan keys and the backend registry
 # --------------------------------------------------------------------------
 
-KINDS = ("pairwise", "conv_filter", "channel_mix")
+KINDS = ("pairwise", "conv_filter", "manybody", "channel_mix")
 
 
 def spectral_default(*Ls: int) -> str:
@@ -293,8 +309,7 @@ class BatchItem:
     rows.  ``size`` is a planning hint (it feeds the bucket's batch_hint);
     the row count comes from the tensors at apply time.  ``options`` are the
     item's plan options as sorted (name, value) pairs (e.g. ``boundary``).
-    ``Ls`` is the reference's manybody signature, which the port does not
-    plan (ROADMAP Queue 1 item 4b)."""
+    A manybody item carries its operands' degrees ``Ls`` instead of L1/L2."""
 
     L1: int | None = None
     L2: int | None = None
@@ -356,7 +371,15 @@ def _op_parts(op) -> tuple:
     return [op], (1,), lambda ls: ls[0]
 
 
-def _norm_operand(op, j: int, item: BatchItem, form: str):
+def _weight_degrees(kind: str, item: BatchItem) -> tuple:
+    """The packed width (L+1) of each weight slot of an item's apply: one
+    per operand for manybody, (w1, w2, w3) otherwise."""
+    if kind == "manybody":
+        return tuple(L + 1 for L in item.Ls)
+    return (item.L1 + 1, item.L2 + 1, item.Lout + 1)
+
+
+def _norm_operand(op, j: int, kind: str, item: BatchItem, form: str):
     """SH Reps unwrap to their data; Fourier Reps check their bandlimit
     against the item's degree and take the bucket plan's storage form."""
     from .rep import Rep
@@ -364,7 +387,7 @@ def _norm_operand(op, j: int, item: BatchItem, form: str):
     if isinstance(op, Rep):
         if op.basis == "sh":
             return op.data
-        degs = (item.L1, item.L2)
+        degs = item.Ls if kind == "manybody" else (item.L1, item.L2)
         if j < len(degs) and op.L != degs[j]:
             raise ValueError(f"operand {j}: resident bandlimit {op.L} != "
                              f"planned degree {degs[j]}")
@@ -380,9 +403,9 @@ def _bucket_body(plan: GauntPlan, kind: str, item: BatchItem, granularity: int,
     from .rep import Rep
 
     rd = _RDTYPE[plan.key.dtype]
-    wdeg = (item.L1 + 1, item.L2 + 1, item.Lout + 1)
-    item_parts = [[_op_parts(_norm_operand(op, j, item, form)) for j, op in enumerate(ops)]
-                  for ops in item_ops]
+    wdeg = _weight_degrees(kind, item)
+    item_parts = [[_op_parts(_norm_operand(op, j, kind, item, form))
+                   for j, op in enumerate(ops)] for ops in item_ops]
     struct0 = [p[1] for p in item_parts[0]]
     for t, parts in enumerate(item_parts):
         if [p[1] for p in parts] != struct0:
@@ -427,7 +450,7 @@ def _bucket_body(plan: GauntPlan, kind: str, item: BatchItem, granularity: int,
                         ev = tuple(x.shape[x.dim() - ers[q]:])
                         col[t] = x.expand(rows[t], *splits[t][1], *ev)
     ws_cat = []
-    for j in range(3):
+    for j in range(len(wdeg)):
         if all(ws[j] is None for ws in item_ws):
             ws_cat.append(None)
             continue
@@ -461,7 +484,10 @@ def _bucket_body(plan: GauntPlan, kind: str, item: BatchItem, granularity: int,
     if pad:
         ws_cat = [None if w is None else
                   torch.cat([w, w.new_ones((pad, *w.shape[1:]))], dim=0) for w in ws_cat]
-    out = plan.apply(*ops_cat, *ws_cat)
+    if kind == "manybody":
+        out = plan.apply(ops_cat, None if all(w is None for w in ws_cat) else ws_cat)
+    else:
+        out = plan.apply(*ops_cat, *ws_cat)
     leaf = out.data if isinstance(out, Rep) else out
     res, off = [], 0
     for t in range(len(item_ops)):
@@ -509,11 +535,13 @@ class BatchedGauntPlan:
     def apply(self, inputs, weights=None) -> list:
         """Run every item -> outputs aligned with ``items``.
 
-        inputs  : element i is item i's operand pair — (x1, x2) for
-                  pairwise, (x, rhat or WignerBlocks) for conv_filter; SH
-                  tensors or, on a 'fourier' boundary, Reps.
-        weights : optional, element i is item i's (w1, w2, w3) (None
-                  entries allowed) or None.
+        inputs  : element i is item i's operands — (x1, x2) for
+                  pairwise, (x, rhat or WignerBlocks) for conv_filter, the
+                  xs sequence for manybody; SH tensors or, on a 'fourier'
+                  boundary, Reps.
+        weights : optional, element i is item i's (w1, w2, w3), or its
+                  per-operand list for manybody (None entries allowed), or
+                  None.
         """
         inputs = list(inputs)
         if len(inputs) != len(self.items):
@@ -526,14 +554,16 @@ class BatchedGauntPlan:
         outs = [None] * len(self.items)
         for bucket in self.buckets:
             item0 = self.items[bucket.item_ids[0]]
+            n_ops = len(item0.Ls) if self.kind == "manybody" else 2
+            n_ws = len(_weight_degrees(self.kind, item0))
             ops, ws = [], []
             for i in bucket.item_ids:
                 o = tuple(inputs[i])
-                if len(o) != 2:
-                    raise ValueError(f"item {i}: expected 2 operands, got {len(o)}")
-                w = (None,) * 3 if weights[i] is None else tuple(weights[i])
-                if len(w) != 3:
-                    raise ValueError(f"item {i}: expected 3 weight slots, got {len(w)}")
+                if len(o) != n_ops:
+                    raise ValueError(f"item {i}: expected {n_ops} operands, got {len(o)}")
+                w = (None,) * n_ws if weights[i] is None else tuple(weights[i])
+                if len(w) != n_ws:
+                    raise ValueError(f"item {i}: expected {n_ws} weight slots, got {len(w)}")
                 ops.append(o)
                 ws.append(w)
             form = "half" if bucket.plan.backend == "rfft" else "dense"
@@ -558,8 +588,12 @@ class ChainPlan:
       weights : per-operand per-degree weights [..., L_i+1] (None entries ok)
       w_out   : per-degree output weights, applied after the exit (and gate)
       out_basis: 'sh' projects to degrees <= Lout; 'fourier' returns the
-                resident half product grid as a Rep (Lout == sum(Ls))
+                resident product grid as a Rep (Lout == sum(Ls)), in the
+                plan's ``conversion`` form on the spectral backends
       gate_params: {'w1', 'w2'} of the gate MLP — required iff ``gate``
+
+    ``conversion``, ``conv`` and ``tree`` parameterize the ``tree``
+    backend's spectral pass.
     """
 
     Ls: tuple
@@ -568,6 +602,9 @@ class ChainPlan:
     backend: str
     gate: bool
     _apply: Callable = dataclasses.field(repr=False, compare=False)
+    conversion: str = "half"
+    conv: str = "rfft"
+    tree: bool = True
 
     def apply(self, xs, weights=None, w_out=None, out_basis: str = "sh",
               gate_params=None):
@@ -595,15 +632,41 @@ class ChainPlan:
         return self._apply(xs, ws, w_out, out_basis, gate_params)
 
 
-def _build_chain(Ls: tuple, Lout: int, dtype: str) -> Callable:
+def _warm_spectral_constants(conversion: str, Ls, Lf: int, Lout: int, cd) -> None:
+    """Build a spectral plan's conversion constants when it is planned, so
+    its applies build none (and a captured step uploads none)."""
+    cname = str(cd)[6:]
+    warm_y = {"dense": constants.y_dense, "packed": constants.y_packed,
+              "half": constants.y_half}[conversion]
+    warm_z = {"dense": constants.z_dense, "packed": constants.z_packed,
+              "half": constants.z_half}[conversion]
+    for L in Ls:
+        warm_y(L, cname)
+    warm_z(Lf, Lout, cname)
+
+
+def _build_chain(Ls: tuple, Lout: int, conversion: str, conv: str, dtype: str,
+                 tree: bool) -> Callable:
     """The tree backend: convert each distinct operand once, combine the
-    half grids, project once."""
-    from .gaunt import fourier_to_sh, sh_to_fourier, sh_to_fourier_bydeg
+    grids (a divide-and-conquer tree, or the left fold), project once."""
+    from .gaunt import (conv2d_full, conv2d_herm, fourier_to_sh, sh_to_fourier,
+                        sh_to_fourier_bydeg)
     from .manybody import _tree_convolve
     from .rep import Rep
 
     rd, cd = _RDTYPE[dtype], _CDTYPE[dtype]
+    form = "half" if conversion == "half" else "dense"
     Ltot = sum(Ls)
+    _warm_spectral_constants(conversion, Ls, Ltot, Lout, cd)
+
+    def combine(grids):
+        if tree:
+            return _tree_convolve(grids, conv, herm=form == "half")
+        fn = conv2d_herm if form == "half" else conv2d_full
+        F = grids[0]
+        for G in grids[1:]:
+            F = fn(F, G, conv)
+        return F
 
     def apply(xs, ws, w_out, out_basis, gate_params):
         grids: list = [None] * len(xs)
@@ -617,27 +680,27 @@ def _build_chain(Ls: tuple, Lout: int, dtype: str) -> Callable:
                     if ws[i] is not None:
                         raise ValueError("resident operands cannot take "
                                          "per-degree weights (apply in SH)")
-                    grids[i] = x.with_form("half").data
+                    grids[i] = x.with_form(form).data
                     continue
                 xs[i] = x.data
             groups.setdefault(id(xs[i]), []).append(i)
         for idxs in groups.values():
             x, L = _chain_entry_cast(xs[idxs[0]], rd), Ls[idxs[0]]
             if len(idxs) == 1 or len({id(ws[i]) for i in idxs}) == 1:
-                Fg = sh_to_fourier(_wmul(x, ws[idxs[0]], L), L, "half", cd)
+                Fg = sh_to_fourier(_wmul(x, ws[idxs[0]], L), L, conversion, cd)
                 for i in idxs:
                     grids[i] = Fg
             else:
                 # shared operand, different weights: one degree-resolved
                 # conversion plus a cheap per-copy degree combination
-                Fl = sh_to_fourier_bydeg(x, L, "half", cd)
+                Fl = sh_to_fourier_bydeg(x, L, conversion, cd)
                 for i in idxs:
                     grids[i] = (Fl.sum(-3) if ws[i] is None else
                                 torch.einsum("...l,...luv->...uv", ws[i].to(Fl.dtype), Fl))
-        Fp = _tree_convolve(grids)
+        Fp = combine(grids)
         if out_basis == "fourier":
-            return Rep(Fp, Ltot, "fourier", "half")
-        return _wmul(fourier_to_sh(Fp, Ltot, Lout, "half", rd), w_out, Lout)
+            return Rep(Fp, Ltot, "fourier", form)
+        return _wmul(fourier_to_sh(Fp, Ltot, Lout, conversion, rd), w_out, Lout)
 
     return apply
 
@@ -825,8 +888,8 @@ _INTERPRET_PENALTY = 1e4   # a kernel backend off the card runs its plain versio
 
 # 'fused_skinny' scales the collocation backends' per-element cost (their
 # matmuls are skinny, G >> d).  4.0 is the reference's never-calibrated
-# default; the per-dtype entries inherit it (None).  Measuring it
-# (the reference's `calibrate_fused`) is not ported yet.
+# default; the per-dtype entries inherit it (None) until
+# `GauntEngine.calibrate_fused` measures them.
 _CALIB = {
     "fused_skinny": 4.0, "fused_skinny_measured": False,
     "fused_skinny:bfloat16": None, "fused_skinny:bfloat16_measured": False,
@@ -876,6 +939,13 @@ def _cost_dense_einsum(key: PlanKey) -> float:
     B, d1, d2, do, *_ = _dims(key)
     if key.kind == "channel_mix":
         return 16.0 * B * d1 * d2 * do + _OVERHEAD  # x C1*C2 (unknown): scaled proxy
+    if key.kind == "manybody":
+        Ls = key.opt("Ls")
+        total, La = 0.0, Ls[0]
+        for L in Ls[1:]:
+            total += B * num_coeffs(La) * num_coeffs(L) * num_coeffs(La + L)
+            La += L
+        return total + _OVERHEAD * len(Ls)
     return B * d1 * d2 * do + _OVERHEAD
 
 
@@ -895,9 +965,39 @@ def _spectral_common(key: PlanKey, conv: str, packed: bool) -> float:
     return conv_in + c + proj + _OVERHEAD * n_ops
 
 
+def _cost_manybody_spectral(key: PlanKey, conv: str) -> float:
+    """A manybody key on the dense-grid spectral backends (packed included,
+    costed as dense, as in the reference): every operand's conversion, the
+    grid combinations at the product grid, one projection."""
+    Ls = key.opt("Ls")
+    B = key.batch_hint or 1
+    N = 2 * sum(Ls) + 1
+    if conv == "fft":
+        convs = _C_FFT * len(Ls) * B * N * N * max(1.0, math.log2(N * N))
+    else:
+        convs = _C_CPLX * len(Ls) * B * N * N * (2 * max(Ls) + 1) ** 2
+    conv_in = sum(2.0 * B * num_coeffs(L) * (2 * L + 1) ** 2 for L in Ls)
+    proj = _C_CPLX * B * N * N * num_coeffs(key.Lout)
+    return conv_in + convs + proj + _OVERHEAD * (6 + 2 * len(Ls))
+
+
+def _cost_spectral(key: PlanKey, conv: str, packed: bool) -> float:
+    if key.kind == "manybody":
+        return _cost_manybody_spectral(key, conv)
+    return _spectral_common(key, conv, packed)
+
+
 def _cost_rfft(key: PlanKey) -> float:
     """Half (Hermitian) conversions + real spatial rfft convolution."""
     B, d1, d2, do, n1, n2, N = _dims(key)
+    if key.kind == "manybody":
+        Ls = key.opt("Ls")
+        Lt = sum(Ls)
+        Nr = 2 * Lt + 2
+        conv_in = sum(2.0 * B * num_coeffs(L) * (2 * L + 1) * (L + 1) for L in Ls)
+        convs = 1.5 * _C_FFT * len(Ls) * B * Nr * Nr * max(1.0, math.log2(Nr * Nr))
+        proj = _C_CPLX * B * Nr * (Lt + 1) * num_coeffs(key.Lout) / 2
+        return conv_in + convs + proj + _OVERHEAD * (6 + 2 * len(Ls))
     Nr = N + 1  # the even alias-free spatial grid 2(L1+L2)+2
     conv_in = 2.0 * B * (d1 * n1 * (key.L1 + 1) + d2 * n2 * (key.L2 + 1))
     c = 1.5 * _C_FFT * B * Nr * Nr * max(1.0, math.log2(Nr * Nr)) + B * Nr * Nr
@@ -958,6 +1058,28 @@ def _build_dense_einsum(key: PlanKey) -> Callable:
     def stored(x):
         return x.to(rd).to(acc)
 
+    if key.kind == "manybody":
+        Ls = key.opt("Ls")
+        # the left fold, one exact Gaunt tensor per product; each partial
+        # product is stored at the storage dtype, as the reference's einsum
+        # chain rounds it
+        Gs, La = [], Ls[0]
+        for i, L in enumerate(Ls[1:]):
+            Gs.append(constants.gaunt_dense(La, L, key.Lout if i == len(Ls) - 2 else La + L,
+                                            key.dtype))
+            La += L
+
+        def apply_mb(xs, weights=None):
+            xs = list(xs)
+            if weights is not None:
+                xs = [_wmul(x, w, L) for x, w, L in zip(xs, weights, Ls)]
+            out = xs[0]
+            for x, G in zip(xs[1:], Gs):
+                out = _gaunt_contract(stored(out), stored(x),
+                                      constants.to_torch(G, x.device, acc)).to(rd)
+            return out
+
+        return apply_mb
     if key.kind == "channel_mix":
 
         def apply_mix(x1, x2, w_mix):
@@ -1005,6 +1127,23 @@ def _build_spectral(key: PlanKey, conversion: str, conv: str) -> Callable:
     form = "half" if conversion == "half" else "dense"
     conv_fn = conv2d_herm if conversion == "half" else conv2d_full
     L1, L2, Lout = key.L1, key.L2, key.Lout
+    if key.kind == "manybody":
+        from .manybody import _tree_convolve
+
+        Ls = key.opt("Ls")
+        Ltot = sum(Ls)
+        _warm_spectral_constants(conversion, Ls, Ltot, Lout, cd)
+
+        def apply_mb(xs, weights=None):
+            grids = []
+            for i, (x, L) in enumerate(zip(xs, Ls)):
+                w = None if weights is None else weights[i]
+                grids.append(sh_to_fourier(_wmul(x, w, L), L, conversion, cd))
+            F = _tree_convolve(grids, conv, herm=conversion == "half")
+            return fourier_to_sh(F, Ltot, Lout, conversion, rd)
+
+        return apply_mb
+    _warm_spectral_constants(conversion, (L1, L2), L1 + L2, Lout, cd)
     b1, b2, bo = key.opt("boundary") or ("sh", "sh", "sh")
 
     def convert_in(x, w, L, b):
@@ -1090,34 +1229,34 @@ def _build_plan_apply(spec: Backend, key: PlanKey) -> Callable:
 
 register_backend(Backend(
     name="dense_einsum",
-    kinds=frozenset({"pairwise", "conv_filter", "channel_mix"}),
+    kinds=frozenset({"pairwise", "conv_filter", "manybody", "channel_mix"}),
     build=_build_dense_einsum,
     cost=_cost_dense_einsum,
 ))
 register_backend(Backend(
     name="fft",
-    kinds=frozenset({"pairwise", "conv_filter"}),
+    kinds=frozenset({"pairwise", "conv_filter", "manybody"}),
     build=lambda key: _build_spectral(key, "dense", "fft"),
-    cost=lambda key: _spectral_common(key, "fft", packed=False),
+    cost=lambda key: _cost_spectral(key, "fft", packed=False),
     fourier_boundary=True,
 ))
 register_backend(Backend(
     name="direct",
-    kinds=frozenset({"pairwise", "conv_filter"}),
+    kinds=frozenset({"pairwise", "conv_filter", "manybody"}),
     build=lambda key: _build_spectral(key, "dense", "direct"),
-    cost=lambda key: _spectral_common(key, "direct", packed=False),
+    cost=lambda key: _cost_spectral(key, "direct", packed=False),
     fourier_boundary=True,
 ))
 register_backend(Backend(
     name="packed",
-    kinds=frozenset({"pairwise", "conv_filter"}),
+    kinds=frozenset({"pairwise", "conv_filter", "manybody"}),
     build=lambda key: _build_spectral(key, "packed", key.opt("conv", "fft")),
-    cost=lambda key: _spectral_common(key, key.opt("conv", "fft"), packed=True),
+    cost=lambda key: _cost_spectral(key, key.opt("conv", "fft"), packed=True),
     fourier_boundary=True,
 ))
 register_backend(Backend(
     name="rfft",
-    kinds=frozenset({"pairwise", "conv_filter"}),
+    kinds=frozenset({"pairwise", "conv_filter", "manybody"}),
     build=lambda key: _build_spectral(key, "half", key.opt("conv", "rfft")),
     cost=_cost_rfft,
     fourier_boundary=True,
@@ -1263,7 +1402,7 @@ class GauntEngine:
 
     def plan(self, L1: int | None = None, L2: int | None = None,
              Lout: int | None = None, *, kind: str = "pairwise",
-             batch_hint: int | None = None, dtype="float32",
+             Ls: tuple | None = None, batch_hint: int | None = None, dtype="float32",
              backend: str | None = None, options: dict | None = None,
              tune: str = "heuristic", requires_grad: bool = True,
              device=None) -> GauntPlan:
@@ -1277,10 +1416,8 @@ class GauntEngine:
         Fourier-resident on the spectral backends.  ``device`` is the device
         the plan is selected for: None means cuda, and raises without a GPU
         (pass ``device="cpu"``).  ``requires_grad=False`` admits gradless
-        backends (``fused_hopper``)."""
-        if kind == "manybody":
-            raise NotImplementedError("manybody plans are not ported (ROADMAP Queue 1 "
-                                      "item 4b); the port's many-body route is plan_chain")
+        backends (``fused_hopper``).  ``kind='manybody'`` takes ``Ls`` (the
+        operands' degrees, n >= 2) instead of L1/L2."""
         if kind not in KINDS:
             raise ValueError(f"unknown kind {kind!r} (expected one of {KINDS})")
         if tune not in ("heuristic", "measure"):
@@ -1306,16 +1443,24 @@ class GauntEngine:
                                  "plans (precomputed Wigner alignment)")
             if geom != "wigner":
                 raise ValueError(f"unknown geometry {geom!r} (expected 'wigner')")
-        if L1 is None or L2 is None:
-            raise ValueError(f"kind={kind!r} plans need L1 and L2")
-        Lout = L1 + L2 if Lout is None else Lout
-        if Lout > L1 + L2:
+        extra = tuple(sorted(options.items()))
+        if kind == "manybody":
+            if Ls is None or len(Ls) < 2:
+                raise ValueError("manybody plans need Ls with >= 2 degrees")
+            Ls = tuple(int(L) for L in Ls)
+            L1, L2 = max(Ls), min(Ls)
+            Lout = sum(Ls) if Lout is None else Lout
+            extra += (("Ls", Ls),)
+        else:
+            if L1 is None or L2 is None:
+                raise ValueError(f"kind={kind!r} plans need L1 and L2")
+            Lout = L1 + L2 if Lout is None else Lout
+        if Lout > (sum(Ls) if kind == "manybody" else L1 + L2):
             raise ValueError("Lout cannot exceed the total degree (Gaunt selection rule)")
         if bound is not None and bound[2] == "fourier" and Lout != L1 + L2:
             raise ValueError("a Fourier-boundary output keeps the full product "
                              f"grid (L={L1 + L2}); plan with Lout={L1 + L2} and "
                              "project at the chain exit")
-        extra = tuple(sorted(options.items()))
         dev = resolve_device(device).type
         if isinstance(dtype, str) and dtype == "auto":
             dts = self._select_dtype(
@@ -1351,17 +1496,14 @@ class GauntEngine:
         and run as ONE call on the bucket's plan, and the per-item results
         are sliced back — equal to per-plan calls (every backend is
         row-parallel).  A bucket's ``batch_hint`` is the sum of its items'
-        ``size`` hints.  ``dtype='auto'`` resolves per bucket, as ``plan``
-        does.  ``donate`` is accepted and donates nothing (see
-        `BatchedGauntPlan`); ``shard_spec`` is not ported (ROADMAP Queue 1
-        item 10).
+        ``size`` hints.  Manybody items carry ``Ls`` and bucket by it.
+        ``dtype='auto'`` resolves per bucket, as ``plan`` does.  ``donate``
+        is accepted and donates nothing (see `BatchedGauntPlan`);
+        ``shard_spec`` is not ported (ROADMAP Queue 1 item 10).
         """
         if shard_spec is not None:
             raise NotImplementedError("sharded batched plans (shard_spec) are not "
                                       "ported (ROADMAP Queue 1 item 10)")
-        if kind == "manybody":
-            raise NotImplementedError("manybody plans are not ported (ROADMAP Queue 1 "
-                                      "item 4b); the port's many-body route is plan_chain")
         if kind not in KINDS:
             raise ValueError(f"unknown kind {kind!r} (expected one of {KINDS})")
         if kind == "channel_mix":
@@ -1370,10 +1512,16 @@ class GauntEngine:
         norm = []
         for it in items:
             it = _as_batch_item(it)
-            if it.L1 is None or it.L2 is None:
-                raise ValueError(f"kind={kind!r} batch items need L1 and L2")
-            if it.Lout is None:
-                it = dataclasses.replace(it, Lout=it.L1 + it.L2)
+            if kind == "manybody":
+                if it.Ls is None or len(it.Ls) < 2:
+                    raise ValueError("manybody batch items need Ls with >= 2 degrees")
+                if it.Lout is None:
+                    it = dataclasses.replace(it, Lout=sum(it.Ls))
+            else:
+                if it.L1 is None or it.L2 is None:
+                    raise ValueError(f"kind={kind!r} batch items need L1 and L2")
+                if it.Lout is None:
+                    it = dataclasses.replace(it, Lout=it.L1 + it.L2)
             norm.append(it)
         norm = tuple(norm)
         if not norm:
@@ -1392,7 +1540,7 @@ class GauntEngine:
         for idxs in groups.values():
             it0 = norm[idxs[0]]
             known = [norm[i].size for i in idxs if norm[i].size]
-            p = self.plan(it0.L1, it0.L2, it0.Lout, kind=kind,
+            p = self.plan(it0.L1, it0.L2, it0.Lout, kind=kind, Ls=it0.Ls,
                           batch_hint=sum(known) if known else None, dtype=dts,
                           backend=backend, options=dict(it0.options) or None,
                           tune=tune, requires_grad=requires_grad, device=dev)
@@ -1401,6 +1549,59 @@ class GauntEngine:
             kind=kind, dtype=dts, items=norm, buckets=tuple(buckets), granularity=g,
             donate=donate)
         return bp
+
+    def calibrate_fused(self, L: int = 6, B: int = 64, dtype: str = "float32",
+                        device=None) -> dict:
+        """Measure the cost model's skinny-matmul factor on ``device`` (None:
+        cuda).
+
+        Times the collocation product in torch ops (``fused_torch``) and the
+        ``dense_einsum`` baseline on one pairwise workload (L, L, L) at B
+        rows, median of 5 synchronised calls each, derives the per-MAC cost
+        ratio the cost model needs to rank the two as measured (clamped to
+        [0.25, 16]), installs it under the per-dtype key ('fused_skinny' for
+        f32, 'fused_skinny:<dtype>' otherwise) as measured, flushes it to the
+        autotune cache, and returns the record.  One timing run; it never
+        runs under a CUDA-graph capture."""
+        dts = _dtype_str(dtype)
+        if dts not in _REGISTRY["fused_torch"].dtypes:
+            raise ValueError(f"fused_torch has no {dts} mode to calibrate")
+        dev = resolve_device(device)
+        cuda = dev.type == "cuda"
+        if cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("calibrate_fused times on the device: it cannot run "
+                               "while this stream is capturing a CUDA graph")
+        key = PlanKey(L, L, L, kind="pairwise", batch_hint=B, dtype=dts, device=dev.type)
+        args = _synthetic_inputs(key, dev)
+        self.timing_runs += 1
+        times = {}
+        with torch.no_grad(), _uncounted():
+            for name in ("fused_torch", "dense_einsum"):
+                apply = _REGISTRY[name].build(key)
+                apply(*args)
+                ts = []
+                for _ in range(5):
+                    if cuda:
+                        torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    apply(*args)
+                    if cuda:
+                        torch.cuda.synchronize(dev)
+                    ts.append(time.perf_counter() - t0)
+                times[name] = sorted(ts)[len(ts) // 2]
+        d = num_coeffs(L)
+        G = ((2 * (2 * L) + 2) ** 2 + 127) // 128 * 128
+        macs_fused = B * G * (3 * d)
+        macs_dense = B * d * d * d
+        factor = (times["fused_torch"] / macs_fused) / (times["dense_einsum"] / macs_dense)
+        factor = float(min(16.0, max(0.25, factor)))
+        ck = _calib_key(dts)
+        set_calibration(**{ck: factor, ck + "_measured": True})
+        self._autoflush()
+        return {"factor": round(factor, 3),
+                "fused_torch_us": round(times["fused_torch"] * 1e6, 1),
+                "dense_einsum_us": round(times["dense_einsum"] * 1e6, 1),
+                "L": L, "B": B, "dtype": dts, "device": dev.type}
 
     def select(self, key: PlanKey, tune: str = "heuristic",
                requires_grad: bool = True) -> str:
@@ -1484,16 +1685,29 @@ class GauntEngine:
 
     # -- chain plans -------------------------------------------------------
 
-    def plan_chain(self, Ls, Lout: int | None = None, *, dtype="float32",
-                   backend: str | None = None, tune: str = "heuristic",
-                   batch_hint: int | None = None, share_hint: tuple | None = None,
-                   entry_hint: tuple | None = None, out_hint: str = "sh",
-                   gate: bool = False, device=None) -> ChainPlan:
+    def plan_chain(self, Ls, Lout: int | None = None, *,
+                   conversion: str | None = None, conv: str | None = None,
+                   dtype="float32", tree: bool = True, donate: bool = False,
+                   shard_spec=None, backend: str | None = None,
+                   tune: str = "heuristic", batch_hint: int | None = None,
+                   share_hint: tuple | None = None, entry_hint: tuple | None = None,
+                   out_hint: str = "sh", gate: bool = False, device=None) -> ChainPlan:
         """Plan  x_1 (x) ... (x) x_n  (n >= 2, Lout defaults to sum(Ls)).
 
         ``backend`` pins one of `CHAIN_BACKENDS`; otherwise ``tune='measure'``
         times the device's candidates at ``batch_hint`` rows on ``device``
-        (default cuda), and ``tune='heuristic'`` picks 'tree'.  The hints
+        (default cuda), and ``tune='heuristic'`` picks 'tree'.  An explicit
+        ``conversion`` or ``conv`` pins 'tree' too: they parameterize its
+        spectral pass.  ``conversion`` is 'half' (Hermitian half grids, the
+        default) or 'dense'; ``conv`` the grid combination, 'rfft' (half
+        grids only), 'fft' or 'direct', by default 'direct' for a 2-operand
+        chain of max degree <= 4 (half grids) and 'rfft' otherwise ('direct'
+        or 'fft' by `spectral_default` for dense grids); ``tree=False`` folds
+        the grids left to right instead of the divide-and-conquer tree.
+        ``donate=True`` is accepted and donates nothing (the chain never
+        writes its operands); ``shard_spec`` is not ported (ROADMAP Queue 1
+        item 10).  None of these options enters
+        the measured key (`chain_measure_key`).  The hints
         make the measurement look like the real call: ``share_hint`` gives
         per-operand duplicate-group indices (a shared operand is timed as
         shared), ``entry_hint`` ('sh' | 'fourier' per operand) times
@@ -1511,6 +1725,23 @@ class GauntEngine:
         Lout = sum(Ls) if Lout is None else int(Lout)
         if Lout > sum(Ls):
             raise ValueError("Lout cannot exceed the total degree (Gaunt selection rule)")
+        if shard_spec is not None:
+            raise NotImplementedError("sharded chains (shard_spec) are not ported "
+                                      "(ROADMAP Queue 1 item 10)")
+        pinned_spectral = conversion is not None or conv is not None
+        if conversion is None:
+            conversion = "half"
+        if conversion not in ("dense", "half"):
+            raise ValueError(f"chain conversion must be 'dense'|'half', got {conversion!r}")
+        if conv is None:
+            if conversion == "half":
+                conv = "direct" if (len(Ls) == 2 and max(Ls) <= 4) else "rfft"
+            else:
+                conv = spectral_default(*Ls)
+        if conv not in ("rfft", "fft", "direct"):
+            raise ValueError(f"chain conv must be 'rfft'|'fft'|'direct', got {conv!r}")
+        if conv == "rfft" and conversion != "half":
+            raise ValueError("conv='rfft' operates on half grids (conversion='half')")
         if backend is not None and backend not in CHAIN_BACKENDS:
             raise ValueError(f"unknown chain backend {backend!r} "
                              f"(expected one of {CHAIN_BACKENDS})")
@@ -1536,20 +1767,21 @@ class GauntEngine:
             dts = _dtype_str(dtype)
         if backend is None:
             backend = (self._select_chain(Ls, Lout, dts, hints, gate, resolve_device(device))
-                       if tune == "measure" else "tree")
-        key = (Ls, Lout, dts, backend, gate)
+                       if tune == "measure" and not pinned_spectral else "tree")
+        key = (Ls, Lout, conversion, conv, dts, tree, backend, gate)
         hit = self._chains.get(key)
         if hit is not None:
             return hit
         if backend in ("tree", "looped"):
-            apply = (_build_chain(Ls, Lout, dts) if backend == "tree"
+            apply = (_build_chain(Ls, Lout, conversion, conv, dts, tree) if backend == "tree"
                      else _build_chain_looped(Ls, Lout, dts, self))
             if gate:
                 apply = _wrap_chain_gate(apply, Lout)
         else:
             apply = _build_chain_fused(Ls, Lout, dts, kernel=backend == "fused_hopper",
                                        gate=gate)
-        cp = self._chains[key] = ChainPlan(Ls, Lout, dts, backend, gate, apply)
+        cp = self._chains[key] = ChainPlan(Ls, Lout, dts, backend, gate, apply,
+                                           conversion, conv, tree)
         return cp
 
     @staticmethod
@@ -1858,6 +2090,8 @@ def _synthetic_inputs(key: PlanKey, device) -> tuple:
         v /= np.linalg.norm(v, axis=-1, keepdims=True)
         return r(B, num_coeffs(key.L1)), torch.as_tensor(v, dtype=torch.float32,
                                                          device=device)
+    if key.kind == "manybody":
+        return ([r(B, num_coeffs(L)) for L in key.opt("Ls")],)
     # channel_mix: small representative channel counts
     C1 = C2 = E = 4
     return (r(B, C1, num_coeffs(key.L1)), r(B, C2, num_coeffs(key.L2)),

@@ -6,7 +6,9 @@ and their differentiable torch twin `real_sph_harm_torch`; the exact
 Clebsch-Gordan pieces behind the Wigner recursion's CG blocks
 (`constants.cg_11_blocks`) and the CG baseline (`core.cg`); the exact real
 Gaunt tensor (`real_gaunt_tensor`, the dense oracle); and the real Wigner-D
-matrices (`wigner_D_real_packed`) that the equivariance checks rotate with.
+matrices (`wigner_D_real_packed`) that the equivariance checks rotate with,
+and the zyz Euler angles of a rotation (`euler_from_matrix_zyz`,
+`align_to_z_angles`).
 The numpy code runs once per shape, in float64 or exact rational arithmetic,
 and is cached by `core.constants`.
 
@@ -46,6 +48,8 @@ __all__ = [
     "wigner_D_real",
     "wigner_D_real_packed",
     "rotation_matrix_zyz",
+    "euler_from_matrix_zyz",
+    "align_to_z_angles",
 ]
 
 
@@ -447,3 +451,28 @@ def rotation_matrix_zyz(alpha: float, beta: float, gamma: float) -> np.ndarray:
         )
 
     return rz(alpha) @ ry(beta) @ rz(gamma)
+
+
+def euler_from_matrix_zyz(R: np.ndarray) -> tuple[float, float, float]:
+    """Inverse of `rotation_matrix_zyz` (beta in [0, pi]; at the gimbal
+    poles gamma is 0 and the rotation folds into alpha)."""
+    beta = math.acos(max(-1.0, min(1.0, R[2, 2])))
+    if abs(R[2, 2]) < 1 - 1e-12:
+        alpha = math.atan2(R[1, 2], R[0, 2])
+        gamma = math.atan2(R[2, 1], -R[2, 0])
+    else:
+        alpha = math.atan2(R[1, 0], R[0, 0]) if R[2, 2] > 0 else math.atan2(-R[1, 0], -R[0, 0])
+        gamma = 0.0
+    return alpha, beta, gamma
+
+
+def align_to_z_angles(r: np.ndarray) -> tuple[float, float, float]:
+    """zyz Euler angles of a rotation R with R @ r_hat = (0, 0, 1): the
+    zenith alignment under which the SH filter keeps only its m = 0
+    components, S_{l,m}(e_z) = delta_{m0} sqrt((2l+1)/4pi)."""
+    r = np.asarray(r, dtype=np.float64)
+    r = r / np.linalg.norm(r)
+    theta = math.acos(max(-1.0, min(1.0, r[2])))
+    psi = math.atan2(r[1], r[0])
+    # Ry(-theta) Rz(-psi) sends r to +z
+    return euler_from_matrix_zyz(rotation_matrix_zyz(0.0, -theta, -psi))

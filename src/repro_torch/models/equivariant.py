@@ -1,9 +1,11 @@
 """The paper's model family on the Gaunt ops, in PyTorch: the MACE-like
 force field, the SEGNN-like N-body net and the EquiformerV2 Selfmix layer.
 
-MaceGaunt.  Each layer: an eSCN equivariant convolution of neighbour
-features against the edge geometry (messages summed over neighbours within
-the cutoff), a degree-wise channel mix with a residual, the nu-fold
+MaceGaunt.  Each layer: an equivariant convolution of neighbour features
+against the edge geometry (messages summed over neighbours within the
+cutoff) — ``conv_impl='escn'``, the rotation-aligned path, or 'general',
+the paper's own: the filter Y(r_hat) on its Fourier grid, convolved in 2D
+with each neighbour's grid — a degree-wise channel mix with a residual, the nu-fold
 many-body self-product (one chain plan — on the collocation kernel when
 ``chain_tune='measure'`` picks it), a second channel mix and the
 equivariant gate.  ``compute_dtype='bfloat16'`` stores the many-body chain
@@ -276,9 +278,6 @@ class MaceGaunt(_Picks):
     def __init__(self, cfg: EquivariantConfig, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.conv_impl != "escn":
-            raise NotImplementedError(f"conv_impl {cfg.conv_impl!r} is not ported "
-                                      "(ROADMAP Queue 1 item 4c)")
         self.cfg = cfg
         self.device = resolve_device(device)
         c, dev = cfg, self.device
@@ -286,7 +285,7 @@ class MaceGaunt(_Picks):
         self.readout_w1 = nn.Parameter(torch.empty(c.channels, c.hidden, device=dev))
         self.readout_w2 = nn.Parameter(torch.empty(c.hidden, 1, device=dev))
         self.layers = nn.ModuleList(MaceLayer(c, dev) for _ in range(c.n_layers))
-        self.conv = EquivariantConv(c.L, c.L_edge, c.L, method=c.conv_impl)
+        self.conv = EquivariantConv(c.L, c.L_edge, c.L, method=c.conv_impl, device=dev)
         self._init_picks(dev)
         self.init(generator if generator is not None else torch.Generator().manual_seed(0))
 
@@ -346,10 +345,13 @@ class MaceGaunt(_Picks):
         S, n = pos.shape[:2]
         C, dim = c.channels, num_coeffs(c.L)
         rhat, dist, mask = _pair_geometry(pos, c.cutoff)
-        # the edge geometry is layer-constant: hoist the alignment rotation
-        # and Wigner recursion out of the layer loop
-        geom = (self.conv.geometry_rep(rhat[..., None, :]) if c.fourier_resident
-                else rhat[..., None, :])
+        # the edge geometry is layer-constant: build what the conv needs of
+        # it once for the whole stack — the filter's Fourier grid (general)
+        # or the alignment rotation and Wigner blocks (eSCN)
+        geom = rhat[..., None, :]
+        if c.fourier_resident:
+            geom = (self.conv.filter_rep(geom) if c.conv_impl == "general"
+                    else self.conv.geometry_rep(geom))
         x = torch.cat([self.species[species.long()][..., None],
                        pos.new_zeros(S, n, C, dim - 1)], dim=-1)
         grid_gate = self.grid_gate_on(S * n * C, pos.device)

@@ -284,16 +284,31 @@ def test_pinned_pick_is_not_persisted(tmp_path):
 def test_cli_verify_warm(tmp_path, monkeypatch, capsys):
     """The CLI measures its grid into the file, and a second run with
     --verify-warm makes zero timing runs (exit 0); a run against another
-    file fails the check (exit 2).  The grid is cut to CPU size here."""
+    file fails the check (exit 2).  The grid covers the cost model's
+    calibration per storage dtype, the 'auto' dtype family and the gate
+    policies, so the warm run needs none of them timed.  The grid is cut to
+    CPU size here; the calibration lands in a process-wide table, restored
+    after."""
+    monkeypatch.setattr(engine, "_CALIB", dict(engine._CALIB_DEFAULTS))
     monkeypatch.setattr(ac, "_PLAN_LS", (1,))
     monkeypatch.setattr(ac, "_CHAINS", (((1, 1), 1, 32),))
     path = str(tmp_path / "cli.json")
     argv = ["--cache", path, "--fast", "--device", "cpu", "--serve-rows", "32"]
     monkeypatch.setattr(engine, "_ENGINE", engine.GauntEngine())
     assert ac.main(argv) == 0
+    cal = engine.get_calibration()
+    assert cal["fused_skinny_measured"] and cal["fused_skinny:bfloat16_measured"]
+    keys = list(engine.get_engine()._measured)
+    assert any(isinstance(k, engine.PlanKey) and k.dtype == "auto" for k in keys)
+    assert any(isinstance(k, tuple) and k[2] == "auto" and k[5] for k in keys)
+    # the gate policy keys on the storage dtype ('auto' resolves first)
+    assert {k[2] for k in keys if isinstance(k, tuple) and ("gate", "policy") in k[7:]} \
+        == {"float32", "bfloat16"}
+    monkeypatch.setattr(engine, "_CALIB", dict(engine._CALIB_DEFAULTS))
     monkeypatch.setattr(engine, "_ENGINE", engine.GauntEngine())
     assert ac.main(argv + ["--verify-warm"]) == 0
     assert "verify-warm OK: zero timing runs" in capsys.readouterr().out
+    assert engine.get_calibration()["fused_skinny:bfloat16_measured"]
     monkeypatch.setattr(engine, "_ENGINE", engine.GauntEngine())
     argv[1] = str(tmp_path / "other.json")
     assert ac.main(argv + ["--verify-warm"]) == 2

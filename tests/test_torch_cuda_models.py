@@ -1,6 +1,8 @@
 """The chain kernel at the shapes of SEGNN's resident edge product and of
 the EquiformerV2 Selfmix layer, the two models with their chains pinned to
-the kernel, and `plan_batch` buckets on the pair kernel — on the card.
+the kernel, `plan_batch` buckets on the pair kernel, the general
+convolution's force field served and trained, the manybody plans,
+`calibrate_fused` and the quickstart — on the card.
 Marked ``cuda``: these skip without an sm_90 GPU (on the card:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_models.py``)."""
 import dataclasses
@@ -117,3 +119,38 @@ def test_plan_batch_one_pair_launch_per_bucket_on_card(cuda_device):
         p = engine.plan(L1, L2, Lout, backend="fused_hopper", requires_grad=False,
                         device=cuda_device)
         assert float((got - p.apply(a, b)).abs().max()) <= 1e-6
+
+
+def test_general_conv_model_served_and_trained_on_card(cuda_device):
+    """`MaceGaunt(conv_impl='general')` at a small width through the bucketed
+    engine on the card (each bucket's step a CUDA graph): served == direct,
+    general == eSCN, rotation, chain launches through the replays, a warm
+    autotune file, two training steps and kernel- vs tree-pinned loss."""
+    import dataclasses
+
+    from repro_torch.configs.gaunt_ff import gaunt_mace_ff
+    from repro_torch.serve.pools import default_buckets
+
+    cfg = dataclasses.replace(gaunt_mace_ff, channels=8, n_species=4, chain_tune="measure",
+                              grid_gate="on")
+    _CS.phase_general(cuda_device, cfg, default_buckets(8, 2), [3, 5, 8], train_steps=2)
+
+
+def test_manybody_kind_on_card(cuda_device):
+    """Every manybody backend against the tree chain on the card, forward and
+    gradients, and plan_batch's Ls buckets against per-plan calls."""
+    _CS.phase_manybody(cuda_device, rows=1024)
+
+
+def test_calibrate_fused_on_card(cuda_device):
+    """calibrate_fused at f32 and bf16 on the card, reloaded measured from
+    the autotune file with zero timing runs."""
+    _CS.phase_calibrate(cuda_device, sweep=False)
+
+
+def test_quickstart_on_card(cuda_device):
+    """The quickstart twin on the card: every error below 1e-5, the pair
+    kernel launched."""
+    reset_kernel_stats()
+    _CS.phase_quickstart(cuda_device)
+    assert kernel_stats()["gaunt_pair"] > 0

@@ -208,8 +208,17 @@ def test_calibration_set_and_reset_track_the_reference():
 
 
 def test_plan_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 4b"):
+    # the manybody kind is ported: it needs Ls, as the reference's does, and
+    # its plan computes the reference's product
+    with pytest.raises(ValueError, match="Ls"):
         port_engine.plan(kind="manybody", device="cpu")
+    xs = [_rand((3, 9), 40 + i) for i in range(3)]
+    pm = port_engine.plan(kind="manybody", Ls=(2, 2, 2), Lout=2, backend="fft", device="cpu")
+    assert pm.key.opt("Ls") == (2, 2, 2) and pm.key.kind == "manybody"
+    want = ref_engine.plan(kind="manybody", Ls=(2, 2, 2), Lout=2, backend="fft").apply(
+        [jnp.asarray(x) for x in xs])
+    assert_close(pm.apply([torch.as_tensor(x) for x in xs]).numpy(), np.asarray(want),
+                 dtype="float32")
     # Fourier boundaries are ported on the spectral backends only
     pf = port_engine.plan(2, 2, 4, options={"boundary": ("fourier", "sh", "sh")},
                           device="cpu")

@@ -144,8 +144,17 @@ def test_plan_batch_rejects_channel_mix_and_bad_items():
         engine.plan_batch([], device="cpu")
     with pytest.raises(ValueError):
         engine.plan_batch([(1, 1)], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        engine.plan_batch([engine.BatchItem(Ls=(2, 2))], kind="manybody", device="cpu")
+    # manybody items are ported: each needs Ls with >= 2 degrees, as in the
+    # reference, and a bucket of them equals the reference's
+    with pytest.raises(ValueError, match="Ls"):
+        engine.plan_batch([engine.BatchItem(Ls=(2,))], kind="manybody", device="cpu")
+    xs = [random_irreps(2, (5,), seed=60 + i) for i in range(2)]
+    bp = engine.plan_batch([engine.BatchItem(Ls=(2, 2))], kind="manybody",
+                           backend="direct", device="cpu")
+    want = ref_engine.plan_batch([ref_engine.BatchItem(Ls=(2, 2))], kind="manybody",
+                                 backend="direct").apply([[jnp.asarray(x) for x in xs]])[0]
+    assert_close(bp.apply([[_t(x) for x in xs]])[0].numpy(), np.asarray(want),
+                 dtype="float32")
     with pytest.raises(NotImplementedError, match="item 10"):
         engine.plan_batch([(1, 1, 2)], shard_spec=object(), device="cpu")
 

@@ -325,6 +325,39 @@ def test_step_body_makes_no_host_round_trip(backend, compute_dtype, grid_gate):
     assert torch.equal(e0, e1) and torch.equal(f0, f1)
 
 
+@pytest.mark.parametrize("backend,fourier_resident", [("fused_torch", True), ("tree", False)])
+def test_general_step_body_makes_no_host_round_trip(backend, fourier_resident):
+    """The same capture rehearsal over the general convolution's step: the
+    filter Y(r), its Fourier grid (once per geometry, or per layer without
+    residency) and the direct 2D convolution make no tensor from host data,
+    read nothing back and size nothing by the data; the served step equals
+    a direct evaluation of each molecule."""
+    model = MaceGaunt(dataclasses.replace(gaunt_mace_ff, channels=4, n_layers=2, L=2, L_edge=3,
+                                          n_species=4, chain_tune="measure", grid_gate="on",
+                                          conv_impl="general",
+                                          fourier_resident=fourier_resident),
+                      device="cpu", generator=torch.Generator().manual_seed(0))
+    eng = EquivariantServeEngine(model, buckets=[(6, 2)], warmup=True)
+    pool = eng.pools.pools[0]
+    c, ge = model.cfg, _engine.get_engine()
+    key = ge.chain_measure_key((c.L,) * c.nu, c.L, "float32", 2 * 6 * c.channels,
+                               (0,) * c.nu, True, "cpu")
+    reqs = [EquivariantRequest(*_mol(n, seed=n), rid=n) for n in (4, 6)]
+    for r in reqs:
+        assert pool.admit(r)
+    pool.stage()
+    with ge.pinned_chain(key, backend):
+        e0, f0 = pool.step_staged()
+        with _NoHostRoundTrip():
+            e1, f1 = pool._forward(*pool._inputs)
+        assert torch.equal(e0, e1) and torch.equal(f0, f1)
+        for i, r in enumerate(reqs):
+            n = len(r.species)
+            e, f = model.energy_forces(torch.as_tensor(r.species), torch.as_tensor(r.pos))
+            assert abs(float(e) - float(e0[i])) <= 3e-4 * max(1.0, abs(float(e)))
+            assert float((f - f0[i, :n]).abs().max()) <= 2e-3 * max(1e-30, float(f.abs().max()))
+
+
 _BUCKETED_CHILD = r"""
 import dataclasses, json, os
 import numpy as np
