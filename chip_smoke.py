@@ -141,7 +141,31 @@ result line):
      pass, output pass) and its plain version at full width on layer 0's
      inputs (bound: the step recurrence's operations), prefill and decode
      per token on the host clock, and a profiled prefill (its SSD share
-     sums both passes).
+     sums both passes);
+  14. LM serving — RWKV6-3B (after phase 10) and Zamba2-2.7B (after phase
+     13) served through the LM `ServeEngine` while their weights are
+     loaded, then, each built from `torch.Generator(device).manual_seed(0)`
+     over f32 weights and freed before the next: `qwen2-0.5b` at full width
+     and depth, the main path (8 requests of 16-64 prompt tokens, 16 new
+     tokens, 4 slots, max_len 512, bf16 compute), and `qwen2-moe-a2.7b` at
+     full width and depth (57 GB of f32 weights; 4 requests).  For each
+     model the engine's decode step is a CUDA graph captured at warmup and
+     replayed for every decode step and prompt token; an eager engine
+     serves the same requests: identical tokens, and one step from the
+     same cache gives the same logits and cache (`[lmserve]`); the decode
+     step per token as a graph and eager in turns (host clock, median of
+     21), the served tokens/s, a profiled step of each.  qwen2-0.5b's
+     served tokens at f32 compute against the teacher-forced greedy argmax
+     of `forward`; the MoE's decode after a 2 x 256 prefill against
+     `forward` at f32, at capacity_factor 8.0 (printed) and at a capacity
+     where no entry can drop (held to the f32 tier);
+  15. the attention families at full width (`[lmfamilies]`), a depth cut
+     only where 80 GB forces one: gemma-2b, stablelm-3b, whisper-base (1,500
+     source frames), qwen1.5-32b (8 of 64 layers), qwen2-vl-72b (4 of 80,
+     3-axis positions3), dbrx-132b (2 of 40): a 2 x 256 prefill and 4
+     decode steps, each against `forward` at f32; gemma-2b's int8 KV cache
+     against its f32 cache over 16 greedy tokens (the quantizer's bound on
+     the prefilled rows, any parting of the streams a near tie).
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs no network and imports no JAX.
 """
@@ -2788,17 +2812,6 @@ def phase_lm_times(device, name: str, scan_name: str, kernel_keys: tuple, model,
     and one profiled decode step (busy time, idle share, copies, top
     kernels)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    def profiled(fn):  # -> (wall ms, kernel events by device time, busy ms)
-        _sync(device)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            _sync(device)
-            wall = (time.perf_counter() - t0) * 1e3
-        events = sorted(_kernel_events(prof), key=_device_us, reverse=True)
-        return wall, events, sum(_device_us(e) for e in events) / 1e3
 
     batch, seq = tokens.shape
     pre_ms, pre_all = host_ms(lambda: model.prefill(params, {"tokens": tokens}, seq), device,
@@ -2819,7 +2832,8 @@ def phase_lm_times(device, name: str, scan_name: str, kernel_keys: tuple, model,
           f"{batch * seq / pre_ms * 1e3:.0f} tokens/s; decode_step ({batch} sequences): "
           f"{dec_ms:.2f} ms per token, median of {n_decode}")
     pos = torch.full((batch,), seq + n_decode, device=device)
-    wall, events, busy = profiled(lambda: model.decode_step(params, cache, tok, pos))
+    wall, events, busy = _profiled_wall(lambda: model.decode_step(params, cache, tok, pos),
+                                       device)
     del cache
     if busy > 0:
         keys = [(e.key.lower(), _device_us(e) / 1e3) for e in events]
@@ -2832,7 +2846,8 @@ def phase_lm_times(device, name: str, scan_name: str, kernel_keys: tuple, model,
               f"other copies {copies:.3f} ms")
         for e in events[:5]:
             print(f"[profile]   {_device_us(e) / 1e3:8.3f} ms {e.count:5d}x  {e.key[:90]}")
-    wall, events, busy = profiled(lambda: model.prefill(params, {"tokens": tokens}, seq))
+    wall, events, busy = _profiled_wall(lambda: model.prefill(params, {"tokens": tokens}, seq),
+                                       device)
     if busy <= 0:
         print("[profile] the profiler saw no device time; prefill breakdown not measured")
         return pre_ms, dec_ms
@@ -3107,6 +3122,412 @@ def phase_mamba2_times(device, x, dt, A, B, C, D, launches: int):
     return kernel_ms, plain_ms, bound_ms, bound_by
 
 
+# --------------------------------------------------------------------------
+# phases 14-16: the LM serve engine (decode step a CUDA graph) and the
+# attention families at full width
+# --------------------------------------------------------------------------
+
+LM_SLOTS, LM_MAX_LEN = 4, 512        # the engine of the served LM phases
+LM_TIMING_REPS = 21                  # engine steps timed, graph and eager in turns
+LM_FAMILY_BATCH, LM_FAMILY_SEQ, LM_FAMILY_STEPS = 2, 256, 4
+# (arch, layers kept, why): full width everywhere; depth cut only where the
+# f32 parameters would not fit in 80 GB
+LM_FAMILIES = [("gemma-2b", None, ""), ("stablelm-3b", None, ""), ("whisper-base", None, ""),
+               ("qwen1.5-32b", 8, "all 64 layers would be ~140 GB at f32"),
+               ("qwen2-vl-72b", 4, "all 80 layers would be ~290 GB at f32"),
+               ("dbrx-132b", 2, "all 40 layers would be ~530 GB at f32")]
+# the int8 KV cache's greedy check at full width: the prompt of
+# tests/test_kv_int8.py (2 x 24 tokens), 16 greedy tokens
+INT8_PROMPT, INT8_GREEDY_TOKENS = 24, 16
+
+
+def _free_device() -> None:
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _lm_requests(vocab: int, n: int, prompt: tuple, new_tokens: int, seed: int):
+    """``n`` greedy requests with seeded prompts of prompt[0]..prompt[1] tokens."""
+    import numpy as np
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(prompt=rng.integers(0, vocab, int(rng.integers(prompt[0], prompt[1] + 1)))
+                    .tolist(), max_new_tokens=new_tokens, rid=i) for i in range(n)]
+
+
+def _init_lm(device, cfg, tag: str):
+    """A model of ``cfg`` on the card and its f32 random weights from
+    ``torch.Generator(device).manual_seed(0)``."""
+    import torch
+    from repro_torch.models.api import build_model, count_params
+
+    model = build_model(cfg, device=device)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    _sync(device)
+    n = count_params(cfg)
+    heads = f"{cfg.n_heads}/{cfg.kv_heads} heads of {cfg.hd}, " if cfg.n_heads else ""
+    print(f"[{tag}] {cfg.name}: {cfg.family}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{heads}d_ff {cfg.d_ff}"
+          + (f", {cfg.n_experts} experts top-{cfg.top_k} (d_ff {cfg.d_ff_expert}, "
+             f"{cfg.n_shared_experts} shared)" if cfg.n_experts else "")
+          + f", vocab {cfg.vocab}; {n:,} {cfg.param_dtype} parameters ({n * 4 / 1e9:.2f} GB), "
+          f"random init in {time.perf_counter() - t0:.2f} s")
+    return model, params
+
+
+def _profiled_wall(fn, device):
+    """One profiled call -> (wall ms, GPU kernel events by device time, busy ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        wall = (time.perf_counter() - t0) * 1e3
+    events = sorted(_kernel_events(prof), key=_device_us, reverse=True)
+    return wall, events, sum(_device_us(e) for e in events) / 1e3
+
+
+def phase_lm_engine(device, tag: str, model, params, n_requests: int = 8,
+                    prompt: tuple = (16, 64), new_tokens: int = 16,
+                    reps: int = LM_TIMING_REPS) -> dict:
+    """Serve ``n_requests`` seeded greedy requests through `ServeEngine`
+    (LM_SLOTS slots, max_len LM_MAX_LEN) with its decode step a CUDA graph,
+    and again through the eager step: identical tokens for every request;
+    one step's logits and cache, graph against eager from the same cache;
+    the engine step (4 active slots: stage, replay, argmax, host copy) as a
+    graph and eager in turns, host clock, median of ``reps``; the served
+    tokens/s; a profiled graph step and eager step.  -> the numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import _leaves
+
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    eng = ServeEngine(model, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN, warmup=True)
+    t_warm = time.perf_counter() - t0
+    graphed = device.type == "cuda"
+    check(not graphed or eng._graph is not None, "the engine captured no decode graph")
+    reqs = _lm_requests(cfg.vocab, n_requests, prompt, new_tokens, seed=1)
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(r.output) for r in reqs)
+    n_prompt = sum(len(r.prompt) for r in reqs)
+    check(all(r.done and not r.rejected and len(r.output) == new_tokens for r in reqs),
+          f"{tag}: a request was not served in full")
+    eager = ServeEngine(model, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN, eager=True)
+    reqs_e = _lm_requests(cfg.vocab, n_requests, prompt, new_tokens, seed=1)
+    t0 = time.perf_counter()
+    eager.run(reqs_e)
+    _sync(device)
+    wall_e = time.perf_counter() - t0
+    same = all(a.output == b.output for a, b in zip(reqs, reqs_e))
+    print(f"[lmserve] {tag}: {n_requests} requests ({n_prompt} prompt tokens, "
+          f"{prompt[0]}-{prompt[1]} each; {new_tokens} new tokens each, greedy), {LM_SLOTS} "
+          f"slots, max_len {LM_MAX_LEN}, {cfg.dtype} compute: "
+          + (f"graph captured in {eng.capture_s:.3f} s (warmup {t_warm:.2f} s), graph memory "
+             f"{eng.graph_bytes / 2**20:.1f} MiB, {eng.replays} replays; " if graphed else
+             "eager (no graph off the card); ")
+          + f"served {n_tok} tokens in "
+          f"{wall:.3f} s ({n_tok / wall:.1f} tokens/s; eager engine {wall_e:.3f} s, "
+          f"{n_tok / wall_e:.1f} tokens/s); graph == eager tokens for every request: "
+          f"{'ok' if same else 'FAIL'}; tokens of request 0: {reqs[0].output}")
+    check(same, f"{tag}: the graph engine's tokens differ from the eager engine's")
+    # fill every slot with a long request, then one step's logits and cache
+    # from the same cache, graph against eager
+    for e in (eng, eager):
+        for r in _lm_requests(cfg.vocab, LM_SLOTS, (16, 16), 10 ** 6, seed=2):
+            check(e.add_request(r), "no free slot")
+    toks = np.array([r.output[-1] for r in eng.slot_req], np.int64)
+    pos = eng.pos + 1
+    snap = [a.clone() for a in _leaves(eng.cache)]
+    with torch.no_grad():
+        lg = eng._run(eng._upload(toks[None], pos[None]), 0)[:, 0].clone()
+        after_g = [a.clone() for a in _leaves(eng.cache)]
+        for a, b in zip(_leaves(eng.cache), snap):
+            a.copy_(b)
+        le = eng.evaluate(toks, pos)[:, 0]
+        err = float((lg - le).abs().max())
+        cerr = max(float((a.double() - b.double()).abs().max())
+                   for a, b in zip(after_g, _leaves(eng.cache)))
+    print(f"[lmserve] {tag}: one step from the same cache, graph vs eager: logits max abs "
+          f"diff {err:.3e}, cache max abs diff {cerr:.3e} (expected 0: the same kernels in "
+          f"the same order)")
+    check(err <= F32_IDENTITY_TOL * max(1.0, float(le.abs().max())) and cerr <= 1e-2,
+          f"{tag}: the graph step differs from the eager step")
+    del snap, after_g
+    times = {"graph": [], "eager": []}
+    for _ in range(reps):
+        for name, e in (("graph", eng), ("eager", eager)):
+            t0 = time.perf_counter()
+            e.step()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    print(f"[times] {tag} decode step per token ({LM_SLOTS} sequences; stage, step, argmax, "
+          f"host copy; host clock, median of {reps}, in turns): graph {med['graph']:.3f} ms, "
+          f"eager {med['eager']:.3f} ms (x{med['eager'] / med['graph']:.2f}); "
+          f"{LM_SLOTS / med['graph'] * 1e3:.1f} tokens/s decoding")
+    out = {"graph_ms": med["graph"], "eager_ms": med["eager"], "tok_s": n_tok / wall}
+    for name, e in (("graph", eng), ("eager", eager)):
+        w, events, busy = _profiled_wall(e.step, device)
+        if busy <= 0:
+            print(f"[profile] {tag} decode step {name}: the profiler saw no device time; "
+                  f"busy and idle not measured")
+            continue
+        idle = max(0.0, 1 - busy / med[name])
+        out[f"{name}_busy_ms"], out[f"{name}_idle"] = busy, idle
+        print(f"[profile] {tag} decode step {name} (profiled): wall {w:.2f} ms, device busy "
+              f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / w):.3f} of the profiled wall, "
+              f"{idle:.3f} of the unprofiled median step; "
+              f"{sum(ev.count for ev in events)} GPU events")
+        for ev in events[:4]:
+            print(f"[profile]   {_device_us(ev) / 1e3:8.3f} ms {ev.count:5d}x  {ev.key[:90]}")
+    del eng, eager
+    _free_device()
+    return out
+
+
+def lm_consistency(cfg, params, device, tag: str, B: int = LM_FAMILY_BATCH,
+                   S: int = LM_FAMILY_SEQ, n_steps: int = LM_FAMILY_STEPS):
+    """At ``cfg``'s compute dtype: forward over S + n_steps seeded tokens
+    (vlm: with 3-axis positions3, text-like; encdec: seeded source frames);
+    prefill of the first S; then ``n_steps`` decode steps, each held against
+    forward at its position.  -> (prefill rel, worst decode rel), scale-relative."""
+    import torch
+    from repro_torch.models.api import build_model
+
+    model = build_model(cfg, device=device)
+    g = torch.Generator(device=device).manual_seed(3)
+    T = S + n_steps
+    tokens = torch.randint(0, cfg.vocab, (B, T), generator=g, device=device)
+    extra = {}
+    if cfg.family == "encdec":
+        extra["source_embeds"] = torch.randn((B, cfg.max_source_len, cfg.d_model),
+                                             generator=g, device=device)
+    batch = dict(tokens=tokens, **extra)
+    if cfg.family == "vlm":
+        batch["positions3"] = torch.arange(T, device=device)[None, :, None].expand(B, T, 3)
+    logits_all, aux = model.forward(params, batch)
+    check(bool(torch.isfinite(logits_all).all()) and bool(torch.isfinite(aux)),
+          f"{tag}: forward is not finite")
+    last, cache = model.prefill(params, dict(tokens=tokens[:, :S], **extra), T)
+    rel_p = rel_err(last[:, 0], logits_all[:, S - 1])[1]
+    rel_d = []
+    for j in range(n_steps):
+        step, cache = model.decode_step(params, cache, tokens[:, S + j:S + j + 1],
+                                        torch.full((B,), S + j, device=device))
+        rel_d.append(rel_err(step[:, 0], logits_all[:, S + j])[1])
+    return rel_p, max(rel_d), float(aux)
+
+
+def phase_lm_main(device, cfg):
+    """qwen2-0.5b at full width and depth: served through the engine (graph
+    == eager), then at f32 compute the served tokens of 2 requests against
+    the teacher-forced greedy argmax of `forward`."""
+    import torch
+    from repro_torch.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    model, params = _init_lm(device, cfg, "lmserve")
+    out = phase_lm_engine(device, cfg.name, model, params)
+    m32 = dataclasses.replace(cfg, dtype="float32")
+    from repro_torch.models.api import build_model
+
+    model32 = build_model(m32, device=device)
+    reqs = _lm_requests(cfg.vocab, 2, (16, 64), 16, seed=3)
+    ServeEngine(model32, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN).run(reqs)
+    ok = True
+    for r in reqs:
+        toks = list(r.prompt)
+        with torch.no_grad():
+            for _ in range(r.max_new_tokens):
+                logits, _ = model32.forward(params, {"tokens": [toks]})
+                toks.append(int(logits[0, -1].argmax()))
+        ok &= toks[len(r.prompt):] == r.output
+    print(f"[lmserve] {cfg.name} float32 compute: the served greedy tokens of {len(reqs)} "
+          f"requests (graph) vs the teacher-forced argmax of forward: "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "served tokens differ from the teacher-forced greedy forward")
+    del model, params
+    _free_device()
+    print(f"[lmserve] {cfg.name} phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def lossless_cf(cfg) -> float:
+    """A capacity factor at which no MoE entry can drop: C = ceil(T k / E *
+    cf) >= T once cf >= E / k, and no expert takes more than T entries (one
+    a token).  The reference's consistency test uses 8.0, lossless at its
+    reduced 4 experts top-2; at 60 experts top-4 it is not."""
+    return max(8.0, cfg.n_experts / cfg.top_k)
+
+
+def phase_lm_moe(device, cfg):
+    """qwen2-moe-a2.7b at full width and depth (f32 weights, ~57 GB): served
+    through the graph (graph == eager); at f32 compute, one decode step after
+    a 2 x 256 prefill against forward, at capacity_factor 8.0 (printed) and
+    at a lossless capacity (held to the f32 tier)."""
+    t_phase = time.perf_counter()
+    model, params = _init_lm(device, cfg, "lmserve")
+    out = phase_lm_engine(device, cfg.name, model, params, n_requests=4, prompt=(16, 32),
+                          new_tokens=8, reps=11)
+    for cf, held in ((8.0, False), (lossless_cf(cfg), True)):
+        c = dataclasses.replace(cfg, capacity_factor=cf, dtype="float32")
+        rel_p, rel_d, aux = lm_consistency(c, params, device, cfg.name, n_steps=1)
+        ok = max(rel_p, rel_d) <= F32_IDENTITY_TOL
+        print(f"[lmserve] {cfg.name} capacity_factor {cf} (C = "
+              f"{moe_capacity_of(c, LM_FAMILY_SEQ + 1)} of {LM_FAMILY_SEQ + 1} tokens x top-"
+              f"{c.top_k} in forward), float32 compute: prefill {LM_FAMILY_BATCH} x "
+              f"{LM_FAMILY_SEQ} last logits vs forward rel {rel_p:.3e}; decode_step after "
+              f"prefill vs forward at position {LM_FAMILY_SEQ}: rel {rel_d:.3e} "
+              + (f"(tol {F32_IDENTITY_TOL}) {'ok' if ok else 'FAIL'}" if held else
+                 "(not held: forward may drop entries that the one-token decode keeps)")
+              + f"; forward aux loss {aux:.5f}")
+        if held:
+            check(ok, f"{cfg.name}: decode after prefill differs from forward")
+    del model, params
+    _free_device()
+    print(f"[lmserve] {cfg.name} phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def moe_capacity_of(cfg, T: int) -> int:
+    from repro_torch.models.moe import moe_capacity
+
+    return moe_capacity(T, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
+
+
+def _greedy(model, params, tokens, n: int, max_len: int):
+    """Prefill ``tokens``, then ``n`` greedy decode steps -> ([B, n + 1]
+    tokens, each step's logits)."""
+    import torch
+
+    last, cache = model.prefill(params, {"tokens": tokens}, max_len)
+    tok = last[:, 0].argmax(-1, keepdim=True)
+    seq, logits = [tok], [last[:, 0]]
+    S = tokens.shape[1]
+    for i in range(n):
+        step, cache = model.decode_step(params, cache, tok,
+                                        torch.full((tokens.shape[0],), S + i,
+                                                   device=tokens.device))
+        tok = step[:, 0].argmax(-1, keepdim=True)
+        seq.append(tok)
+        logits.append(step[:, 0])
+    return torch.cat(seq, dim=1), torch.stack(logits), cache
+
+
+def phase_int8_cache(device, model, params, cfg):
+    """The int8 KV cache against the model-dtype cache (``cfg``'s compute
+    dtype) on the same weights: a 2 x INT8_PROMPT prefill, then
+    INT8_GREEDY_TOKENS greedy steps on each.  Held: every prefilled cache
+    row is within the quantizer's own bound of the model-dtype row (round to
+    nearest at the float32 scale s, read back at the float16 scale: 0.5 s +
+    127 |s - s_f16| an element); where the two greedy streams part, the
+    token the model-dtype cache picked leads its runner-up by less than
+    twice the int8 cache's logits deviation at that step (a near tie flipped
+    by the quantization noise, not a wrong row).  Printed: the logits
+    deviation before the streams part and how many greedy tokens agree."""
+    import torch
+    from repro_torch.models.api import build_model
+
+    q8 = build_model(dataclasses.replace(cfg, kv_cache_dtype="int8"), device=device)
+    toks = torch.randint(0, cfg.vocab, (LM_FAMILY_BATCH, INT8_PROMPT), device=device,
+                         generator=torch.Generator(device=device).manual_seed(5))
+    max_len = INT8_PROMPT + INT8_GREEDY_TOKENS
+    seq_fp, lg_fp, c_fp = _greedy(model, params, toks, INT8_GREEDY_TOKENS, max_len)
+    seq_q8, lg_q8, c_q8 = _greedy(q8, params, toks, INT8_GREEDY_TOKENS, max_len)
+    check(c_q8["k"].dtype == torch.int8, "the int8 cache is not int8")
+    nbytes = [sum(a.numel() * a.element_size() for a in c.values()) for c in (c_fp, c_q8)]
+    worst = 0.0  # the prefilled rows: computed from the tokens alone, in both
+    for n in ("k", "v"):
+        ref = c_fp[n][:, :, :INT8_PROMPT].float()
+        s32 = ref.abs().amax(-1).clamp_min(1e-6) / 127.0
+        s16 = c_q8[n + "_scale"][:, :, :INT8_PROMPT].float()
+        deq = c_q8[n][:, :, :INT8_PROMPT].float() * s16[..., None]
+        bound = 0.5 * s32 + 127.0 * (s32 - s16).abs()
+        worst = max(worst, float(((deq - ref).abs() / bound[..., None]).max()))
+    # the first token that differs, and the deviation of the steps before it
+    differ = (seq_fp != seq_q8).any(dim=0)
+    j0 = int(differ.float().argmax()) if bool(differ.any()) else seq_fp.shape[1]
+    dev = max(rel_err(lg_q8[j], lg_fp[j])[1] for j in range(min(j0 + 1, lg_fp.shape[0])))
+    line = (f"[lmfamilies] {cfg.name} kv_cache_dtype='int8' vs the {cfg.dtype} cache "
+            f"({LM_FAMILY_BATCH} x {INT8_PROMPT} prefill, {INT8_GREEDY_TOKENS} greedy steps): "
+            f"prefilled rows within the quantizer's bound (worst {worst:.3f} of it); logits "
+            f"scale {float(lg_fp.abs().max()):.2f}, deviation up to the first differing step "
+            f"rel {dev:.3e}; greedy tokens equal {int((~differ).sum())} of {seq_fp.shape[1]}")
+    flip_ok = True
+    if j0 < seq_fp.shape[1]:
+        top2 = lg_fp[j0].topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        d = (lg_fp[j0] - lg_q8[j0]).abs().amax(-1)
+        split = seq_fp[:, j0] != seq_q8[:, j0]
+        flip_ok = bool((margin[split] <= 2 * d[split]).all())
+        line += (f"; they part at step {j0}: the model-dtype pick leads by "
+                 f"{float(margin[split].max()):.3e}, the int8 logits deviate by "
+                 f"{float(d[split].max()):.3e} (a near tie: {'ok' if flip_ok else 'FAIL'})")
+    print(line + f"; cache bytes {nbytes[1]:,} vs {nbytes[0]:,} ({nbytes[1] / nbytes[0]:.3f})")
+    check(worst <= 1.0 + 1e-5, "an int8 cache row is outside the quantizer's bound")
+    check(flip_ok, "the int8 cache changed a greedy token that was no near tie")
+
+
+def phase_lm_families(device, reduced: bool = False, seq: int = LM_FAMILY_SEQ):
+    """The attention families at full width (depth cut only where 80 GB
+    forces it): prefill 2 x 256, then 4 decode steps each held against
+    forward at f32 compute; gemma-2b's int8 KV cache against its f32 cache
+    over 16 greedy tokens.  ``reduced``: each arch's reduced config, uncut
+    (a rehearsal off the card, with a ``seq`` inside its max_seq)."""
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.models.api import build_model
+
+    for arch, keep, why in LM_FAMILIES:
+        t_phase = time.perf_counter()
+        full = get_config(arch).reduced() if reduced else get_config(arch)
+        keep = None if reduced else keep
+        cfg = dataclasses.replace(full, dtype="float32")
+        if full.family == "moe":  # no entry may drop, as in the reference's consistency test
+            cfg = dataclasses.replace(cfg, capacity_factor=lossless_cf(cfg))
+        if keep is not None:
+            cfg = dataclasses.replace(cfg, n_layers=keep)
+            print(f"[lmfamilies] {arch}: depth cut to {keep} of {full.n_layers} layers ({why}); "
+                  f"widths as published")
+        model, params = _init_lm(device, cfg, "lmfamilies")
+        rel_p, rel_d, aux = lm_consistency(cfg, params, device, arch, S=seq)
+        ok = max(rel_p, rel_d) <= F32_IDENTITY_TOL
+        print(f"[lmfamilies] {arch} float32 compute: prefill {LM_FAMILY_BATCH} x "
+              f"{seq}" + (f" (source {cfg.max_source_len} frames)"
+                                    if cfg.family == "encdec" else "")
+              + (" (positions3 [B,T,3])" if cfg.family == "vlm" else "")
+              + f": last logits vs forward rel {rel_p:.3e}; {LM_FAMILY_STEPS} decode steps vs "
+              f"forward at each position: worst rel {rel_d:.3e} (tol {F32_IDENTITY_TOL}) "
+              f"{'ok' if ok else 'FAIL'}; forward aux {aux:.5f}")
+        check(ok, f"{arch}: decode after prefill differs from forward")
+        if cfg.family == "vlm":  # the three position axes apart (a vision-like grid)
+            T = 64
+            ar = torch.arange(T, device=device)
+            p3 = torch.stack([ar // 16, (ar // 4) % 4, ar % 4], dim=-1)[None].expand(2, T, 3)
+            toks = torch.randint(0, cfg.vocab, (2, T), device=device,
+                                 generator=torch.Generator(device=device).manual_seed(4))
+            l3, _ = model.forward(params, {"tokens": toks, "positions3": p3})
+            lt, _ = model.forward(params, {"tokens": toks})
+            check(bool(torch.isfinite(l3).all()), "vlm forward with 3-axis positions3")
+            print(f"[lmfamilies] {arch}: forward with 3 distinct position axes: finite, "
+                  f"rel to text positions {rel_err(l3, lt)[1]:.3e} (M-RoPE moves them)")
+        if arch == "gemma-2b":
+            phase_int8_cache(device, model, params, cfg)
+        del model, params
+        _free_device()
+        print(f"[lmfamilies] {arch} phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3196,6 +3617,9 @@ def main() -> int:
         del wkv_in
         phase_lm_times(device, "rwkv6", "wkv6", WKV6_PASSES, lm, lm_params, lm_tokens,
                        n_decode=16)
+        t0 = time.perf_counter()
+        lm_serve = {"rwkv6-3b": phase_lm_engine(device, lm_cfg.name, lm, lm_params)}
+        print(f"[lmserve] {lm_cfg.name} phase {time.perf_counter() - t0:.1f} s")
         # free the RWKV6 parameters (12.4 GB) before the Zamba2 phases
         del lm, lm_params, lm_tokens
         torch.cuda.empty_cache()
@@ -3208,6 +3632,19 @@ def main() -> int:
         del ssd_in
         phase_lm_times(device, "zamba2", "mamba2_ssd", SSD_PASSES, zm, zm_params, zm_tokens,
                        n_decode=16)
+        t0 = time.perf_counter()
+        lm_serve["zamba2-2.7b"] = phase_lm_engine(device, zm.cfg.name, zm, zm_params)
+        print(f"[lmserve] {zm.cfg.name} phase {time.perf_counter() - t0:.1f} s")
+        # free the Zamba2 parameters before the attention families
+        del zm, zm_params, zm_tokens
+        _free_device()
+        # the LM serve engine's main path, the MoE at full depth, the families
+        lm_serve["qwen2-0.5b"] = phase_lm_main(device, get_config("qwen2-0.5b"))
+        lm_serve["qwen2-moe-a2.7b"] = phase_lm_moe(device, get_config("qwen2-moe-a2.7b"))
+        phase_lm_families(device)
+        print("[lmserve] decode step per token (4 sequences, host clock), graph / eager ms: "
+              + "; ".join(f"{k} {v['graph_ms']:.3f} / {v['eager_ms']:.3f}"
+                          for k, v in lm_serve.items()))
         check("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -83,12 +83,14 @@ def _n_stacked(tree) -> int:
     return len(tree)
 
 
+_STACKED = ("layers", "enc_layers", "mamba")
+
+
 def lm_params_from_jax(tree: dict) -> dict:
     """Reference ``init_params`` tree (numpy leaves) -> the port's
-    parameters: the same names, with the stacked per-layer tree ("layers"
-    for ssm, "mamba" for hybrid, stacked on axis 0) a list of per-layer
-    trees; the rest ("shared", "cat_proj", ...) as they are."""
-    stacked = "layers" if "layers" in tree else "mamba"
-    out = {k: _tree_t(v) for k, v in tree.items() if k != stacked}
-    out[stacked] = [_tree_t(tree[stacked], i) for i in range(_n_stacked(tree[stacked]))]
-    return out
+    parameters: the same names, with each stacked per-layer tree ("layers";
+    "enc_layers" for encdec; "mamba" for hybrid; stacked on axis 0) a list
+    of per-layer trees (a MoE layer's experts stay stacked on their own
+    axis); the rest ("shared", "cat_proj", "dec_pos", ...) as they are."""
+    return {k: ([_tree_t(v, i) for i in range(_n_stacked(v))] if k in _STACKED
+                else _tree_t(v)) for k, v in tree.items()}

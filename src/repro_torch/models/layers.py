@@ -1,13 +1,12 @@
 """Shared layers of the language-model path: dense, norms, embeddings, RoPE
 and the MLPs.
 
-A copy of the part of the reference's ``repro.models.layers`` that the ssm
-(RWKV6) and hybrid (Zamba2) families need.  Parameters are plain dicts of tensors under the
-reference's names.  Initialisers draw from an explicit ``torch.Generator``
-on the generator's own device and move the result to ``device``; with
-``generator=None`` they draw from the global generator, which is how
-`api.count_params` sizes a model on the ``meta`` device without allocating.
-M-RoPE comes with the vlm family (ROADMAP Queue 1 item 12d).
+A copy of the reference's ``repro.models.layers``.  Parameters are plain
+dicts of tensors under the reference's names.  Initialisers draw from an
+explicit ``torch.Generator`` on the generator's own device and move the
+result to ``device``; with ``generator=None`` they draw from the global
+generator, which is how `api.count_params` sizes a model on the ``meta``
+device without allocating.
 """
 from __future__ import annotations
 
@@ -17,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["normal", "dense_init", "dense", "norm_init", "norm_apply", "embed_init",
-           "rope", "mlp_init", "mlp_apply"]
+           "rope", "rope_mrope", "mlp_init", "mlp_apply"]
 
 
 def normal(generator, shape, std: float, dtype=torch.float32, device="cpu") -> torch.Tensor:
@@ -97,6 +96,24 @@ def rope(x, positions, theta: float = 10000.0, rotary_frac: float = 1.0):
     x1, x2 = xr[..., : rot // 2], xr[..., rot // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
     return torch.cat([out, xp], dim=-1) if rot < hd else out
+
+
+def rope_mrope(x, positions3, theta: float, sections: tuple[int, ...]):
+    """Qwen2-VL M-RoPE.  x [B,T,H,hd]; positions3 [B,T,3] (t, h, w ids);
+    ``sections``: per-axis frequency-section sizes summing to hd/2.  Each
+    frequency takes the position id of its section's axis; the map is laid
+    out from ``sections`` alone (slices of positions3), so it makes no tensor
+    from host data."""
+    half = x.shape[-1] // 2
+    assert sum(sections) == half, (sections, half)
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    pos = positions3.float()
+    pos = torch.cat([pos[..., a, None].expand(*pos.shape[:-1], n)
+                     for a, n in enumerate(sections)], dim=-1)  # [B,T,half]
+    ang = pos * freqs
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
 def mlp_init(generator, d: int, ff: int, act: str, dtype=torch.float32, device="cpu"):

@@ -1,53 +1,66 @@
-"""Model assembly of the language-model path: the ssm family (RWKV6) and the
-hybrid family (Zamba2).
+"""Model assembly of every language-model family, after the reference's
+``repro.models.transformer``.  Four entry points per model:
 
-A copy of the ``ssm`` and ``hybrid`` branches of the reference's
-``repro.models.transformer``.  Three entry points per model:
+    forward(params, cfg, batch)                       logits and the MoE aux loss
+    prefill(params, cfg, batch, max_len)              last logits and the cache
+    decode_step(params, cfg, cache, tokens, pos)      one token against that cache
+    decode_step_inplace(params, cfg, cache, tokens, pos)
+                                                      the same, writing into ``cache``
 
-    forward(params, cfg, tokens)                 logits (+ aux, zero here)
-    prefill(params, cfg, tokens, max_len)        last logits and the cache
-    decode_step(params, cfg, cache, tokens, pos) one token against that cache
+Families: dense | moe | vlm (M-RoPE) | ssm (RWKV6) | hybrid (Zamba2) |
+encdec (Whisper, stub frontend).  ``batch`` is the reference's dict:
+``tokens`` [B,S], and optionally ``positions`` [B,S], ``positions3``
+[B,S,3] (vlm), ``source_embeds`` [B,S_src,d] (encdec) and ``embeds``
+[B,S,d] (a stub frontend's embeddings in place of the token embedding).
 
 Parameters are nested dicts under the reference's names, with the
 reference's stacked per-layer trees as lists of per-layer dicts
-(``params["layers"]`` for ssm, ``params["mamba"]`` for hybrid; the
-reference stacks them on axis 0 and scans, the port loops over the list).
-Caches keep the reference's stacked layout:
+(``layers``; ``enc_layers`` for encdec; ``mamba`` for hybrid — the
+reference stacks them on axis 0 and scans, the port loops over the list;
+MoE experts stay stacked on their own axis inside each layer).  Caches keep
+the reference's stacked layout:
+- attention families: ``k``, ``v`` [L,B,max_len,KV,hd] in the compute
+  dtype, or int8 with ``k_scale``, ``v_scale`` [L,B,max_len,KV] float16
+  (``kv_cache_dtype='int8'``: absmax per position and head); encdec also
+  ``xk``, ``xv`` [L,B,S_src,KV,hd], the cross-attention keys and values
+  that prefill writes and decode reads;
 - ssm: ``last_x`` [L,B,d] and ``cm_last_x`` [L,B,d] in the compute dtype,
   ``wkv`` [L,B,H,K,K] in float32;
 - hybrid: ``mamba.conv`` [L,B,K-1,Ch] in the compute dtype, ``mamba.ssm``
   [L,B,H,P,N] in float32, and one KV cache per stage of the shared
   attention block, ``k`` and ``v`` [n_stages,B,max_len,KV,hd].
-``decode_step`` is functional, as in the reference: it returns a new cache
-and leaves the caller's as it was (the hybrid KV cache is copied once a
-step and the new k and v written into the copy).  The other families raise
-NotImplementedError, naming the work that brings them.
+
+``decode_step_inplace`` writes the new token's k and v, and every layer's
+new recurrent state, into the cache it is given and returns the logits: it
+makes no tensor from host data and reads nothing back, so the serve engine
+captures it as a CUDA graph over a static cache.  ``decode_step`` is
+functional, as in the reference: it copies the cache, runs the in-place
+step on the copy and leaves the caller's cache as it was.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from . import ssm as ssm_mod
 from .attention import (attn_init, attn_out, attn_project_qkv, blockwise_attention,
                         decode_attention, full_attention)
 from .layers import (dense, dense_init, embed_init, mlp_apply, mlp_init, norm_apply,
-                     norm_init, rope)
+                     norm_init, normal, rope, rope_mrope)
+from .moe import moe_apply, moe_init
 
-__all__ = ["init_params", "forward", "prefill", "decode_step", "init_cache"]
+__all__ = ["init_params", "forward", "prefill", "decode_step", "decode_step_inplace",
+           "init_cache", "clone_cache"]
 
-_LATER = "ROADMAP Queue 1 item 12d (the attention families)"
-_NOT_PORTED = ("dense", "moe", "vlm", "encdec")
+_ATTENTION = ("dense", "moe", "vlm", "encdec")
+_FAMILIES = _ATTENTION + ("ssm", "hybrid")
 
 
 def _check_family(cfg) -> None:
-    if cfg.family in ("ssm", "hybrid"):
-        return
-    if cfg.family not in _NOT_PORTED:
+    if cfg.family not in _FAMILIES:
         raise ValueError(f"unknown model family {cfg.family!r}")
-    raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-                              f"{_LATER}")
 
 
 def _adt(cfg) -> torch.dtype:
@@ -67,22 +80,35 @@ def _stage_layers(p, cfg, s: int):
 # ---------------------------------------------------------------- blocks
 
 
-def _block_init(generator, cfg, device):
-    """The attention block (pre-norm attention + MLP) of the hybrid family's
-    shared block; no cross attention, no MoE."""
+def _block_init(generator, cfg, device, cross: bool = False):
+    """Pre-norm attention block: attention (+ cross attention) and an MLP or
+    a mixture of experts."""
     pd = getattr(torch, cfg.param_dtype)
-    return {
+    p = {
         "ln1": norm_init(cfg.d_model, cfg.norm, pd, device),
         "attn": attn_init(generator, cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd,
                           cfg.qkv_bias, pd, device),
         "ln2": norm_init(cfg.d_model, cfg.norm, pd, device),
-        "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act, pd, device),
     }
+    if cross:
+        p["ln_x"] = norm_init(cfg.d_model, cfg.norm, pd, device)
+        p["xattn"] = attn_init(generator, cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd,
+                               False, pd, device)
+    if cfg.family == "moe":
+        p["moe"] = moe_init(generator, cfg.d_model, cfg.n_experts,
+                            cfg.d_ff_expert or cfg.d_ff, cfg.n_shared_experts, cfg.act, pd,
+                            device)
+    else:
+        p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act, pd, device)
+    return p
 
 
 def _apply_rope(cfg, q, k, positions):
     if cfg.mrope_sections is not None:
-        raise NotImplementedError(f"M-RoPE ({cfg.name}) is not ported yet: {_LATER}")
+        if positions.ndim == 2:  # text only: t = h = w
+            positions = torch.stack([positions] * 3, dim=-1)
+        return (rope_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections),
+                rope_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections))
     if cfg.partial_rotary <= 0:
         return q, k
     return (rope(q, positions, cfg.rope_theta, cfg.partial_rotary),
@@ -96,34 +122,82 @@ def _attention_seq(cfg, q, k, v, causal=True):
     return full_attention(q, k, v, causal=causal)
 
 
-def _block_apply(p, x, positions, cfg):
-    """Full-sequence attention block -> x + attention + MLP."""
+def _ffn(p, h, cfg, dt):
+    """The block's MLP or mixture of experts -> (y, aux loss)."""
+    if cfg.family == "moe":
+        return moe_apply(p["moe"], h, cfg.n_experts, cfg.top_k, cfg.capacity_factor,
+                         cfg.act, dt)
+    return mlp_apply(p["mlp"], h, cfg.act, dt), torch.zeros((), device=h.device)
+
+
+def _cross_kv(p, cfg, enc, dt):
+    """The cross attention's keys and values over the encoder output."""
+    B = enc.shape[0]
+    kx = dense(p["xattn"]["wk"], enc, dt).reshape(B, -1, cfg.kv_heads, cfg.hd)
+    vx = dense(p["xattn"]["wv"], enc, dt).reshape(B, -1, cfg.kv_heads, cfg.hd)
+    return kx, vx
+
+
+def _cross(p, cfg, x, kx, vx, dt, decode: bool = False):
+    """x + the cross attention of x over the encoder's keys and values."""
+    h = norm_apply(p["ln_x"], x, cfg.norm)
+    qx = dense(p["xattn"]["wq"], h, dt).reshape(*h.shape[:2], cfg.n_heads, cfg.hd)
+    if decode:  # one token; every source position is visible
+        last = torch.full((x.shape[0],), kx.shape[1] - 1, device=x.device)
+        ox = decode_attention(qx, kx, vx, last)
+    else:
+        ox = _attention_seq(cfg, qx, kx, vx, causal=False)
+    return x + attn_out(p["xattn"], ox, dt)
+
+
+def _block_apply(p, x, positions, cfg, causal=True, enc=None):
+    """Full-sequence block -> (x, aux)."""
     dt = _adt(cfg)
     h = norm_apply(p["ln1"], x, cfg.norm, one_offset=cfg.rms_one_offset)
     q, k, v = attn_project_qkv(p["attn"], h, cfg.n_heads, cfg.kv_heads, cfg.hd, dt)
     q, k = _apply_rope(cfg, q, k, positions)
-    x = x + attn_out(p["attn"], _attention_seq(cfg, q, k, v), dt)
+    x = x + attn_out(p["attn"], _attention_seq(cfg, q, k, v, causal=causal), dt)
+    if enc is not None:  # cross attention (enc-dec)
+        x = _cross(p, cfg, x, *_cross_kv(p, cfg, enc, dt), dt)
     h = norm_apply(p["ln2"], x, cfg.norm, one_offset=cfg.rms_one_offset)
-    return x + mlp_apply(p["mlp"], h, cfg.act, dt)
+    y, aux = _ffn(p, h, cfg, dt)
+    return x + y, aux
 
 
-def _block_decode(p, cache, x, pos, cfg):
-    """One-token attention block against its KV cache {"k", "v"}
-    [B,S,KV,hd] in the compute dtype; writes the token's k and v at ``pos``
-    into ``cache`` (`decode_step` hands it its own copy)."""
-    if "k_scale" in cache:
-        raise NotImplementedError(f"the int8 KV cache is not ported yet: {_LATER}")
+def _quant_kv(x):
+    """[..., hd] -> int8 values and the float16 absmax scale of each row
+    (rounded half to even, as ``jnp.round``)."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1), 1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.float16)
+
+
+def _block_decode(p, cache, x, pos, cfg, enc_kv=None):
+    """One-token block against its KV cache {"k", "v"[, "k_scale",
+    "v_scale"]} ([B,S,KV,hd] views of the stacked cache): writes the token's
+    k and v at ``pos`` into ``cache`` and returns the block's output."""
     dt = _adt(cfg)
     B = x.shape[0]
     h = norm_apply(p["ln1"], x, cfg.norm, one_offset=cfg.rms_one_offset)
     q, k, v = attn_project_qkv(p["attn"], h, cfg.n_heads, cfg.kv_heads, cfg.hd, dt)
     q, k = _apply_rope(cfg, q, k, pos[:, None])
     bidx = torch.arange(B, device=x.device)
-    cache["k"][bidx, pos] = k[:, 0]
-    cache["v"][bidx, pos] = v[:, 0]
-    x = x + attn_out(p["attn"], decode_attention(q, cache["k"], cache["v"], pos), dt)
+    if "k_scale" in cache:  # int8 cache: quantize the new row, read dequantized
+        for n, a in (("k", k), ("v", v)):
+            qa, sa = _quant_kv(a[:, 0])
+            cache[n][bidx, pos] = qa
+            cache[n + "_scale"][bidx, pos] = sa
+        kc, vc = (cache[n].to(dt) * cache[n + "_scale"].to(dt)[..., None] for n in ("k", "v"))
+    else:
+        cache["k"][bidx, pos] = k[:, 0]
+        cache["v"][bidx, pos] = v[:, 0]
+        kc, vc = cache["k"], cache["v"]
+    x = x + attn_out(p["attn"], decode_attention(q, kc, vc, pos), dt)
+    if enc_kv is not None:
+        x = _cross(p, cfg, x, *enc_kv, dt, decode=True)
     h = norm_apply(p["ln2"], x, cfg.norm, one_offset=cfg.rms_one_offset)
-    return x + mlp_apply(p["mlp"], h, cfg.act, dt)
+    return x + _ffn(p, h, cfg, dt)[0]
 
 
 # ---------------------------------------------------------------- params
@@ -138,16 +212,26 @@ def init_params(generator, cfg, device="cpu"):
          "ln_f": norm_init(cfg.d_model, cfg.norm, pd, device)}
     if not cfg.tie_embeddings:
         p["unembed"] = dense_init(generator, cfg.d_model, cfg.vocab, dtype=pd, device=device)
-    if cfg.family == "ssm":
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        p["layers"] = [_block_init(generator, cfg, device) for _ in range(cfg.n_layers)]
+    elif fam == "ssm":
         p["layers"] = [ssm_mod.rwkv6_block_init(generator, cfg, pd, device)
                        for _ in range(cfg.n_layers)]
-    else:  # hybrid (zamba2)
+    elif fam == "hybrid":  # zamba2
         p["mamba"] = [{"ln": norm_init(cfg.d_model, cfg.norm, pd, device),
                        "m": ssm_mod.mamba2_init(generator, cfg, pd, device)}
                       for _ in range(cfg.n_layers)]
         p["shared"] = _block_init(generator, cfg, device)
         p["cat_proj"] = dense_init(generator, 2 * cfg.d_model, cfg.d_model, dtype=pd,
                                    device=device)
+    else:  # encdec
+        p["enc_layers"] = [_block_init(generator, cfg, device)
+                           for _ in range(cfg.n_enc_layers)]
+        p["layers"] = [_block_init(generator, cfg, device, cross=True)
+                       for _ in range(cfg.n_layers)]
+        p["enc_ln_f"] = norm_init(cfg.d_model, cfg.norm, pd, device)
+        p["dec_pos"] = normal(generator, (cfg.max_seq, cfg.d_model), 0.01, pd, device)
     return p
 
 
@@ -172,7 +256,10 @@ def _logits(p, cfg, h):
     return logits.float()
 
 
-def _positions(tokens):
+def _positions(batch, tokens):
+    """The batch's ``positions``, else 0..S-1 for every row."""
+    if "positions" in batch:
+        return batch["positions"]
     B, S = tokens.shape
     return torch.arange(S, device=tokens.device)[None].expand(B, S)
 
@@ -182,22 +269,62 @@ def _cat_proj(p, cfg, x, e0):
     return dense(p["cat_proj"], torch.cat([x, e0], dim=-1), _adt(cfg))
 
 
-def forward(p, cfg, tokens):
-    """tokens [B,S] -> (logits [B,S,V] float32, aux (zero: no MoE loss))."""
+def _sinusoid_pos(T: int, d: int, dtype, device):
+    """Whisper's sinusoidal encoder positions [T, d], computed in float64 on
+    the host as the reference does, then cast."""
+    ang = np.arange(T)[:, None] / (10000 ** (2 * np.arange(d // 2)[None, :] / d))
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(emb).to(device=device, dtype=dtype)
+
+
+def _encode(p, cfg, source_embeds):
+    """The Whisper encoder over precomputed frame embeddings (the conv
+    frontend is a stub): non-causal blocks, then its final norm."""
+    h = source_embeds.to(_adt(cfg))
+    B, T = h.shape[:2]
+    h = h + _sinusoid_pos(T, cfg.d_model, h.dtype, h.device)[None]
+    pos = torch.arange(T, device=h.device)[None].expand(B, T)
+    for lp in p["enc_layers"]:
+        h, _ = _block_apply(lp, h, pos, cfg, causal=False)
+    return norm_apply(p["enc_ln_f"], h, cfg.norm)
+
+
+def forward(p, cfg, batch):
+    """batch (tokens [B,S], + the family's extras) -> (logits [B,S,V]
+    float32, aux: the sum over layers of the MoE load-balancing loss, zero
+    for the other families)."""
     _check_family(cfg)
-    h = _embed_tokens(p, cfg, tokens)
-    if cfg.family == "ssm":
+    fam = cfg.family
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    h = batch["embeds"].to(_adt(cfg)) if "embeds" in batch else _embed_tokens(p, cfg, tokens)
+    positions = _positions(batch, tokens)
+    if fam == "vlm" and "positions3" in batch:
+        positions = batch["positions3"]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if fam in ("dense", "moe", "vlm"):
+        for lp in p["layers"]:
+            h, a = _block_apply(lp, h, positions, cfg)
+            aux = aux + a
+    elif fam == "ssm":
         for lp in p["layers"]:
             h = ssm_mod.rwkv6_apply(lp, h, cfg)
-    else:
-        e0, positions = h, _positions(tokens)
+    elif fam == "hybrid":
+        e0 = h
         for s in range(_n_stages(cfg)):
             for _, lp in _stage_layers(p, cfg, s):
                 h = h + ssm_mod.mamba2_apply(lp["m"], norm_apply(lp["ln"], h, cfg.norm), cfg)
             inp = _cat_proj(p, cfg, h, e0)
-            y = _block_apply(p["shared"], inp, positions, cfg)
+            y, a = _block_apply(p["shared"], inp, positions, cfg)
             h = h + y - inp  # the shared block adds its residual delta
-    return _logits(p, cfg, h), torch.zeros((), dtype=torch.float32, device=h.device)
+            aux = aux + a
+    else:  # encdec
+        enc = _encode(p, cfg, batch["source_embeds"])
+        h = h + p["dec_pos"][:S].to(h.dtype)[None]
+        for lp in p["layers"]:
+            h, a = _block_apply(lp, h, positions, cfg, causal=True, enc=enc)
+            aux = aux + a
+    return _logits(p, cfg, h), aux
 
 
 # ---------------------------------------------------------------- caches
@@ -209,12 +336,27 @@ def _stacked_zeros(proto: dict, n: int) -> dict:
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cpu"):
-    """The zero cache: ssm, every layer's recurrent state (``max_len``
-    unused: the state does not grow); hybrid, every Mamba-2 layer's state
-    and each stage's KV cache of ``max_len`` positions."""
+    """The zero cache of ``batch`` sequences of up to ``max_len`` positions
+    (ssm: every layer's recurrent state, ``max_len`` unused)."""
     _check_family(cfg)
     dt = _adt(cfg)
-    if cfg.family == "ssm":
+    fam = cfg.family
+    if fam in _ATTENTION:
+        kv = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.hd)
+        if cfg.kv_cache_dtype == "int8":
+            c = {"k": torch.zeros(kv, dtype=torch.int8, device=device),
+                 "v": torch.zeros(kv, dtype=torch.int8, device=device),
+                 "k_scale": torch.zeros(kv[:-1], dtype=torch.float16, device=device),
+                 "v_scale": torch.zeros(kv[:-1], dtype=torch.float16, device=device)}
+        else:
+            c = {"k": torch.zeros(kv, dtype=dt, device=device),
+                 "v": torch.zeros(kv, dtype=dt, device=device)}
+        if fam == "encdec":
+            xkv = (cfg.n_layers, batch, cfg.max_source_len, cfg.kv_heads, cfg.hd)
+            c["xk"] = torch.zeros(xkv, dtype=dt, device=device)
+            c["xv"] = torch.zeros(xkv, dtype=dt, device=device)
+        return c
+    if fam == "ssm":
         return _stacked_zeros(ssm_mod.rwkv6_state_init(cfg, batch, dt, device), cfg.n_layers)
     kv = (_n_stages(cfg), batch, max_len, cfg.kv_heads, cfg.hd)
     return {"mamba": _stacked_zeros(ssm_mod.mamba2_state_init(cfg, batch, dt, device),
@@ -223,52 +365,91 @@ def init_cache(cfg, batch: int, max_len: int, device="cpu"):
             "v": torch.zeros(kv, dtype=dt, device=device)}
 
 
+def clone_cache(cache):
+    """A copy of a cache (nested dicts of tensors)."""
+    if isinstance(cache, dict):
+        return {n: clone_cache(a) for n, a in cache.items()}
+    return cache.clone()
+
+
 # ---------------------------------------------------------------- decode
 
 
-def decode_step(p, cfg, cache, tokens, pos):
+def decode_step_inplace(p, cfg, cache, tokens, pos):
     """tokens [B,1], pos [B] (the new token's index; unused by the ssm
-    recurrence) -> (logits [B,1,V], cache')."""
+    recurrence) -> logits [B,1,V]; the token's k and v and every layer's new
+    state are written into ``cache``."""
     _check_family(cfg)
+    fam = cfg.family
     h = _embed_tokens(p, cfg, tokens)
-    if cfg.family == "ssm":
-        states = []
+    if fam in _ATTENTION:
+        self_keys = [n for n in cache if not n.startswith("x")]
+        if fam == "encdec":
+            h = h + p["dec_pos"][pos][:, None].to(h.dtype)
+        for i, lp in enumerate(p["layers"]):
+            enc_kv = (cache["xk"][i], cache["xv"][i]) if fam == "encdec" else None
+            h = _block_decode(lp, {n: cache[n][i] for n in self_keys}, h, pos, cfg, enc_kv)
+    elif fam == "ssm":
         for i, lp in enumerate(p["layers"]):
             h, st = ssm_mod.rwkv6_decode_step(lp, h, {n: a[i] for n, a in cache.items()},
                                               cfg)
-            states.append(st)
-        return _logits(p, cfg, h), {n: torch.stack([st[n] for st in states])
-                                    for n in cache}
-    e0 = h
-    states = []
-    kv = {n: cache[n].clone() for n in ("k", "v")}  # the caller's cache stays as it is
-    for s in range(_n_stages(cfg)):
-        for i, lp in _stage_layers(p, cfg, s):
-            d, st = ssm_mod.mamba2_decode_step(
-                lp["m"], norm_apply(lp["ln"], h, cfg.norm),
-                {n: a[i] for n, a in cache["mamba"].items()}, cfg)
-            h = h + d
-            states.append(st)
-        inp = _cat_proj(p, cfg, h, e0)
-        y = _block_decode(p["shared"], {n: a[s] for n, a in kv.items()}, inp, pos, cfg)
-        h = h + y - inp
-    mamba = {n: torch.stack([st[n] for st in states]) for n in cache["mamba"]}
-    return _logits(p, cfg, h), {"mamba": mamba, **kv}
+            for n, a in st.items():
+                cache[n][i].copy_(a)
+    else:  # hybrid
+        e0 = h
+        mamba = cache["mamba"]
+        for s in range(_n_stages(cfg)):
+            for i, lp in _stage_layers(p, cfg, s):
+                d, st = ssm_mod.mamba2_decode_step(
+                    lp["m"], norm_apply(lp["ln"], h, cfg.norm),
+                    {n: a[i] for n, a in mamba.items()}, cfg)
+                h = h + d
+                for n, a in st.items():
+                    mamba[n][i].copy_(a)
+            inp = _cat_proj(p, cfg, h, e0)
+            y = _block_decode(p["shared"], {n: cache[n][s] for n in ("k", "v")}, inp, pos,
+                              cfg)
+            h = h + y - inp
+    return _logits(p, cfg, h)
+
+
+def decode_step(p, cfg, cache, tokens, pos):
+    """tokens [B,1], pos [B] -> (logits [B,1,V], cache'): the in-place step
+    on a copy, so the caller's cache stays as it was."""
+    new = clone_cache(cache)
+    return decode_step_inplace(p, cfg, new, tokens, pos), new
 
 
 # ---------------------------------------------------------------- prefill
 
 
-def prefill(p, cfg, tokens, max_len: int):
-    """Run the sequence path: -> (last-token logits [B,1,V], populated
-    cache).  ssm: the token-shift states are the last rows of each block's
+def _write_kv(cache, i: int, S: int, k, v) -> None:
+    """Layer ``i``'s k and v [B,S,KV,hd] into its first S cache positions
+    (quantized on an int8 cache)."""
+    if "k_scale" in cache:
+        for n, a in (("k", k), ("v", v)):
+            cache[n][i, :, :S], cache[n + "_scale"][i, :, :S] = _quant_kv(a)
+    else:
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+
+
+def prefill(p, cfg, batch, max_len: int):
+    """Run the sequence path -> (last-token logits [B,1,V], populated
+    cache).  Attention families: each layer's k (after RoPE) and v fill the
+    first S positions, encdec the cross keys and values over the whole
+    source.  ssm: the token-shift states are the last rows of each block's
     *normed* inputs.  hybrid: each Mamba-2 layer's conv state is the last
     K-1 rows of its pre-activation conv input, its ssm state the scan's
-    final h; each stage's k (after RoPE) and v fill the first S positions
-    of its KV cache."""
+    final h; each stage's k and v fill its KV cache."""
     _check_family(cfg)
+    fam = cfg.family
+    tokens = batch["tokens"]
+    B, S = tokens.shape
     h = _embed_tokens(p, cfg, tokens)
-    if cfg.family == "ssm":
+    positions = _positions(batch, tokens)
+    dt = _adt(cfg)
+    if fam == "ssm":
         states = []
         for lp in p["layers"]:
             hn = norm_apply(lp["ln1"], h, "layernorm")
@@ -281,10 +462,30 @@ def prefill(p, cfg, tokens, max_len: int):
                            "cm_last_x": h2[:, -1]})
         cache = {n: torch.stack([st[n] for st in states]) for n in states[0]}
         return _logits(p, cfg, h[:, -1:]), cache
-    B, S = tokens.shape
-    dt = _adt(cfg)
     cache = init_cache(cfg, B, max_len, h.device)
-    e0, positions = h, _positions(tokens)
+    if fam in _ATTENTION:
+        enc = None
+        if fam == "encdec":
+            enc = _encode(p, cfg, batch["source_embeds"])
+            h = h + p["dec_pos"][:S].to(h.dtype)[None]
+            xkv = []
+        for i, lp in enumerate(p["layers"]):
+            hn = norm_apply(lp["ln1"], h, cfg.norm, one_offset=cfg.rms_one_offset)
+            q, k, v = attn_project_qkv(lp["attn"], hn, cfg.n_heads, cfg.kv_heads, cfg.hd, dt)
+            q, k = _apply_rope(cfg, q, k, positions)
+            h = h + attn_out(lp["attn"], _attention_seq(cfg, q, k, v, causal=True), dt)
+            _write_kv(cache, i, S, k, v)
+            if enc is not None:
+                kx, vx = _cross_kv(lp, cfg, enc, dt)
+                h = _cross(lp, cfg, h, kx, vx, dt)
+                xkv.append((kx, vx))
+            hn = norm_apply(lp["ln2"], h, cfg.norm, one_offset=cfg.rms_one_offset)
+            h = h + _ffn(lp, hn, cfg, dt)[0]
+        if enc is not None:  # the source's own length, as the reference stacks them
+            cache["xk"] = torch.stack([kx for kx, _ in xkv])
+            cache["xv"] = torch.stack([vx for _, vx in xkv])
+        return _logits(p, cfg, h[:, -1:]), cache
+    e0 = h
     shared = p["shared"]
     for s in range(_n_stages(cfg)):
         for i, lp in _stage_layers(p, cfg, s):

@@ -2,9 +2,9 @@
 
 The port's copy of the reference's ``repro.serve.scheduler``: the
 continuous-batching discipline — admit while capacity is free, step until
-everything drains — as a scheduler over an engine protocol (the force-field
-``EquivariantServeEngine`` and a ``ReplicaSet`` of them; the LM
-``ServeEngine`` is not ported yet):
+everything drains — as a scheduler over an engine protocol (the LM
+``ServeEngine``, the force-field ``EquivariantServeEngine`` and a
+``ReplicaSet`` of them):
 
 - **priority queue** — requests carry ``priority`` (lower value = more
   urgent) and are admitted in strict priority order, FIFO within a priority

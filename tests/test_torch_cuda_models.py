@@ -2,7 +2,8 @@
 the EquiformerV2 Selfmix layer, the two models with their chains pinned to
 the kernel, `plan_batch` buckets on the pair kernel, the general
 convolution's force field served and trained, the manybody plans,
-`calibrate_fused` and the quickstart — on the card.
+`calibrate_fused`, the quickstart and the LM engine's decode graph against
+its eager step — on the card.
 Marked ``cuda``: these skip without an sm_90 GPU (on the card:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_models.py``)."""
 import dataclasses
@@ -154,3 +155,42 @@ def test_quickstart_on_card(cuda_device):
     reset_kernel_stats()
     _CS.phase_quickstart(cuda_device)
     assert kernel_stats()["gaunt_pair"] > 0
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen2-moe-a2.7b", "rwkv6-3b"])
+def test_lm_decode_graph_matches_eager(cuda_device, arch):
+    """The LM engine's decode step as a CUDA graph against its eager step, at
+    a reduced dense, MoE and ssm config in bf16: the same served tokens for
+    every request, and from one cache the same logits and the same cache
+    after the step."""
+    from repro_torch.config import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.engine import _leaves
+
+    cfg = get_config(arch).reduced(dtype="bfloat16")
+    model = build_model(cfg, device=cuda_device)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+
+    def requests():
+        return [Request(prompt=[3 + i, 5, 2, 7, 1][: 2 + i % 4], max_new_tokens=6, rid=i)
+                for i in range(5)]
+
+    graph = ServeEngine(model, params, n_slots=2, max_len=32, warmup=True)
+    eager = ServeEngine(model, params, n_slots=2, max_len=32, eager=True)
+    got, want = graph.run(requests()), eager.run(requests())
+    assert graph.replays > 0 and eager._graph is None
+    assert [r.output for r in got] == [r.output for r in want]
+    for r in requests()[:2]:
+        assert graph.add_request(r)
+    toks = np.array([r.output[-1] for r in graph.slot_req], np.int64)
+    pos = graph.pos + 1
+    snap = [a.clone() for a in _leaves(graph.cache)]
+    with torch.no_grad():
+        lg = graph._run(graph._upload(toks[None], pos[None]), 0).clone()
+        after = [a.clone() for a in _leaves(graph.cache)]
+        for a, b in zip(_leaves(graph.cache), snap):
+            a.copy_(b)
+        le = graph.evaluate(toks, pos)
+    assert torch.equal(lg, le)
+    assert all(torch.equal(a, b) for a, b in zip(after, _leaves(graph.cache)))

@@ -46,6 +46,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.examples.train_force_field"} <= set(mods)
     assert {"repro_torch.testing", "repro_torch.testing.precision",
             "repro_torch.testing.oracles", "repro_torch.examples.quickstart"} <= set(mods)
+    assert {"repro_torch.models.moe", "repro_torch.launch.serve",
+            "repro_torch.examples.serve_lm", "repro_torch.configs.qwen2_0p5b",
+            "repro_torch.configs.whisper_base"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -176,9 +179,10 @@ def test_mamba2_wrapper_runs_plain_version_only_for_cpu_tensors():
 
 def test_no_raise_names_the_ported_engine_items():
     """The general conv, the manybody plan kind and calibrate_fused are
-    ported (ROADMAP Queue 1 items 4a-4c): no source of the port names those
-    items any more, and each NotImplementedError that is left names the
-    work that brings it: sharding (item 10) or the other LM families (12d)."""
+    ported (ROADMAP Queue 1 items 4a-4c), and so are the attention
+    families: no source of the port names those items any more, and each
+    NotImplementedError that is left names the work that brings it,
+    sharding (item 10)."""
     import re
 
     root = os.path.join(SRC, "repro_torch")
@@ -191,10 +195,44 @@ def test_no_raise_names_the_ported_engine_items():
             assert not re.search(r"item 4[abc]\b", text), fn
             raises += [(fn, m.group(0)) for m in re.finditer(
                 r"raise NotImplementedError\((?:[^()]|\([^()]*\))*\)", text, re.S)]
-    assert len(raises) >= 8
+    assert len(raises) >= 5
     for fn, r in raises:
-        assert "item 10" in r or "_LATER" in r, (fn, r)
+        assert "item 10" in r, (fn, r)
     assert sum("item 10" in r for _, r in raises) == 5
+
+
+def test_no_raise_names_the_attention_families_item():
+    """No NotImplementedError of `models/` names the attention families
+    (the item the port once called "12d"): dense, moe, vlm, encdec, M-RoPE
+    and the int8 KV cache are ported."""
+    root = os.path.join(SRC, "repro_torch", "models")
+    for fn in os.listdir(root):
+        if fn.endswith(".py"):
+            text = open(os.path.join(root, fn)).read()
+            assert "NotImplementedError" not in text or "12d" not in text, fn
+            assert "_NOT_PORTED" not in text and "_LATER" not in text, fn
+
+
+def test_lm_serving_entry_points_default_to_cuda():
+    """The LM ServeEngine runs where its model is, and the model, the serving
+    launcher and the example run on the card unless given the CPU."""
+    from repro_torch.examples import serve_lm
+    from repro_torch.launch import serve
+    from repro_torch.serve import ServeEngine
+
+    if not torch.cuda.is_available():
+        for run in (lambda: serve.main(["--requests", "1"]),
+                    lambda: serve_lm.main(["--requests", "1"])):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                run()
+    m = build_model(get_config("qwen2-0.5b").reduced(), device="cpu")
+    eng = ServeEngine(m, m.init(torch.Generator().manual_seed(0)), n_slots=1, max_len=8)
+    assert eng.device.type == "cpu" and not eng.use_graph
+    assert all(a.device.type == "cpu" for a in eng.cache.values())
+    reqs = serve.main(["--requests", "2", "--max-new", "2", "--device", "cpu"])
+    assert [len(r.output) for r in reqs] == [2, 2]
+    reqs = serve_lm.main(["--requests", "2", "--max-new", "2", "--device", "cpu"])
+    assert [len(r.output) for r in reqs] == [2, 2]
 
 
 def test_general_conv_and_quickstart_default_to_cuda():

@@ -228,14 +228,16 @@ def test_port_init_has_reference_shapes_and_is_seeded():
 
 
 def test_other_families_are_not_ported_yet():
-    """ssm and hybrid are ported; the attention families still raise,
-    naming the ROADMAP item that brings them."""
+    """Every family of the reference is ported now: each builds its
+    parameters and its cache on the CPU (the attention families' layouts
+    are held against the reference in test_torch_lm_families.py); an
+    unknown family still raises."""
     cfg = get_config("rwkv6-3b").reduced()
     for family in ("dense", "moe", "vlm", "encdec"):
-        m = build_model(dataclasses.replace(cfg, family=family), device="cpu")
-        with pytest.raises(NotImplementedError, match="12d"):
-            m.init(torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match="12d"):
-            m.init_cache(1, 8)
+        c = get_config({"dense": "qwen2-0.5b", "moe": "qwen2-moe-a2.7b", "vlm": "qwen2-vl-72b",
+                        "encdec": "whisper-base"}[family]).reduced()
+        m = build_model(c, device="cpu")
+        assert m.init(torch.Generator().manual_seed(0))["layers"]
+        assert tuple(m.init_cache(1, 8)["k"].shape) == (c.n_layers, 1, 8, c.kv_heads, c.hd)
     with pytest.raises(ValueError, match="unknown model family"):
         build_model(dataclasses.replace(cfg, family="nope"), device="cpu").init_cache(1, 8)
