@@ -165,7 +165,24 @@ result line):
      3-axis positions3), dbrx-132b (2 of 40): a 2 x 256 prefill and 4
      decode steps, each against `forward` at f32; gemma-2b's int8 KV cache
      against its f32 cache over 16 greedy tokens (the quantizer's bound on
-     the prefilled rows, any parting of the streams a near tie).
+     the prefilled rows, any parting of the streams a near tie);
+  16. LM training (`[lmtrain]`) — RWKV6-3B after its serving phase and
+     Zamba2-2.7B after its, at full width and depth with their loaded
+     weights: 3 AdamW steps at 1 x 2048 tokens (bf16 compute, remat on)
+     through `make_train_step` on `LMModule`, the scan kernel launched once
+     a layer in the forward and once in remat's recompute, the step time,
+     peak memory, a profiled step and the plain scan backward's share of
+     its busy time, then at 2 layers and f32 compute the kernel route's
+     loss gradients against the all-plain route's; after the attention
+     families, `qwen2-0.5b` (the slice's main path) at full width and
+     depth: `train_loop` on `LMTokenPipeline` batches of 2 x 2048 tokens
+     (flash attention on 2 x 2 tiles), 3 steps with a checkpoint, a fresh
+     module resumed from it to step 6, then the step time (median of 5
+     after 2 warm), peak memory, a profiled step and the model-flops share
+     of the dense bf16 peak; the flash backward at its attention shape, f32
+     and bf16, against autograd through full attention, with each route's
+     peak memory.  The kernels line's `wkv6` and `mamba2_ssd` launches
+     count the prefill's and the training steps'.
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs no network and imports no JAX.
 """
@@ -3528,6 +3545,400 @@ def phase_lm_families(device, reduced: bool = False, seq: int = LM_FAMILY_SEQ):
         print(f"[lmfamilies] {arch} phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# phase 16: LM training
+# --------------------------------------------------------------------------
+
+PEAK_BF16_FLOPS = 989e12             # H100 SXM dense bf16 (NVIDIA data sheet, 700 W)
+LMTRAIN_BATCH, LMTRAIN_SEQ = 2, 2048  # qwen2-0.5b: 2 x 2 flash tiles of attn_chunk 1024
+LMTRAIN_STEPS, LMTRAIN_CKPT_AT = 6, 3
+LMTRAIN_TIMED, LMTRAIN_WARM = 5, 2
+SCAN_TRAIN_STEPS = 3                 # RWKV6-3B and Zamba2-2.7B, batch 1 x 2048
+
+
+def _reset_peak(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _peak(device) -> int:
+    """Peak bytes allocated on the card since the last reset (0 off it)."""
+    import torch
+
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+
+
+def _allocated(device) -> int:
+    import torch
+
+    return torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+
+
+def _card_bytes(device) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(device).total_memory if device.type == "cuda" else 0
+
+
+def _lm_loss_fn(m, batch):
+    return m.loss(batch)
+
+
+def _lm_batch(cfg, batch: int, seq: int, device, seed: int = 0):
+    """One LMTokenPipeline batch on the card (tokens == labels, int32 as
+    the pipeline makes them)."""
+    import torch
+    from repro_torch.data import LMTokenPipeline
+
+    b = LMTokenPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                        seed=seed).next_batch()
+    return {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+
+
+def _profiled_step(fn, device):
+    """One call profiled on the card's timeline alone (the steps launch
+    ~10^5 kernels; host-side events would take minutes to parse) -> (wall
+    ms, GPU events by device time, busy ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(device)
+    t0 = time.perf_counter()
+    if device.type != "cuda":  # a rehearsal off the card: no device timeline
+        fn()
+        return (time.perf_counter() - t0) * 1e3, [], 0.0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync(device)
+        wall = (time.perf_counter() - t0) * 1e3
+    events = sorted(_kernel_events(prof), key=_device_us, reverse=True)
+    return wall, events, sum(_device_us(e) for e in events) / 1e3
+
+
+def _timed_steps(step_fn, module, opt_state, batch, device, n: int):
+    """``n`` training steps, each ended by a host read of its loss -> (host
+    ms of each, the last metrics, the optimizer state)."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        opt_state, m = step_fn(module, opt_state, batch)
+        float(m["loss"])
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, m, opt_state
+
+
+def _print_profile(tag, wall, events, busy, step_ms, extra=""):
+    if busy <= 0:
+        print(f"[profile] {tag}: the profiler saw no device time; busy and idle not measured")
+        return None
+    idle = max(0.0, 1 - busy / step_ms)
+    print(f"[profile] {tag} (profiled): wall {wall:.2f} ms, device busy {busy:.2f} ms, idle "
+          f"share {idle:.3f} of the unprofiled median step; "
+          f"{sum(ev.count for ev in events)} GPU events" + extra)
+    for ev in events[:6]:
+        print(f"[profile]   {_device_us(ev) / 1e3:8.3f} ms {ev.count:5d}x  {ev.key[:90]}")
+    return idle
+
+
+def lm_train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model flops of one training step: 6 N a token for the weights, plus
+    the attention products at PaLM's count, 12 L H hd S a token (the whole
+    S x S square, forward and backward; remat's recompute not counted)."""
+    tokens = batch * seq
+    attn = 12 * cfg.n_layers * cfg.n_heads * cfg.hd * seq if cfg.n_heads else 0
+    return 6.0 * n_params * tokens + attn * tokens
+
+
+def phase_lm_train_main(device, cfg, batch: int = LMTRAIN_BATCH, seq: int = LMTRAIN_SEQ):
+    """qwen2-0.5b (the slice's main path): `train_loop` over `LMModule` on
+    `LMTokenPipeline` batches, bf16 compute over f32 weights, remat on: 3
+    AdamW steps with a checkpoint at step 3, then a fresh module resumed
+    from it to step 6; finite losses and gradient norms; then the step time
+    (host clock, median of LMTRAIN_TIMED after LMTRAIN_WARM warm steps),
+    peak memory, a profiled step and the model-flops share."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.data import LMTokenPipeline
+    from repro_torch.models.api import LMModule, count_params
+    from repro_torch.train import make_train_step, train_loop
+
+    t_phase = time.perf_counter()
+    model, params = _init_lm(device, cfg, "lmtrain")
+    n_params = count_params(cfg)
+    tcfg = TrainConfig(lr=3e-4, warmup_steps=2, total_steps=LMTRAIN_CKPT_AT,
+                       checkpoint_every=LMTRAIN_CKPT_AT, log_every=1)
+    hist, marks = [], []
+
+    def log(m):
+        hist.append(m)
+        marks.append(time.perf_counter())
+        print(f"[lmtrain] {cfg.name} step {m['step']} loss {m['loss']:.4f} ce {m['ce']:.4f} "
+              f"grad_norm {m['grad_norm']:.4f}")
+
+    with tempfile.TemporaryDirectory() as ck:
+        pipe = LMTokenPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0)
+        t0 = time.perf_counter()
+        train_loop(_lm_loss_fn, LMModule(cfg, params), pipe, tcfg, ckpt_dir=ck,
+                   hooks={"log": log})
+        t_first = time.perf_counter() - t0
+        del params
+        _free_device()
+        fresh = model.init(torch.Generator(device=device).manual_seed(1))
+        pipe2 = LMTokenPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0)
+        t0 = time.perf_counter()
+        state, _ = train_loop(_lm_loss_fn, LMModule(cfg, fresh), pipe2,
+                              dataclasses.replace(tcfg, total_steps=LMTRAIN_STEPS),
+                              ckpt_dir=ck, hooks={"log": log})
+        t_second = time.perf_counter() - t0
+    steps = [int(m["step"]) for m in hist]
+    print(f"[lmtrain] {cfg.name}: {batch} x {seq} tokens a step ({cfg.dtype} compute, "
+          f"remat {cfg.remat}, flash attention on {seq // cfg.attn_chunk} x "
+          f"{seq // cfg.attn_chunk} tiles): steps {steps}; the run stopped at step "
+          f"{LMTRAIN_CKPT_AT} with its checkpoint ({t_first:.1f} s) and a fresh module resumed "
+          f"from it to step {state.step} ({t_second:.1f} s), the pipeline at step {pipe2.step}")
+    check(steps == list(range(1, LMTRAIN_STEPS + 1)) and state.step == LMTRAIN_STEPS
+          and pipe2.step == LMTRAIN_STEPS, f"{cfg.name}: the run did not resume to step "
+          f"{LMTRAIN_STEPS} from its checkpoint")
+    check(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) and m["grad_norm"] > 0
+              for m in hist), f"{cfg.name}: a loss or gradient norm is not finite and nonzero")
+    module, opt_state = state.model, state.opt_state
+    step_fn, _ = make_train_step(_lm_loss_fn, tcfg)
+    b = _lm_batch(cfg, batch, seq, device, seed=2)
+    _timed_steps(step_fn, module, opt_state, b, device, LMTRAIN_WARM)
+    _reset_peak(device)
+    times, m, opt_state = _timed_steps(step_fn, module, opt_state, b, device, LMTRAIN_TIMED)
+    peak = _peak(device)
+    step_ms = float(np.median(times))
+    flops = lm_train_flops(cfg, n_params, batch, seq)
+    mfu = flops / (step_ms * 1e-3) / PEAK_BF16_FLOPS
+    print(f"[times] lmtrain {cfg.name} step ({batch} x {seq} tokens, AdamW, host clock, median "
+          f"of {LMTRAIN_TIMED} after {LMTRAIN_WARM} warm): {step_ms:.2f} ms "
+          f"[{min(times):.2f}, {max(times):.2f}], {batch * seq / step_ms * 1e3:.0f} tokens/s; "
+          f"peak memory {peak / 2**30:.2f} GiB ({n_params:,} f32 parameters, "
+          f"{n_params * 16 / 2**30:.2f} GiB with gradients and two moments); model flops "
+          f"{flops / 1e12:.2f} TFLOP a step (6 N a token + attention), "
+          f"{flops / (step_ms * 1e-3) / 1e12:.1f} TFLOP/s, {100 * mfu:.2f}% of the "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s dense bf16 peak; loss {float(m['loss']):.4f}")
+    wall, events, busy = _profiled_step(
+        lambda: float(step_fn(module, opt_state, b)[1]["loss"]), device)
+    idle = _print_profile(f"lmtrain {cfg.name} step", wall, events, busy, step_ms)
+    del module, opt_state, state, fresh, model, b
+    _free_device()
+    print(f"[lmtrain] {cfg.name} phase {time.perf_counter() - t_phase:.1f} s")
+    return {"step_ms": step_ms, "peak_gib": peak / 2**30, "busy_ms": busy, "idle": idle,
+            "mfu": mfu}
+
+
+def phase_flash_backward(device, shape=(2, 2048, 14, 2, 64), chunk: int = 1024):
+    """The flash backward at qwen2-0.5b's attention shape (B, T, heads, KV
+    heads, hd) on 2 x 2 tiles, f32 and bf16: dq, dk, dv against autograd
+    through `full_attention` on the same inputs and output gradient, at the
+    loose tier of the dtype; the peak memory of each route."""
+    import torch
+    from repro_torch.models.attention import blockwise_attention, full_attention
+
+    B, T, H, KV, hd = shape
+    g = torch.Generator(device=device).manual_seed(7)
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        q, k, v, do = (torch.randn(s, generator=g, device=device).to(dt)
+                       for s in ((B, T, H, hd), (B, T, KV, hd), (B, T, KV, hd), (B, T, H, hd)))
+        out = {}
+        for name, attend in (("flash", lambda *a: blockwise_attention(
+                *a, causal=True, q_chunk=chunk, kv_chunk=chunk)),
+                             ("full", lambda *a: full_attention(*a, causal=True))):
+            ins = [a.clone().requires_grad_(True) for a in (q, k, v)]
+            _sync(device)
+            base = _allocated(device)
+            _reset_peak(device)
+            attend(*ins).backward(do)
+            _sync(device)
+            out[name] = ([a.grad for a in ins], _peak(device) - base)
+            del ins
+        tol = TIERS[dtype][2]
+        rels = [rel_err(a.float(), b.float())[1] for a, b in zip(out["flash"][0], out["full"][0])]
+        ok = max(rels) <= tol
+        print(f"[lmtrain] flash backward {dtype} [{B}, {T}, {H} heads, {KV} KV, hd {hd}], "
+              f"{T // chunk} x {T // chunk} tiles: dq, dk, dv vs autograd through full "
+              f"attention rel {rels[0]:.3e}, {rels[1]:.3e}, {rels[2]:.3e} (tol {tol}) "
+              f"{'ok' if ok else 'FAIL'}; peak memory above the inputs: flash "
+              f"{out['flash'][1] / 2**20:.1f} MiB, full {out['full'][1] / 2**20:.1f} MiB")
+        check(ok, f"the flash backward ({dtype}) differs from autograd through full attention")
+        del out, q, k, v, do
+    _free_device()
+
+
+def scan_backward_ms(device, scan: str, cfg, params, tokens):
+    """The training route's backward (the plain chunked scan's gradients)
+    on layer 0's scan inputs of ``tokens`` in the model's dtypes, with a
+    seeded gradient of the output -> (device busy ms of one call, from a
+    profile of it alone; host ms of a synchronized call, median of 3)."""
+    import torch
+    from repro_torch.kernels import mamba2, wkv6
+    from repro_torch.models import ssm, transformer
+    from repro_torch.models.layers import norm_apply
+
+    with torch.no_grad():
+        h = transformer._embed_tokens(params, cfg, tokens)
+        if scan == "wkv6":
+            p0 = params["layers"][0]
+            hn = norm_apply(p0["ln1"], h, "layernorm")
+            r, k, v, w, _ = ssm.rwkv6_projections(p0["tm"], hn, cfg, ssm._shift(hn))
+            ins, fn = (r, k, v, w, p0["tm"]["u"]), wkv6.wkv6_chunked
+        else:
+            p0 = params["mamba"][0]
+            ins = ssm.mamba2_scan_inputs(p0["m"], norm_apply(p0["ln"], h, cfg.norm), cfg)[2]
+            fn = mamba2.mamba2_ssd_chunked
+        ins = [a.detach() for a in ins]
+        T = tokens.shape[1]
+        out = fn(*ins, chunk=min(64, T))
+        do = torch.randn(out.shape, device=device,
+                         generator=torch.Generator(device=device).manual_seed(9))
+
+    def call():
+        return wkv6._plain_backward(fn, ins, [True] * len(ins), (do, None), chunk=min(64, T))
+
+    call()
+    host = []
+    for _ in range(3):
+        _sync(device)
+        t0 = time.perf_counter()
+        call()
+        _sync(device)
+        host.append((time.perf_counter() - t0) * 1e3)
+    return _profiled_step(call, device)[2], sorted(host)[1]
+
+
+def lm_train_kernel_vs_plain(device, cfg, params, batch):
+    """The loss gradients of ``cfg`` (f32 compute) with the scans on their
+    kernel route against the all-plain route (the chunked scans on the
+    card's tensors, autograd through them) -> (loss rel, worst leaf's
+    gradient error relative to its norm, kernel launches of the kernel
+    route)."""
+    import torch
+    from repro_torch.kernels import mamba2, wkv6
+    from repro_torch.models import ssm
+    from repro_torch.models.api import LMModule
+
+    def grads():
+        module = LMModule(cfg, params)
+        loss, _ = module.loss(batch)
+        gs = torch.autograd.grad(loss, list(module.parameters()))
+        return loss.detach(), gs
+
+    wkv6.reset_kernel_stats()
+    mamba2.reset_kernel_stats()
+    lk, gk = grads()
+    launches = wkv6.kernel_stats()["wkv6"] + mamba2.kernel_stats()["mamba2_ssd"]
+    routes = (ssm.wkv6_hopper_grad, ssm.mamba2_ssd_hopper_grad)
+    ssm.wkv6_hopper_grad, ssm.mamba2_ssd_hopper_grad = (wkv6.wkv6_chunked,
+                                                        mamba2.mamba2_ssd_chunked)
+    try:
+        lp, gp = grads()
+    finally:
+        ssm.wkv6_hopper_grad, ssm.mamba2_ssd_hopper_grad = routes
+    worst = max(float((a - b).norm()) / max(float(b.norm()), 1e-12) for a, b in zip(gk, gp))
+    return rel_err(lk, lp)[1], worst, launches
+
+
+def phase_lm_train_scan(device, model, params, scan: str, steps: int = SCAN_TRAIN_STEPS,
+                        seq: int = LMTRAIN_SEQ):
+    """RWKV6-3B or Zamba2-2.7B at full width and depth (weights loaded by
+    the earlier phases): ``steps`` AdamW steps at 1 x ``seq`` tokens, bf16
+    compute, remat on, through `make_train_step` on `LMModule`: the scan
+    kernel's launches a step (a layer's forward, and again in remat's
+    recompute), finite losses, the step time, a profiled step and the
+    plain scan backward's share of its busy time; then at 2 layers, f32
+    compute, the kernel route's gradients against the all-plain route's.
+    -> (kernel launches of the training steps, the numbers)."""
+    import numpy as np
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.kernels import mamba2, wkv6
+    from repro_torch.models.api import LMModule, count_params
+    from repro_torch.train import make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    stats, reset = ((wkv6.kernel_stats, wkv6.reset_kernel_stats) if scan == "wkv6" else
+                    (mamba2.kernel_stats, mamba2.reset_kernel_stats))
+    n_params = count_params(cfg)
+    print(f"[lmtrain] {cfg.name}: memory reckoning {n_params:,} f32 parameters x 16 B "
+          f"(weights, gradients, two AdamW moments) = {n_params * 16 / 1e9:.1f} GB, and 20 B at "
+          f"the step's peak (the gradients before and after the clip) = "
+          f"{n_params * 20 / 1e9:.1f} GB of the card's {_card_bytes(device) / 1e9:.1f} GB: "
+          + ("full depth, no cut" if n_params * 20 < _card_bytes(device) else
+             "past the card (on the CPU: a rehearsal)"))
+    module = LMModule(cfg, params)
+    tcfg = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=steps)
+    step_fn, opt = make_train_step(_lm_loss_fn, tcfg)
+    opt_state = opt.init(dict(module.named_parameters()))
+    b = _lm_batch(cfg, 1, seq, device)
+    _reset_peak(device)
+    reset()
+    times, losses = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        opt_state, m = step_fn(module, opt_state, b)
+        losses.append(float(m["loss"]))
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            per_step = stats()[scan]
+        print(f"[lmtrain] {cfg.name} step {i + 1} loss {losses[-1]:.4f} grad_norm "
+              f"{float(m['grad_norm']):.4f} ({times[-1]:.1f} ms)")
+    launches = stats()[scan]
+    n_scan = cfg.n_layers
+    cuda = device.type == "cuda"
+    check(not cuda or (per_step == 2 * n_scan and launches == steps * 2 * n_scan),
+          f"{cfg.name}: {per_step} {scan} launches in a training step, not {2 * n_scan} "
+          f"(one a layer in the forward and one in remat's recompute)")
+    check(all(np.isfinite(losses)), f"{cfg.name}: a training loss is not finite")
+    peak = _peak(device)
+    step_ms = float(np.median(times[1:]))
+    print(f"[times] lmtrain {cfg.name} step (1 x {seq} tokens, AdamW, host clock, median of "
+          f"{steps - 1} after 1): {step_ms:.2f} ms; {scan} launches {per_step} a step "
+          f"({n_scan} in the forward, {n_scan} in remat's recompute); peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    wall, events, busy = _profiled_step(
+        lambda: float(step_fn(module, opt_state, b)[1]["loss"]), device)
+    bwd_ms, bwd_host_ms = scan_backward_ms(device, scan, cfg, module.tree(), b["tokens"])
+    share = n_scan * bwd_ms / busy if busy > 0 and bwd_ms > 0 else None
+    idle = _print_profile(
+        f"lmtrain {cfg.name} step", wall, events, busy, step_ms,
+        f"; the plain scan backward (layer 0's, alone: {bwd_ms:.2f} ms device busy, "
+        f"{bwd_host_ms:.2f} ms host clock) x {n_scan} layers: " + (
+            f"{n_scan * bwd_ms:.1f} ms, {100 * share:.1f}% of busy, and "
+            f"{100 * n_scan * bwd_host_ms / step_ms:.1f}% of the step's host time"
+            if share is not None else "not measured (the profiler saw no device time)"))
+    del module, opt_state, m
+    _free_device()
+    # 2 layers (Zamba2: one stage of 2 Mamba-2 layers and the shared
+    # block), f32 compute: the kernel route's gradients against the plain's
+    small = dataclasses.replace(cfg, n_layers=2, dtype="float32", remat=False)
+    sub = dict(params, layers=params["layers"][:2]) if scan == "wkv6" else \
+        dict(params, mamba=params["mamba"][:2])
+    if scan != "wkv6":
+        small = dataclasses.replace(small, attn_every=2)
+    rel_l, worst, n_k = lm_train_kernel_vs_plain(device, small, sub, b)
+    ok = rel_l <= F32_IDENTITY_TOL and worst <= F32_LOOSE_TOL
+    print(f"[lmtrain] {cfg.name} at 2 layers, float32 compute, 1 x {seq} tokens: kernel route "
+          f"({n_k} {scan} launches) vs all-plain route: loss rel {rel_l:.3e} (tol "
+          f"{F32_IDENTITY_TOL}), worst gradient leaf rel {worst:.3e} of its norm (tol "
+          f"{F32_LOOSE_TOL}) {'ok' if ok else 'FAIL'}")
+    check((n_k == 2 or not cuda) and ok,
+          f"{cfg.name}: the kernel route's gradients differ from the plain route's")
+    _free_device()
+    print(f"[lmtrain] {cfg.name} phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, {"step_ms": step_ms, "busy_ms": busy, "idle": idle,
+                      "backward_share": share, "peak_gib": peak / 2**30}
+
+
 def main() -> int:
     try:
         import torch
@@ -3620,6 +4031,9 @@ def main() -> int:
         t0 = time.perf_counter()
         lm_serve = {"rwkv6-3b": phase_lm_engine(device, lm_cfg.name, lm, lm_params)}
         print(f"[lmserve] {lm_cfg.name} phase {time.perf_counter() - t0:.1f} s")
+        # training through the WKV6 kernel while the weights are loaded
+        wkv_train_launches, lm_train = phase_lm_train_scan(device, lm, lm_params, "wkv6")
+        lm_train = {"rwkv6-3b": lm_train}
         # free the RWKV6 parameters (12.4 GB) before the Zamba2 phases
         del lm, lm_params, lm_tokens
         torch.cuda.empty_cache()
@@ -3635,6 +4049,8 @@ def main() -> int:
         t0 = time.perf_counter()
         lm_serve["zamba2-2.7b"] = phase_lm_engine(device, zm.cfg.name, zm, zm_params)
         print(f"[lmserve] {zm.cfg.name} phase {time.perf_counter() - t0:.1f} s")
+        ssd_train_launches, lm_train["zamba2-2.7b"] = phase_lm_train_scan(
+            device, zm, zm_params, "mamba2_ssd")
         # free the Zamba2 parameters before the attention families
         del zm, zm_params, zm_tokens
         _free_device()
@@ -3645,6 +4061,13 @@ def main() -> int:
         print("[lmserve] decode step per token (4 sequences, host clock), graph / eager ms: "
               + "; ".join(f"{k} {v['graph_ms']:.3f} / {v['eager_ms']:.3f}"
                           for k, v in lm_serve.items()))
+        # LM training: the main path (qwen2-0.5b), the flash backward
+        lm_train["qwen2-0.5b"] = phase_lm_train_main(device, get_config("qwen2-0.5b"))
+        phase_flash_backward(device)
+        print("[lmtrain] training step (host clock) ms / device busy ms / idle share: "
+              + "; ".join(f"{k} {v['step_ms']:.2f} / {v['busy_ms']:.2f} / "
+                          + (f"{v['idle']:.3f}" if v["idle"] is not None else "not measured")
+                          for k, v in lm_train.items()))
         check("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -3704,7 +4127,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/wkv6.py:91",
-        "launches": wkv_launches,
+        "launches": wkv_launches + wkv_train_launches,
         "max_abs_err": max(wkv_err, wkv_err0),
         "ms": wkv_ms,
         "plain_ms": wkv_plain_ms,
@@ -3716,7 +4139,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
         "replaces": "src/repro/kernels/mamba2.py:86",
-        "launches": ssd_launches,
+        "launches": ssd_launches + ssd_train_launches,
         "max_abs_err": max(ssd_err, ssd_err0),
         "ms": ssd_ms,
         "plain_ms": ssd_plain_ms,

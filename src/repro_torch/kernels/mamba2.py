@@ -34,6 +34,13 @@ orders would round it apart.
   tensors, the plain version on CPU tensors (only there).  Like the
   reference's Pallas kernel it has no gradient: off the CPU, an input that
   requires grad (with grad mode on) raises.
+* `mamba2_ssd_hopper_grad` — the training route of the scan: on CUDA
+  tensors its forward is the kernel (one counted launch, the inputs saved)
+  and its backward re-runs `mamba2_ssd_chunked` on the saved inputs and
+  returns its gradients, the jnp scan the reference's models
+  differentiate; on CPU tensors it is `mamba2_ssd_chunked` with its own
+  autograd.  Under ``torch.no_grad()`` it is the kernel's one launch, as
+  `mamba2_ssd_hopper`.
 
 The chunk length is C = min(chunk, T), and T must be a multiple of C: a
 prompt is not padded, since padding would change the state.
@@ -45,10 +52,10 @@ import ctypes
 import torch
 
 from .build import load as _load
-from .wkv6 import _chunk_len
+from .wkv6 import _chunk_len, _plain_backward
 
 __all__ = ["mamba2_ssd_chunked", "launch_mamba2_kernel", "mamba2_ssd_hopper",
-           "kernel_stats", "reset_kernel_stats"]
+           "mamba2_ssd_hopper_grad", "kernel_stats", "reset_kernel_stats"]
 
 # launches of the kernel since the last reset (ticked in
 # `launch_mamba2_kernel` only, once per launch)
@@ -218,8 +225,42 @@ def mamba2_ssd_hopper(x, dt, A, B, C, D, chunk: int = 64, return_state: bool = F
     if torch.is_grad_enabled() and any(a.requires_grad for a in ins):
         raise RuntimeError("the mamba2_ssd kernel has no gradient: call it under "
                            "torch.no_grad() or on inputs that do not require grad")
+    y, h = _launch(*ins, chunk=chunk)
+    return (y, h) if return_state else y
+
+
+def _launch(x, dt, A, B, C, D, chunk: int):
+    """The kernel on the model's inputs: bfloat16 x, B and C as they are
+    (all three alike), else float32; token-row views read in place."""
     io = x.dtype if x.dtype == B.dtype == C.dtype == torch.bfloat16 else torch.float32
-    y, h = launch_mamba2_kernel(_as_rows(x.to(io)), dt.float().contiguous(),
+    return launch_mamba2_kernel(_as_rows(x.to(io)), dt.float().contiguous(),
                                 A.float().contiguous(), _as_rows(B.to(io)),
                                 _as_rows(C.to(io)), D.float().contiguous(), chunk=chunk)
+
+
+class _SsdTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B, C, D)
+        ctx.chunk = chunk
+        return _launch(x, dt, A, B, C, D, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        grads = _plain_backward(mamba2_ssd_chunked, ctx.saved_tensors,
+                               ctx.needs_input_grad[:6], (dy, dh), chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def mamba2_ssd_hopper_grad(x, dt, A, B, C, D, chunk: int = 64, return_state: bool = False):
+    """The SSD scan (as `mamba2_ssd_chunked`) with a gradient: on CUDA
+    tensors the kernel forward (the inputs as `mamba2_ssd_hopper` takes
+    them) and the plain chunked scan's gradients in the backward; on CPU
+    tensors the plain version.  A kernel that fails to build or launch
+    raises."""
+    ins = (x, dt, A, B, C, D)
+    if all(a.device.type == "cpu" for a in ins):
+        return mamba2_ssd_chunked(*ins, chunk=chunk, return_state=return_state)
+    y, h = _SsdTrain.apply(*ins, chunk)
     return (y, h) if return_state else y

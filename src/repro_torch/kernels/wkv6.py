@@ -31,6 +31,12 @@ however strong, overflows.
   dtype, w and u float32), the plain version on CPU tensors (only there).
   Like the reference's Pallas kernel it has no gradient: off the CPU, an
   input that requires grad (with grad mode on) raises.
+* `wkv6_hopper_grad` — the training route of the scan: on CUDA tensors its
+  forward is the kernel (one counted launch, the inputs saved) and its
+  backward re-runs `wkv6_chunked` on the saved inputs and returns its
+  gradients, the jnp scan the reference's models differentiate; on CPU
+  tensors it is `wkv6_chunked` with its own autograd.  Under
+  ``torch.no_grad()`` it is the kernel's one launch, as `wkv6_hopper`.
 
 The chunk length is C = min(chunk, T), and T must be a multiple of C: a
 prompt is not padded, since padding would change the state.
@@ -44,8 +50,8 @@ import torch.nn.functional as F
 
 from .build import load as _load
 
-__all__ = ["wkv6_chunked", "launch_wkv6_kernel", "wkv6_hopper", "kernel_stats",
-           "reset_kernel_stats"]
+__all__ = ["wkv6_chunked", "launch_wkv6_kernel", "wkv6_hopper", "wkv6_hopper_grad",
+           "kernel_stats", "reset_kernel_stats"]
 
 # calls of the kernel since the last reset (ticked in `launch_wkv6_kernel`
 # only, once per call: one call enqueues both passes)
@@ -190,4 +196,50 @@ def wkv6_hopper(r, k, v, w, u, chunk: int = 64, return_state: bool = False):
         raise RuntimeError("the wkv6 kernel has no gradient: call it under "
                            "torch.no_grad() or on inputs that do not require grad")
     o, S = launch_wkv6_kernel(*ins, chunk=chunk)
+    return (o, S) if return_state else o
+
+
+def _plain_backward(fn, saved, needs, grads_out, **kw):
+    """The gradients of ``fn(*saved, **kw)`` (a plain scan returning its
+    output and final state) with respect to the saved inputs whose
+    ``needs`` is true, against the output gradients ``grads_out`` (None for
+    an output that takes none): the forward re-run on detached copies under
+    grad mode, then ``torch.autograd.grad``."""
+    ins = [a.detach().requires_grad_(n) for a, n in zip(saved, needs)]
+    pairs = [g is not None for g in grads_out]
+    if not any(pairs) or not any(needs):
+        return [None] * len(ins)
+    with torch.enable_grad():
+        outs = fn(*ins, return_state=True, **kw)
+        wrt = [a for a in ins if a.requires_grad]
+        got = iter(torch.autograd.grad([o for o, p in zip(outs, pairs) if p], wrt,
+                                       [g for g in grads_out if g is not None],
+                                       allow_unused=True))
+    return [next(got) if a.requires_grad else None for a in ins]
+
+
+class _Wkv6Train(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.chunk = chunk
+        return launch_wkv6_kernel(r, k, v, w, u, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, do, dS):
+        grads = _plain_backward(wkv6_chunked, ctx.saved_tensors, ctx.needs_input_grad[:5],
+                               (do, dS), chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def wkv6_hopper_grad(r, k, v, w, u, chunk: int = 64, return_state: bool = False):
+    """The WKV6 scan (as `wkv6_chunked`) with a gradient: on CUDA tensors
+    the kernel forward (the same inputs `wkv6_hopper` takes, as they come)
+    and the plain chunked scan's gradients in the backward; on CPU tensors
+    the plain version.  A kernel that fails to build or launch raises."""
+    ins = (r, k, v, w, u)
+    if all(a.device.type == "cpu" for a in ins):
+        return wkv6_chunked(*ins, chunk=chunk, return_state=return_state)
+    o, S = _Wkv6Train.apply(*ins, chunk)
     return (o, S) if return_state else o

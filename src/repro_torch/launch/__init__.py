@@ -1,3 +1,4 @@
 """Launchers.  `serve` runs batched LM decoding through the continuous-batching
-engine; the reference's dry-run, mesh and training launchers come with
+engine; `train` trains a language model on one device.  The reference's
+dry-run and mesh launchers, and its sharded training, come with
 distribution (ROADMAP Queue 1 item 10)."""

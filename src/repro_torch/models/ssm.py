@@ -4,19 +4,22 @@ family.
 
 A copy of the reference's ``repro.models.ssm``, as plain functions over
 parameter dicts under the reference's names.  Each block has a sequence
-path (the chunked scans `kernels.mamba2.mamba2_ssd_hopper` and
-`kernels.wkv6.wkv6_hopper`: the Hopper kernels on CUDA tensors) and a
-single-step decode path carrying an explicit recurrent state, O(1) per
-token, in torch ops.  The casts to the activation dtype sit where the
-reference puts them, so the bfloat16 path rounds at the same places.
+path (the chunked scans' training routes
+`kernels.mamba2.mamba2_ssd_hopper_grad` and `kernels.wkv6.wkv6_hopper_grad`:
+the Hopper kernel's forward on CUDA tensors, with the plain chunked scan's
+gradients in the backward, so a model trains on the card through the
+kernels; under ``torch.no_grad()`` one kernel launch) and a single-step
+decode path carrying an explicit recurrent state, O(1) per token, in torch
+ops.  The casts to the activation dtype sit where the reference puts them,
+so the bfloat16 path rounds at the same places.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..kernels.mamba2 import mamba2_ssd_hopper
-from ..kernels.wkv6 import wkv6_hopper
+from ..kernels.mamba2 import mamba2_ssd_hopper_grad
+from ..kernels.wkv6 import wkv6_hopper_grad
 from .layers import dense, dense_init, norm_apply, norm_init, normal
 
 __all__ = ["mamba2_init", "mamba2_scan_inputs", "mamba2_apply", "mamba2_state_init",
@@ -95,7 +98,7 @@ def mamba2_apply(p, x, cfg, return_state: bool = False):
     dt_c = getattr(torch, cfg.dtype)
     Bt, T, _ = x.shape
     z, conv_in, scan = mamba2_scan_inputs(p, x, cfg)
-    ych, h = mamba2_ssd_hopper(*scan, chunk=min(64, T), return_state=True)
+    ych, h = mamba2_ssd_hopper_grad(*scan, chunk=min(64, T), return_state=True)
     yc = ych.reshape(Bt, T, d_in).to(x.dtype)
     yc = norm_apply(p["out_norm"], yc * F.silu(z), "rmsnorm")
     out = dense(p["out_proj"], yc, dt_c)
@@ -240,7 +243,7 @@ def rwkv6_time_mix(p, x, cfg, state=None):
     xprev = _shift(x) if state is None else state["last_x"][:, None]
     r, k, v, w, g = rwkv6_projections(p, x, cfg, xprev)
     if state is None:
-        o, S = wkv6_hopper(r, k, v, w, p["u"], chunk=min(64, T), return_state=True)
+        o, S = wkv6_hopper_grad(r, k, v, w, p["u"], chunk=min(64, T), return_state=True)
     else:
         S = state["wkv"]  # [B,H,K,V]
         kt, vt, rt, wt = k[:, 0], v[:, 0], r[:, 0], w[:, 0]

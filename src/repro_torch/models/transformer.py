@@ -1,7 +1,10 @@
 """Model assembly of every language-model family, after the reference's
-``repro.models.transformer``.  Four entry points per model:
+``repro.models.transformer``.  Five entry points per model:
 
-    forward(params, cfg, batch)                       logits and the MoE aux loss
+    forward(params, cfg, batch[, return_hidden])      logits (or the hidden
+                                                      states) and the MoE aux loss
+    chunked_cross_entropy(params, cfg, h, labels)     next-token CE, 256 tokens
+                                                      of logits at a time
     prefill(params, cfg, batch, max_len)              last logits and the cache
     decode_step(params, cfg, cache, tokens, pos)      one token against that cache
     decode_step_inplace(params, cfg, cache, tokens, pos)
@@ -30,6 +33,13 @@ the reference's stacked layout:
   [L,B,H,P,N] in float32, and one KV cache per stage of the shared
   attention block, ``k`` and ``v`` [n_stages,B,max_len,KV,hd].
 
+With ``cfg.remat`` each block of the sequence path (and each Mamba-2 step of
+the hybrid family) runs under activation checkpointing
+(``torch.utils.checkpoint``, non-reentrant) when grad mode is on, where the
+reference wraps its scan bodies in ``jax.checkpoint``: the backward
+recomputes the block from its input instead of keeping its activations.
+It changes no number.
+
 ``decode_step_inplace`` writes the new token's k and v, and every layer's
 new recurrent state, into the cache it is given and returns the logits: it
 makes no tensor from host data and reads nothing back, so the serve engine
@@ -43,6 +53,8 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import ssm as ssm_mod
 from .attention import (attn_init, attn_out, attn_project_qkv, blockwise_attention,
@@ -51,8 +63,8 @@ from .layers import (dense, dense_init, embed_init, mlp_apply, mlp_init, norm_ap
                      norm_init, normal, rope, rope_mrope)
 from .moe import moe_apply, moe_init
 
-__all__ = ["init_params", "forward", "prefill", "decode_step", "decode_step_inplace",
-           "init_cache", "clone_cache"]
+__all__ = ["init_params", "forward", "chunked_cross_entropy", "prefill", "decode_step",
+           "decode_step_inplace", "init_cache", "clone_cache"]
 
 _ATTENTION = ("dense", "moe", "vlm", "encdec")
 _FAMILIES = _ATTENTION + ("ssm", "hybrid")
@@ -285,14 +297,30 @@ def _encode(p, cfg, source_embeds):
     h = h + _sinusoid_pos(T, cfg.d_model, h.dtype, h.device)[None]
     pos = torch.arange(T, device=h.device)[None].expand(B, T)
     for lp in p["enc_layers"]:
-        h, _ = _block_apply(lp, h, pos, cfg, causal=False)
+        h, _ = _remat(cfg, _block_apply, lp, h, pos, cfg, False)
     return norm_apply(p["enc_ln_f"], h, cfg.norm)
 
 
-def forward(p, cfg, batch):
+def _remat(cfg, fn, *args):
+    """fn(*args), under activation checkpointing when ``cfg.remat`` and
+    grad mode is on (the reference's ``jax.checkpoint`` of a scan body).
+    The blocks draw no random numbers, so no RNG state is kept."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def _mamba_step(lp, h, cfg):
+    """One Mamba-2 layer of the hybrid family with its residual."""
+    return h + ssm_mod.mamba2_apply(lp["m"], norm_apply(lp["ln"], h, cfg.norm), cfg)
+
+
+def forward(p, cfg, batch, return_hidden: bool = False):
     """batch (tokens [B,S], + the family's extras) -> (logits [B,S,V]
     float32, aux: the sum over layers of the MoE load-balancing loss, zero
-    for the other families)."""
+    for the other families).  With ``return_hidden``, the hidden states
+    [B,S,d] before the output head in place of the logits (the chunked
+    cross-entropy's input: the [B,S,V] logits are never formed)."""
     _check_family(cfg)
     fam = cfg.family
     tokens = batch["tokens"]
@@ -304,16 +332,16 @@ def forward(p, cfg, batch):
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if fam in ("dense", "moe", "vlm"):
         for lp in p["layers"]:
-            h, a = _block_apply(lp, h, positions, cfg)
+            h, a = _remat(cfg, _block_apply, lp, h, positions, cfg)
             aux = aux + a
     elif fam == "ssm":
         for lp in p["layers"]:
-            h = ssm_mod.rwkv6_apply(lp, h, cfg)
+            h = _remat(cfg, ssm_mod.rwkv6_apply, lp, h, cfg)
     elif fam == "hybrid":
         e0 = h
         for s in range(_n_stages(cfg)):
             for _, lp in _stage_layers(p, cfg, s):
-                h = h + ssm_mod.mamba2_apply(lp["m"], norm_apply(lp["ln"], h, cfg.norm), cfg)
+                h = _remat(cfg, _mamba_step, lp, h, cfg)
             inp = _cat_proj(p, cfg, h, e0)
             y, a = _block_apply(p["shared"], inp, positions, cfg)
             h = h + y - inp  # the shared block adds its residual delta
@@ -322,9 +350,46 @@ def forward(p, cfg, batch):
         enc = _encode(p, cfg, batch["source_embeds"])
         h = h + p["dec_pos"][:S].to(h.dtype)[None]
         for lp in p["layers"]:
-            h, a = _block_apply(lp, h, positions, cfg, causal=True, enc=enc)
+            h, a = _remat(cfg, _block_apply, lp, h, positions, cfg, True, enc)
             aux = aux + a
+    if return_hidden:
+        return h, aux
     return _logits(p, cfg, h), aux
+
+
+def _ce_slice(p, cfg, h, labels, ignore_id: int):
+    """(summed NLL, count) of one slice: h [B,C,d], labels [B,C]."""
+    logits = _logits(p, cfg, h)  # [B,C,V] float32
+    mask = (labels != ignore_id).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    return ((lse - ll) * mask).sum(), mask.sum()
+
+
+def chunked_cross_entropy(p, cfg, h, labels, chunk: int = 256, ignore_id: int = -1):
+    """Next-token cross-entropy (the logits at t predict labels at t + 1),
+    the mean over labels that are not ``ignore_id``, without forming the
+    [B,S,V] logits: the sequence is cut into ``chunk``-token slices (padded
+    to whole slices with ``ignore_id``), and each slice's logits are
+    recomputed in the backward (``torch.utils.checkpoint``), so forward and
+    backward hold B x chunk x V of them at a time."""
+    hs, ys = h[:, :-1], labels[:, 1:]
+    S = hs.shape[1]
+    C = min(chunk, S)
+    pad = (-S) % C
+    if pad:
+        hs = F.pad(hs, (0, 0, 0, pad))
+        ys = F.pad(ys, (0, pad), value=ignore_id)
+    nll = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, S + pad, C):
+        args = (p, cfg, hs[:, c:c + C], ys[:, c:c + C], ignore_id)
+        if torch.is_grad_enabled():
+            a, n = checkpoint(_ce_slice, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            a, n = _ce_slice(*args)
+        nll, cnt = nll + a, cnt + n
+    return nll / cnt.clamp_min(1.0)
 
 
 # ---------------------------------------------------------------- caches

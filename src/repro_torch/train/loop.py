@@ -3,9 +3,22 @@ gradient accumulation, global-norm clip and AdamW, checkpoint, resume,
 heartbeat, preemption and straggler hooks.
 
 The loop trains an ``nn.Module`` in place: ``loss_fn(model, batch) ->
-(loss, metrics)`` where the reference takes a params pytree.  Batches go to
-the model's device (its parameters' device: explicit when the model is
-built, CUDA by default).  The step runs eagerly; it is not captured.
+(loss, metrics)`` where the reference takes a params pytree (a language
+model trains as `models.api.LMModule`, whose ``loss`` is ``Model.loss``).
+Batches go to the model's device (its parameters' device: explicit when
+the model is built, CUDA by default); an LM batch's int32 token and label
+ids become the model's int64 ids in ``Model.loss``.  The step runs eagerly;
+it is not captured.
+
+The step donates the optimizer state, as the reference's jitted step
+donates its buffers: each parameter's update is taken and applied in turn,
+and its new moments replace the old ones in the state's dicts at once.  So
+a float32 parameter costs at most 20 bytes at the step's peak (itself, its
+gradient before and after the clip, two moments), not the 28 of a whole new
+state beside the old one and every update at once: what lets RWKV6-3B
+(3.1e9 parameters: 62 GB at 20 B, 87 GB at 28) train on one NVIDIA H100
+80GB HBM3.  The numbers are the same: every optimizer here updates each
+parameter on its own.
 """
 from __future__ import annotations
 
@@ -34,7 +47,8 @@ class TrainState:
 def make_train_step(loss_fn: Callable, tcfg: TrainConfig, optimizer=None):
     """loss_fn(model, batch) -> (loss, metrics dict).  Returns
     (step(model, opt_state, batch) -> (opt_state, metrics), optimizer); the
-    step updates the model's parameters in place.
+    step updates the model's parameters in place, and ``opt_state`` too
+    (it returns the same dicts, updated).
 
     With ``tcfg.microbatch > 1`` the batch's leading axis splits into that
     many microbatches, taken in order; the loss and the float32 gradients
@@ -49,7 +63,24 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig, optimizer=None):
         gs = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(params.items(), gs)}
-        return loss.detach(), metrics, grads
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+    def update(opt_state, grads: dict, params: dict):
+        """The optimizer's update, parameter by parameter, each applied at
+        once and its new state written into ``opt_state``'s dicts (donated:
+        the old leaf is freed as it is replaced)."""
+        new_step = opt_state["step"]
+        for k in list(grads):
+            sub = {n: {k: s[k]} if isinstance(s, dict) else s for n, s in opt_state.items()}
+            upd, sub = opt.update({k: grads.pop(k)}, sub, {k: params[k]})
+            apply_updates({k: params[k]}, upd)
+            for n, s in sub.items():
+                if isinstance(s, dict):
+                    opt_state[n][k] = s[k]
+                else:
+                    new_step = s
+        opt_state["step"] = new_step
+        return opt_state
 
     def step(model, opt_state, batch):
         params = dict(model.named_parameters())
@@ -67,8 +98,7 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig, optimizer=None):
         else:
             loss, metrics, grads = grads_of(model, params, batch)
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
-        updates, opt_state = opt.update(grads, opt_state, params)
-        apply_updates(params, updates)
+        opt_state = update(opt_state, grads, params)
         return opt_state, dict(metrics, loss=loss, grad_norm=gnorm)
 
     return step, opt

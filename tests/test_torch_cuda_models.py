@@ -2,8 +2,9 @@
 the EquiformerV2 Selfmix layer, the two models with their chains pinned to
 the kernel, `plan_batch` buckets on the pair kernel, the general
 convolution's force field served and trained, the manybody plans,
-`calibrate_fused`, the quickstart and the LM engine's decode graph against
-its eager step — on the card.
+`calibrate_fused`, the quickstart, the LM engine's decode graph against
+its eager step and the LM scans' training route against the plain scans —
+on the card.
 Marked ``cuda``: these skip without an sm_90 GPU (on the card:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_models.py``)."""
 import dataclasses
@@ -194,3 +195,22 @@ def test_lm_decode_graph_matches_eager(cuda_device, arch):
         le = graph.evaluate(toks, pos)
     assert torch.equal(lg, le)
     assert all(torch.equal(a, b) for a, b in zip(after, _leaves(graph.cache)))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b"])
+def test_lm_training_kernel_route_matches_plain_on_card(cuda_device, arch):
+    """`Model.loss`'s gradients at a reduced config, f32 compute, 2 x 64
+    tokens: the scans on the kernel route (the kernel's forward, the plain
+    scan's gradients) against the all-plain route (the chunked scans on the
+    card's tensors, autograd through them), every leaf within 2e-3 of its
+    norm; one kernel launch a scan layer."""
+    from repro_torch.config import get_config
+    from repro_torch.models.api import build_model
+
+    cfg = get_config(arch).reduced(dtype="float32")
+    params = build_model(cfg, device=cuda_device).init(
+        torch.Generator(device=cuda_device).manual_seed(0))
+    batch = _CS._lm_batch(cfg, 2, 64, cuda_device)
+    rel_l, worst, launches = _CS.lm_train_kernel_vs_plain(cuda_device, cfg, params, batch)
+    assert launches == cfg.n_layers
+    assert rel_l <= _CS.F32_IDENTITY_TOL and worst <= _CS.F32_LOOSE_TOL, (rel_l, worst)

@@ -49,6 +49,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert {"repro_torch.models.moe", "repro_torch.launch.serve",
             "repro_torch.examples.serve_lm", "repro_torch.configs.qwen2_0p5b",
             "repro_torch.configs.whisper_base"} <= set(mods)
+    assert {"repro_torch.launch.train", "repro_torch.examples.train_lm"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -182,7 +183,8 @@ def test_no_raise_names_the_ported_engine_items():
     ported (ROADMAP Queue 1 items 4a-4c), and so are the attention
     families: no source of the port names those items any more, and each
     NotImplementedError that is left names the work that brings it,
-    sharding (item 10)."""
+    sharding (item 10): the five `shard_spec` raises and the training
+    launcher's mesh."""
     import re
 
     root = os.path.join(SRC, "repro_torch")
@@ -198,7 +200,7 @@ def test_no_raise_names_the_ported_engine_items():
     assert len(raises) >= 5
     for fn, r in raises:
         assert "item 10" in r, (fn, r)
-    assert sum("item 10" in r for _, r in raises) == 5
+    assert sum("item 10" in r for _, r in raises) == 6
 
 
 def test_no_raise_names_the_attention_families_item():
@@ -233,6 +235,23 @@ def test_lm_serving_entry_points_default_to_cuda():
     assert [len(r.output) for r in reqs] == [2, 2]
     reqs = serve_lm.main(["--requests", "2", "--max-new", "2", "--device", "cpu"])
     assert [len(r.output) for r in reqs] == [2, 2]
+
+
+def test_lm_training_entry_points_default_to_cuda(tmp_path):
+    """The LM training launcher and example train on the card unless given
+    the CPU."""
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train
+
+    if not torch.cuda.is_available():
+        for run in (lambda: train.main(["--arch", "qwen2-0.5b", "--reduced", "--steps", "1"]),
+                    lambda: train_lm.main(["--steps", "1", "--ckpt", str(tmp_path / "a")])):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                run()
+    hist = train_lm.main(["--steps", "2", "--seq", "16", "--batch", "2", "--dim", "64",
+                          "--layers", "1", "--vocab", "64", "--device", "cpu",
+                          "--ckpt", str(tmp_path / "b")])
+    assert [h["step"] for h in hist] == [1, 2]
 
 
 def test_general_conv_and_quickstart_default_to_cuda():
