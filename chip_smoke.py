@@ -182,7 +182,24 @@ result line):
      of the dense bf16 peak; the flash backward at its attention shape, f32
      and bf16, against autograd through full attention, with each route's
      peak memory.  The kernels line's `wkv6` and `mamba2_ssd` launches
-     count the prefill's and the training steps'.
+     count the prefill's and the training steps';
+  17. distribution (`[dist]`, last) — a world-size-1 NCCL process group
+     through a FileStore in a temporary directory (a failed init fails the
+     run), `make_host_mesh(1, 1)` on cuda, full-width `gaunt_mace_ff` with
+     ``shard_data=True`` on the activation mesh against ``shard_data=False``
+     (energy and forces of a 32-atom cluster; the first three sharded
+     calls timed alone, and the 'model' group's first collective),
+     `plan_chain(backend=
+     'fused_hopper', shard_spec=ShardSpec(mesh))` at 8,192 rows against the
+     unsharded kernel call, a pinned sharded pair-kernel bucket (6, 6, 6) x
+     81,920 rows, six `train_loop` steps of RWKV6-3B at full width
+     (4 of 32 layers, 1 x 2048 tokens) with ``mesh`` and ``shardings``
+     (weights gathered layer by layer) against the unsharded run's
+     losses, and `int8_ef_cross_pod_mean` on a
+     (1, 1, 1) ('pod', 'data', 'model') mesh against the plain formula.
+     One card shows no collective between two ranks (the CPU tests hold the
+     two-rank arithmetic with gloo).  The kernels line's `gaunt_chain`,
+     `gaunt_pair` and `wkv6` launches add this phase's.
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs no network and imports no JAX.
 """
@@ -191,6 +208,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3939,6 +3957,272 @@ def phase_lm_train_scan(device, model, params, scan: str, steps: int = SCAN_TRAI
                       "backward_share": share, "peak_gib": peak / 2**30}
 
 
+# --------------------------------------------------------------------------
+# [dist]: distribution on one card (a world of one NCCL rank)
+# --------------------------------------------------------------------------
+
+DIST_ATOMS = 32
+DIST_CHAIN_ROWS = 8192
+DIST_LM_LAYERS = 4
+DIST_LM_SEQ = 2048
+DIST_LM_STEPS = 6
+
+
+def phase_dist(device, lm_layers: int = DIST_LM_LAYERS, seq: int = DIST_LM_SEQ,
+               atoms: int = DIST_ATOMS, chain_rows: int = DIST_CHAIN_ROWS,
+               pair_rows: int = 640 * 128, lm_cfg=None, lm_steps: int = DIST_LM_STEPS) -> dict:
+    """A world-size-1 NCCL process group through a FileStore in a temporary
+    directory (no network; a failed init fails the run), then on
+    `make_host_mesh(1, 1)`:
+
+    * full-width `gaunt_mace_ff` with ``shard_data=True`` on the registered
+      activation mesh: energy and forces of a ``atoms``-atom cluster equal
+      the unsharded model's at the f32 tiers;
+    * `plan_chain(backend='fused_hopper', shard_spec=ShardSpec(mesh))` at
+      the served bucket's ``chain_rows`` rows equal to the unsharded kernel
+      call, forward and gradient, its `gaunt_chain` launches counted; a
+      pinned `fused_hopper` pairwise `plan_batch` bucket of ``pair_rows``
+      rows at (6, 6, 6), sharded against unsharded, its `gaunt_pair`
+      launches counted;
+    * RWKV6-3B at full width, ``lm_layers`` of its layers, 1 x ``seq``
+      tokens: ``lm_steps`` `train_loop` steps with ``mesh`` and
+      ``shardings`` (the weights gathered layer by layer) whose losses
+      equal the unsharded run's (run and freed first), its `wkv6` launches
+      counted, the step times the median of steps 2 on;
+    * `int8_ef_cross_pod_mean` on a (1, 1, 1) ('pod', 'data', 'model') mesh
+      against the plain formula.
+
+    The group is destroyed on the way out.  On the CPU (a rehearsal) the
+    group is gloo and the kernels run their plain versions; ``lm_cfg``
+    replaces RWKV6-3B's config there.  -> {"gaunt_chain", "gaunt_pair",
+    "wkv6": launches} of the sharded runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.config import TrainConfig, get_config
+    from repro_torch.configs.gaunt_ff import gaunt_mace_ff
+    from repro_torch.core import engine
+    from repro_torch.data import LMTokenPipeline, lj_dataset
+    from repro_torch.distributed.collectives import int8_ef_cross_pod_mean
+    from repro_torch.distributed.sharding import (batch_shardings, param_shardings,
+                                                  set_activation_mesh)
+    from repro_torch.kernels import gaunt_fused, wkv6
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import LMModule, build_model
+    from repro_torch.models.equivariant import MaceGaunt
+    from repro_torch.train import train_loop
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        cuda = device.type == "cuda"
+        if cuda:
+            dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                                    device_id=torch.device("cuda", torch.cuda.current_device()))
+        else:
+            dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+        try:
+            print(f"[dist] process group: backend {dist.get_backend()}, world size "
+                  f"{dist.get_world_size()}, FileStore in a temporary directory; {card}")
+            print("[dist] one card holds one rank: no collective between two ranks runs "
+                  "here; the two-rank arithmetic is held on the CPU with gloo "
+                  "(tests/test_torch_dist.py)")
+            mesh = make_host_mesh(1, 1, device=device.type)
+            check(mesh.device_type == device.type and tuple(mesh.mesh.shape) == (1, 1),
+                  f"make_host_mesh(1, 1) gave {mesh}")
+            print(f"[dist] make_host_mesh(1, 1): {mesh.device_type} mesh "
+                  f"{tuple(mesh.mesh.shape)} {mesh.mesh_dim_names}")
+
+            # -- the force field with shard_data --------------------------------
+            cl = lj_dataset(1, n_atoms=atoms, n_species=gaunt_mace_ff.n_species, seed=11)
+            sp = torch.as_tensor(cl["species"][0], device=device)
+            pos = torch.as_tensor(cl["pos"][0], device=device)
+            plain = MaceGaunt(gaunt_mace_ff, device=device)
+            e0, f0 = plain.energy_forces(sp, pos)
+            sharded = MaceGaunt(dataclasses.replace(gaunt_mace_ff, shard_data=True),
+                                device=device)
+            sharded.load_state_dict(plain.state_dict())
+            set_activation_mesh(mesh)
+            try:
+                # the first three sharded calls, each alone: what a first call
+                # sets up shows here, apart from the steady state below
+                first = []
+                for _ in range(3):
+                    _sync(device)
+                    t0 = time.perf_counter()
+                    e1, f1 = sharded.energy_forces(sp, pos)
+                    _sync(device)
+                    first.append((time.perf_counter() - t0) * 1e3)
+                # the 'model' group's first collective (no sharded call uses it)
+                probe = torch.ones(1, device=device)
+                _sync(device)
+                t0 = time.perf_counter()
+                dist.all_reduce(probe, group=mesh.get_group("model"))
+                _sync(device)
+                first_model_ms = (time.perf_counter() - t0) * 1e3
+                print(f"[dist] first sharded force-field calls "
+                      f"{', '.join(f'{t:.1f}' for t in first)} ms (host clock, each alone); "
+                      f"the 'model' group's first all_reduce {first_model_ms:.1f} ms, {card}")
+                # warm, then in turns: unsharded, sharded, sharded, unsharded
+                times = {"sharded": [], "unsharded": []}
+                for tag in ("unsharded", "sharded", "sharded", "unsharded") * 3:
+                    m = sharded if tag == "sharded" else plain
+                    _sync(device)
+                    t0 = time.perf_counter()
+                    m.energy_forces(sp, pos)
+                    _sync(device)
+                    times[tag].append((time.perf_counter() - t0) * 1e3)
+            finally:
+                set_activation_mesh(None)
+            t_sh, t_pl = (float(np.median(times[k])) for k in ("sharded", "unsharded"))
+            _, e_rel = rel_err(e1.reshape(1), e0.reshape(1))
+            f_err, _ = rel_err(f1, f0)
+            f_tol = F32_LOOSE_TOL * max(float(f0.abs().max()), 1e-30)
+            ok = (e_rel <= F32_IDENTITY_TOL and f_err <= f_tol
+                  and bool(torch.isfinite(f1).all()))
+            print(f"[dist] gaunt_mace_ff full width, {atoms} atoms, shard_data=True vs False: "
+                  f"energy {float(e1):.6f} vs {float(e0):.6f} rel {e_rel:.3e} (tol "
+                  f"{F32_IDENTITY_TOL}), forces max abs err {f_err:.3e} (tol {f_tol:.3e}) "
+                  f"{'ok' if ok else 'FAIL'}; energy+forces {t_sh:.2f} ms sharded, "
+                  f"{t_pl:.2f} ms unsharded (host clock, median of 6 in turns after a "
+                  f"warm call each), {card}")
+            check(ok, "the sharded force field disagrees with the unsharded one")
+            del plain, sharded
+
+            # -- the chain kernel on each rank's rows ------------------------------
+            gen = torch.Generator(device=device).manual_seed(3)
+            x = torch.randn(chain_rows, 9, device=device, generator=gen)
+            w = torch.randn(chain_rows, 3, device=device, generator=gen)
+            cot = torch.randn(chain_rows, 9, device=device, generator=gen)
+            spec = engine.ShardSpec(mesh)
+            outs = {}
+            for tag, sh in (("unsharded", None), ("sharded", spec)):
+                cp = engine.plan_chain((2, 2, 2), 2, backend="fused_hopper", shard_spec=sh,
+                                       device=device)
+                xg = x.clone().requires_grad_(True)
+                if tag == "sharded":
+                    gaunt_fused.reset_kernel_stats()
+                y = cp.apply([xg, xg, xg], weights=[w, w, w])
+                (gx,) = torch.autograd.grad((y * cot).sum(), xg)
+                _sync(device)
+                if tag == "sharded":
+                    launches["gaunt_chain"] = gaunt_fused.kernel_stats()["gaunt_chain"]
+                outs[tag] = (y.detach(), gx)
+                outs[tag + "_ms"] = (event_ms(lambda: cp.apply([x, x, x], weights=[w, w, w]),
+                                              reps=20) if cuda else float("nan"))
+            y_err, y_rel = rel_err(outs["sharded"][0], outs["unsharded"][0])
+            g_err, g_rel = rel_err(outs["sharded"][1], outs["unsharded"][1])
+            ok = y_rel <= F32_IDENTITY_TOL and g_rel <= F32_LOOSE_TOL \
+                and (launches["gaunt_chain"] > 0 or not cuda)
+            print(f"[dist] plan_chain(backend='fused_hopper', shard_spec) at {chain_rows} rows "
+                  f"vs the unsharded kernel call: out rel {y_rel:.3e}, grad rel {g_rel:.3e}, "
+                  f"gaunt_chain launches {launches['gaunt_chain']} "
+                  f"{'ok' if ok else 'FAIL'}; forward {outs['sharded_ms']:.3f} ms sharded, "
+                  f"{outs['unsharded_ms']:.3f} ms unsharded (CUDA events, median of 20), "
+                  f"{card}")
+            check(ok, "the sharded chain kernel disagrees with the unsharded call, or "
+                  "never launched")
+            del x, w, cot, outs
+
+            # -- the pair kernel in a pinned sharded pairwise bucket -----------------
+            L = PAIR_MAIN[0]
+            a1 = torch.randn(pair_rows, (L + 1) ** 2, device=device, generator=gen)
+            a2 = torch.randn(pair_rows, (L + 1) ** 2, device=device, generator=gen)
+            got = {}
+            for tag, sh in (("unsharded", None), ("sharded", spec)):
+                bp = engine.plan_batch([PAIR_MAIN], backend="fused_hopper",
+                                       requires_grad=False, shard_spec=sh, device=device)
+                if tag == "sharded":
+                    gaunt_fused.reset_kernel_stats()
+                with torch.no_grad():
+                    got[tag] = bp.apply([(a1, a2)])[0]
+                _sync(device)
+                if tag == "sharded":
+                    launches["gaunt_pair"] = gaunt_fused.kernel_stats()["gaunt_pair"]
+            _, p_rel = rel_err(got["sharded"], got["unsharded"])
+            ok = p_rel <= F32_IDENTITY_TOL and (launches["gaunt_pair"] > 0 or not cuda)
+            print(f"[dist] plan_batch([{PAIR_MAIN}], backend='fused_hopper', shard_spec) at "
+                  f"{pair_rows} rows vs the unsharded bucket: rel {p_rel:.3e}, gaunt_pair "
+                  f"launches {launches['gaunt_pair']} {'ok' if ok else 'FAIL'}")
+            check(ok, "the sharded pair-kernel bucket disagrees with the unsharded one, or "
+                  "never launched")
+            del a1, a2, got
+
+            # -- RWKV6-3B: one sharded train_loop step ------------------------------
+            cfg = dataclasses.replace(lm_cfg or get_config("rwkv6-3b"), n_layers=lm_layers)
+            tcfg = TrainConfig(lr=1e-4, warmup_steps=1, total_steps=lm_steps, log_every=1)
+            res = {}
+            for tag in ("unsharded", "sharded"):
+                model = build_model(cfg, device=device)
+                module = LMModule(cfg, model.init(torch.Generator(device=device)
+                                                  .manual_seed(0)))
+                pipe = LMTokenPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=1, seed=0)
+                kw = {}
+                if tag == "sharded":
+                    ids = torch.empty((1, seq), dtype=torch.int32, device="meta")
+                    kw = {"mesh": mesh, "shardings": {
+                        "params": param_shardings(module, mesh),
+                        "batch": batch_shardings({"tokens": ids, "labels": ids}, mesh)}}
+                    wkv6.reset_kernel_stats()
+                stamps = []  # the log hook reads each step's loss on the host
+                state, hist = train_loop(lambda m, b: m.loss(b), module, pipe, tcfg,
+                                         hooks={"preemption": False,
+                                                "log": lambda h: stamps.append(
+                                                    time.perf_counter())}, **kw)
+                # each step after the first: from one logged loss to the next
+                res[tag] = ([h["loss"] for h in hist],
+                            float(np.median(np.diff(stamps))) * 1e3, len(stamps) - 1)
+                if tag == "sharded":
+                    launches["wkv6"] = wkv6.kernel_stats()["wkv6"]
+                    check(type(state.opt_state["mu"][next(iter(state.opt_state["mu"]))])
+                          .__name__ == "DTensor", "the sharded optimizer state is not DTensors")
+                del model, module, state, hist
+                _free_device()
+            l_rel = max(abs(a - b) / max(1.0, abs(b))
+                        for a, b in zip(res["sharded"][0], res["unsharded"][0]))
+            ok = l_rel <= F32_IDENTITY_TOL and (launches["wkv6"] > 0 or not cuda)
+            print(f"[dist] {cfg.name} full width, {lm_layers} of 32 layers, 1 x {seq} tokens, "
+                  f"{cfg.dtype}: {lm_steps} train_loop steps with mesh and shardings, losses "
+                  f"{res['sharded'][0]} vs unsharded {res['unsharded'][0]} worst rel "
+                  f"{l_rel:.3e}, wkv6 launches {launches['wkv6']} {'ok' if ok else 'FAIL'}")
+            print(f"[times] dist rwkv6-3b {lm_layers}-layer train_loop step (1 x {seq} "
+                  f"tokens, host clock between logged losses, median of steps 2-{lm_steps}, "
+                  f"{res['sharded'][2]} a side): sharded {res['sharded'][1]:.1f} ms, "
+                  f"unsharded {res['unsharded'][1]:.1f} ms, {card}")
+            check(ok, "the sharded RWKV6 step's loss differs from the unsharded one, or the "
+                  "wkv6 kernel never launched")
+
+            # -- the int8 error-feedback reduction -----------------------------------
+            pod = init_device_mesh(device.type, (1, 1, 1),
+                                   mesh_dim_names=("pod", "data", "model"))
+            g = {"a": torch.randn(4096, device=device, generator=gen) * 3,
+                 "b": torch.randn(64, 33, device=device, generator=gen)}
+            e = {k: torch.randn_like(v) * 0.01 for k, v in g.items()}
+            out, ef = int8_ef_cross_pod_mean(g, e, pod)
+            worst = 0.0
+            for k in g:
+                xk = g[k] + e[k]
+                scale = xk.abs().max().clamp_min(1e-8) / 127.0
+                deq = torch.clamp(torch.round(xk / scale), -127, 127) * scale
+                worst = max(worst, float((out[k] - deq).abs().max()),
+                            float((ef[k] - (xk - deq)).abs().max()))
+            ok = worst <= 1e-6
+            print(f"[dist] int8_ef_cross_pod_mean on a (1, 1, 1) ('pod', 'data', 'model') "
+                  f"mesh vs the plain formula: max abs err {worst:.3e} (tol 1e-6) "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, "int8_ef_cross_pod_mean disagrees with the plain formula")
+        finally:
+            dist.destroy_process_group()
+    print(f"[dist] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4068,6 +4352,8 @@ def main() -> int:
               + "; ".join(f"{k} {v['step_ms']:.2f} / {v['busy_ms']:.2f} / "
                           + (f"{v['idle']:.3f}" if v["idle"] is not None else "not measured")
                           for k, v in lm_train.items()))
+        # distribution, last: a world of one NCCL rank on this card
+        dist_launches = phase_dist(device)
         check("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -4079,7 +4365,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gaunt_chain.cu",
         "replaces": "src/repro/kernels/gaunt_fused.py:122",
-        "launches": launches,
+        "launches": launches + dist_launches["gaunt_chain"],
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -4091,7 +4377,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gaunt_pair.cu",
         "replaces": "src/repro/kernels/gaunt_fused.py:116",
-        "launches": pair_launches,
+        "launches": pair_launches + dist_launches["gaunt_pair"],
         "max_abs_err": pair_err,
         "ms": pair_ms,
         "plain_ms": pair_plain_ms,
@@ -4127,7 +4413,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/wkv6.py:91",
-        "launches": wkv_launches + wkv_train_launches,
+        "launches": wkv_launches + wkv_train_launches + dist_launches["wkv6"],
         "max_abs_err": max(wkv_err, wkv_err0),
         "ms": wkv_ms,
         "plain_ms": wkv_plain_ms,

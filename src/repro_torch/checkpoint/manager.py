@@ -17,8 +17,11 @@ writes on a daemon thread; ``wait()`` joins it, and raises what it raised,
 before the next save (one outstanding save, bounded memory).
 
 ``restore`` verifies every leaf's crc32 and places the leaves on one
-``device``: the single-device counterpart of the reference's elastic
-``shardings``.  numpy has no bfloat16 (the reference stores it through
+``device``, or, given ``shardings`` (a tree of placement lists,
+`distributed.sharding.param_shardings`) and a ``mesh``, lays each leaf out
+as a `DTensor` on that mesh: the reference's elastic restore.  A `DTensor`
+leaf saves whole (gathered: every rank takes part), and under a process
+group only rank 0 writes.  numpy has no bfloat16 (the reference stores it through
 ``ml_dtypes``), so bf16 leaves are stored as uint16 bit patterns and
 reinterpreted from the manifest's dtype on load, the reference's file
 layout.
@@ -62,16 +65,33 @@ def _crc(a: np.ndarray) -> int:
     return zlib.crc32(np.ascontiguousarray(a).tobytes()) & 0xFFFFFFFF
 
 
-def _paths(tree, prefix: str = ""):
-    """Yield (path, leaf) over nested dicts, lists and tuples."""
+def _paths(tree, prefix: str = "", leaf=lambda x: False):
+    """Yield (path, leaf) over nested dicts, lists and tuples (``leaf``
+    marks a list that is itself a leaf)."""
     if isinstance(tree, dict):
         for k, v in tree.items():
-            yield from _paths(v, f"{prefix}{k}/")
-    elif isinstance(tree, (list, tuple)):
+            yield from _paths(v, f"{prefix}{k}/", leaf)
+    elif isinstance(tree, (list, tuple)) and not leaf(tree):
         for i, v in enumerate(tree):
-            yield from _paths(v, f"{prefix}{i}/")
+            yield from _paths(v, f"{prefix}{i}/", leaf)
     else:
         yield prefix[:-1], tree
+
+
+def _is_placements(x) -> bool:
+    """A placement list (`distributed.sharding.placements`): a leaf of a
+    shardings tree."""
+    from torch.distributed.tensor import Placement
+
+    return isinstance(x, list) and all(isinstance(p, Placement) for p in x)
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a process group,
+    or a process with none."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _rebuild(tree, leaves: dict, prefix: str = ""):
@@ -96,9 +116,13 @@ class CheckpointManager:
         self.wait()
         flat, dtypes = {}, {}
         for k, v in _paths(tree):
+            if hasattr(v, "full_tensor"):  # a DTensor: gathered whole
+                v = v.full_tensor()
             t = torch.as_tensor(v).detach().to("cpu", copy=True)  # host copy
             flat[k], dtypes[k] = _to_storable(t), _dtype_name(t)
         extra = dict(extra or {})
+        if not _writer():
+            return
 
         def _write():
             tmp = os.path.join(self.dir, f".tmp_step_{step}")
@@ -168,9 +192,12 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target_tree: Any, device=None, verify: bool = True):
+    def restore(self, step: int, target_tree: Any, device=None, verify: bool = True,
+                shardings: Any | None = None, mesh=None):
         """Restore into the structure of ``target_tree`` (its tensor leaves
-        give the dtypes) on ``device`` (None: the CPU) -> (tree, extra)."""
+        give the dtypes) on ``device`` (None: the CPU) -> (tree, extra).
+        ``shardings`` (the tree's placement lists) with ``mesh`` makes each
+        leaf a `DTensor` laid out on the mesh instead."""
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -183,7 +210,15 @@ class CheckpointManager:
             for k, meta in manifest["entries"].items():
                 if _crc(data[k]) != meta["crc32"]:
                     raise IOError(f"checkpoint corruption in leaf {k!r}")
-        dev = torch.device("cpu" if device is None else device)
+        if shardings is not None:
+            if mesh is None:
+                raise ValueError("restore with shardings needs the mesh they lay out on")
+            from torch.distributed.tensor import distribute_tensor
+
+            dev = torch.device(mesh.device_type)
+            placed = dict(_paths(shardings, leaf=_is_placements))
+        else:
+            dev = torch.device("cpu" if device is None else device)
         leaves = {}
         for key, proto in _paths(target_tree):
             if key not in data:
@@ -191,5 +226,8 @@ class CheckpointManager:
             t = _from_storable(data[key], manifest["entries"][key]["dtype"])
             if isinstance(proto, torch.Tensor):
                 t = t.to(proto.dtype)
-            leaves[key] = t.to(dev)
+            t = t.to(dev)
+            if shardings is not None:
+                t = distribute_tensor(t, mesh, placed[key], src_data_rank=None)
+            leaves[key] = t
         return _rebuild(target_tree, leaves), manifest["extra"]

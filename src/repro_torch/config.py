@@ -5,8 +5,9 @@ register themselves.
 A copy of the reference's ``repro.config`` (``ModelConfig``, ``ShapeConfig``,
 ``SHAPES``, ``TrainConfig``, the registry) that keeps every field, so a
 test can compare ``dataclasses.asdict`` field by field.  The port does not
-read ``use_pallas``: on CUDA the WKV scan always runs on the Hopper kernel,
-nor ``TrainConfig.grad_compression`` (sharded training is not ported).
+read ``use_pallas``: on CUDA the WKV scan always runs on the Hopper kernel.
+``TrainConfig.grad_compression='int8_ef'`` compresses the sharded train
+step's cross-pod gradient reduction (`distributed.collectives`).
 """
 from __future__ import annotations
 

@@ -2,8 +2,7 @@
 the MACE-like force field, the SEGNN-like N-body net and the EquiformerV2
 Selfmix layer.
 
-A copy of the reference ``repro.configs.gaunt_ff`` with the knobs the port
-honours.  Not carried over yet: ``shard_data`` (sharding is not ported).
+A copy of the reference ``repro.configs.gaunt_ff`` with every knob.
 """
 from __future__ import annotations
 
@@ -25,6 +24,11 @@ class EquivariantConfig:
     tp_impl: str = "gaunt"    # gaunt | gaunt_fused | gaunt_auto | cg
     conv_impl: str = "escn"   # escn | general (the paper's 2D Fourier convolution)
     hidden: int = 128
+    # split the rows of every product (the conv, the pairwise product, the
+    # many-body chain) over the activation mesh's data-parallel ranks
+    # (`distributed.sharding.set_activation_mesh`); without a registered
+    # mesh the model runs unsharded
+    shard_data: bool = False
     # keep the layer-constant edge geometry resident: the general conv's
     # filter grid (`EquivariantConv.filter_rep`), or the eSCN alignment
     # rotation and Wigner recursion, built once per geometry, not per layer

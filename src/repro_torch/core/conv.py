@@ -126,7 +126,11 @@ class EquivariantConv:
     output's dtype.  ``device`` is the plans' device for the general and
     auto methods (None: cuda, raising without a GPU); ``batch_hint`` and
     ``tune`` feed their selection.  ``donate`` is accepted and donates
-    nothing; ``shard_spec`` is not ported (ROADMAP Queue 1 item 10).
+    nothing.  ``shard_spec`` (`engine.ShardSpec`) runs every call as a
+    row-sharded `engine.plan_batch` bucket over the mesh's data-parallel
+    ranks, whatever the geometry: raw directions, `WignerBlocks` (a
+    Wigner-geometry eSCN bucket) or a resident filter (a Fourier-boundary
+    pairwise bucket), as the reference does.
 
     ``__call__(x, rhat)`` takes raw directions [..., 3], the `WignerBlocks`
     of :meth:`geometry_rep` (eSCN), or the Fourier-resident filter of
@@ -139,9 +143,6 @@ class EquivariantConv:
                  backend: str | None = None, batch_hint: int | None = None,
                  tune: str = "heuristic", donate: bool = False, shard_spec=None,
                  device=None):
-        if shard_spec is not None:
-            raise NotImplementedError("sharded convolutions (shard_spec) are not "
-                                      "ported (ROADMAP Queue 1 item 10)")
         self.L1, self.L2 = L1, L2
         self.Lout = L1 + L2 if Lout is None else Lout
         self.method = method
@@ -155,19 +156,21 @@ class EquivariantConv:
             elif method != "auto":
                 raise ValueError(f"unknown method {method!r}")
         self._bplan = self._plan = None
-        if backend == "escn_aligned":
+        self._shard_spec, self._tune = shard_spec, tune
+        self._batched: dict = {}
+        if backend == "escn_aligned" and shard_spec is None:
             self.backend = backend
             self._raw = build_escn(L1, L2, self.Lout, dtype=self._dtype)
         else:
             self._bplan = _engine.plan_batch(
                 [_engine.BatchItem(L1=L1, L2=L2, Lout=self.Lout, size=batch_hint)],
                 kind="conv_filter", dtype=self._dtype, backend=backend, tune=tune,
-                donate=donate, device=device)
+                donate=donate, shard_spec=shard_spec, device=device)
             self._plan = self._bplan.buckets[0].plan
             self.backend = self._plan.backend
             self._raw = None
         self._geom = (build_escn(L1, L2, self.Lout, geometry="wigner", dtype=self._dtype)
-                      if self.backend == "escn_aligned" else None)
+                      if self.backend == "escn_aligned" and shard_spec is None else None)
         self._resident_plan = None
 
     @property
@@ -208,9 +211,37 @@ class EquivariantConv:
                              "for the general path")
         return WignerBlocks.from_rhat(rhat, max(self.L1, self.Lout))
 
+    def _sharded(self, kind: str, backend: str, options: tuple, device):
+        """The row-sharded one-item bucket of a geometry kind (built once)."""
+        key = (kind, backend, options)
+        bp = self._batched.get(key)
+        if bp is None:
+            bp = self._batched[key] = _engine.plan_batch(
+                [_engine.BatchItem(L1=self.L1, L2=self.L2, Lout=self.Lout,
+                                   options=options)],
+                kind=kind, dtype=self._dtype, backend=backend, tune=self._tune,
+                shard_spec=self._shard_spec, device=device)
+        return bp
+
     def __call__(self, x, rhat, w1=None, w2=None, w3=None) -> torch.Tensor:
         from .rep import Rep
 
+        if self._shard_spec is not None:
+            if isinstance(rhat, WignerBlocks):
+                if self.backend != "escn_aligned":
+                    raise ValueError("WignerBlocks geometry needs the eSCN backend; "
+                                     f"this conv uses {self.backend!r}")
+                bp = self._sharded("conv_filter", "escn_aligned",
+                                   (("geometry", "wigner"),), x.device)
+            elif isinstance(rhat, Rep):
+                if w2 is not None:
+                    raise ValueError("fold w2 into filter_rep(rhat, w2=...): a resident "
+                                     "filter cannot be reweighted")
+                bp = self._sharded("pairwise", self._spectral_backend(),
+                                   (("boundary", ("sh", "fourier", "sh")),), x.device)
+            else:
+                bp = self._bplan
+            return bp.apply([(x, rhat)], weights=[(w1, w2, w3)])[0].to(self.rdtype)
         if isinstance(rhat, WignerBlocks):
             if self._geom is None:
                 raise ValueError("WignerBlocks geometry needs the eSCN backend; this "

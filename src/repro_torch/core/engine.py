@@ -76,7 +76,12 @@ answers every measured key from the file with zero timing runs.
 `GauntEngine.calibrate_fused` measures the cost model's skinny-matmul
 factor per storage dtype on the device, and the autotune cache persists it.
 
-Not ported: sharding (``shard_spec`` raises, ROADMAP Queue 1 item 10).
+Sharding: ``plan_batch`` and ``plan_chain`` take a `ShardSpec`.  The rows
+split over the mesh's data-parallel ranks (padded to a multiple of their
+count), each rank runs the bucket or chain body on its own rows with plain
+local tensors, so the kernels run as they do unsharded, and the rows are
+gathered back (`distributed.sharding.scatter_rows` / `gather_rows`, each
+the other's adjoint, so derivatives of any order pass through).
 """
 from __future__ import annotations
 
@@ -103,6 +108,7 @@ __all__ = [
     "GauntPlan",
     "BatchItem",
     "BatchedGauntPlan",
+    "ShardSpec",
     "CHAIN_BACKENDS",
     "ChainPlan",
     "GauntEngine",
@@ -341,13 +347,83 @@ def _as_batch_item(it) -> BatchItem:
                      "a dict, or a BatchItem")
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """How a batched or chained apply is laid out over a device mesh.
+
+    mesh : a `DeviceMesh` with named dims, or None for the launcher's
+           activation mesh (`distributed.sharding.set_activation_mesh`);
+           with neither the spec is inert and execution stays on one rank.
+    axes : the mesh dims that may split the row axis (dim 0 of every
+           flattened operand); the subset the mesh has is used.
+    mode : 'constraint' or 'shard_map', the reference's two ways of handing
+           the row layout to XLA (a sharding constraint for the SPMD
+           partitioner, or a per-shard body).  torch has no partitioner to
+           hand a constraint to: both modes run the same explicit per-rank
+           body (scatter rows, run, gather rows) and give the same numbers,
+           and the same plan: the mode is checked and keys nothing.
+    """
+
+    mesh: object = None
+    axes: tuple = ("pod", "data")
+    mode: str = "constraint"
+
+    def resolve(self):
+        """-> (mesh, dp_axes), or (None, ()) when no mesh is available."""
+        from ..distributed import sharding as _sh
+
+        if self.mode not in ("constraint", "shard_map"):
+            raise ValueError(f"unknown shard mode {self.mode!r} "
+                             "(expected 'constraint' or 'shard_map')")
+        mesh = self.mesh if self.mesh is not None else _sh.get_activation_mesh()
+        if mesh is None:
+            return None, ()
+        return mesh, _sh.dp_axes(mesh, tuple(self.axes))
+
+
+def _map_leaves(fn, obj, memo: dict):
+    """fn over every tensor of an operand tree (tensors, Reps, WignerBlocks,
+    lists, tuples, None); a tensor or Rep met twice maps once, so shared
+    operands stay shared (the chain converts a shared operand once)."""
+    from .conv import WignerBlocks
+    from .rep import Rep
+
+    if obj is None:
+        return None
+    hit = memo.get(id(obj))
+    if hit is not None:
+        return hit[1]
+    if isinstance(obj, torch.Tensor):
+        out = fn(obj)
+    elif isinstance(obj, Rep):
+        out = Rep(_map_leaves(fn, obj.data, memo), obj.L, obj.basis, obj.form, obj.sdtype)
+    elif isinstance(obj, WignerBlocks):
+        out = WignerBlocks(tuple(_map_leaves(fn, b, memo) for b in obj.blocks))
+    elif isinstance(obj, (list, tuple)):
+        out = type(obj)(_map_leaves(fn, x, memo) for x in obj)
+    else:
+        return obj
+    memo[id(obj)] = (obj, out)  # keep obj alive: its id stays unique
+    return out
+
+
+def _sharded_rows(run: Callable, rs, args: tuple):
+    """Run ``run(*args)`` on this rank's rows: every tensor leaf of ``args``
+    has the (padded) row axis first; the output's rows are gathered back."""
+    from ..distributed.sharding import gather_rows, scatter_rows
+
+    local = _map_leaves(lambda t: scatter_rows(t, rs), args, {})
+    return _map_leaves(lambda t: gather_rows(t, rs), run(*local), {})
+
+
 def _split_leads(leads: list) -> tuple:
-    """Operand leading shapes -> (row prefix, inner broadcast dims).  The
-    prefix is the longest run of leading dims on which every operand agrees
+    """Operand leading shapes -> (row prefix, inner broadcast dims), by
+    numpy's shape rule (``torch.broadcast_shapes`` imports sympy on its
+    first call: seconds, once a process).  The prefix is the longest run of leading dims on which every operand agrees
     (right-aligned): those flatten into rows.  The inner dims are where the
     operands broadcast (one edge direction against C channels); they pass
     through to the backend, which broadcasts them itself."""
-    full = tuple(torch.broadcast_shapes(*leads))
+    full = tuple(np.broadcast_shapes(*leads))
     n = len(full)
     padded = [(1,) * (n - len(ld)) + tuple(ld) for ld in leads]
     k = 0
@@ -396,10 +472,11 @@ def _norm_operand(op, j: int, kind: str, item: BatchItem, form: str):
 
 
 def _bucket_body(plan: GauntPlan, kind: str, item: BatchItem, granularity: int,
-                 form: str, item_ops, item_ws):
+                 form: str, item_ops, item_ws, rs=None):
     """Flatten, broadcast, concatenate and pad the items' operands, run the
     bucket's plan once, slice each item's output back out (the reference's
-    ``_bucket_batch_body``, eager)."""
+    ``_bucket_batch_body``, eager).  With a `RowShard` ``rs`` the plan runs
+    on this rank's rows (``granularity`` is a multiple of the rank count)."""
     from .rep import Rep
 
     rd = _RDTYPE[plan.key.dtype]
@@ -422,8 +499,8 @@ def _bucket_body(plan: GauntPlan, kind: str, item: BatchItem, granularity: int,
         # goes all-inner (one row) and the backend broadcasts it
         w_leads = [tuple(w.shape[:-1]) for w in ws if w is not None]
         pi = prefix + inner
-        if any(tuple(torch.broadcast_shapes(wl, pi)) != pi for wl in w_leads):
-            prefix, inner = (), tuple(torch.broadcast_shapes(pi, *w_leads))
+        if any(tuple(np.broadcast_shapes(wl, pi)) != pi for wl in w_leads):
+            prefix, inner = (), tuple(np.broadcast_shapes(pi, *w_leads))
         splits.append((prefix, inner))
     if len({inner for _, inner in splits}) > 1:
         splits = [(prefix + inner, ()) for prefix, inner in splits]
@@ -484,10 +561,12 @@ def _bucket_body(plan: GauntPlan, kind: str, item: BatchItem, granularity: int,
     if pad:
         ws_cat = [None if w is None else
                   torch.cat([w, w.new_ones((pad, *w.shape[1:]))], dim=0) for w in ws_cat]
-    if kind == "manybody":
-        out = plan.apply(ops_cat, None if all(w is None for w in ws_cat) else ws_cat)
-    else:
-        out = plan.apply(*ops_cat, *ws_cat)
+    def run(ops, ws):
+        if kind == "manybody":
+            return plan.apply(ops, None if all(w is None for w in ws) else ws)
+        return plan.apply(*ops, *ws)
+
+    out = run(ops_cat, ws_cat) if rs is None else _sharded_rows(run, rs, (ops_cat, ws_cat))
     leaf = out.data if isinstance(out, Rep) else out
     res, off = [], 0
     for t in range(len(item_ops)):
@@ -520,6 +599,8 @@ class BatchedGauntPlan:
     buckets: tuple
     granularity: int = 1
     donate: bool = False
+    shard: ShardSpec | None = None
+    _rows: object = dataclasses.field(default=None, repr=False, compare=False)
 
     def plans(self) -> list:
         return [b.plan for b in self.buckets]
@@ -568,7 +649,7 @@ class BatchedGauntPlan:
                 ws.append(w)
             form = "half" if bucket.plan.backend == "rfft" else "dense"
             res = _bucket_body(bucket.plan, self.kind, item0, self.granularity, form,
-                               ops, ws)
+                               ops, ws, self._rows)
             for t, i in enumerate(bucket.item_ids):
                 outs[i] = res[t]
         return outs
@@ -605,6 +686,7 @@ class ChainPlan:
     conversion: str = "half"
     conv: str = "rfft"
     tree: bool = True
+    shard: tuple = (None, ())   # (mesh, dp_axes)
 
     def apply(self, xs, weights=None, w_out=None, out_basis: str = "sh",
               gate_params=None):
@@ -630,6 +712,73 @@ class ChainPlan:
                 raise ValueError(f"out_basis='fourier' keeps the full grid "
                                  f"(L={sum(self.Ls)}); plan with Lout={sum(self.Ls)}")
         return self._apply(xs, ws, w_out, out_basis, gate_params)
+
+
+def _shard_chain(apply: Callable, rs) -> Callable:
+    """Row-shard a chain backend: the leading dims on which every operand
+    agrees (`_split_leads`) flatten into rows, a weight broadcast over them
+    expands to them (a weight with no leading dims stays as it is), the rows
+    pad with zeros to a multiple of the rank count (zero rows multiply to
+    zero), each rank runs the chain on its own rows, and the rows are
+    gathered back and unflattened.  A chain with no such dim runs whole on
+    every rank."""
+    from .rep import Rep
+
+    def ev_rank(x):
+        return 2 if isinstance(x, Rep) and x.is_fourier else 1
+
+    def lead(x):
+        t = x.data if isinstance(x, Rep) else x
+        return tuple(t.shape[: t.dim() - ev_rank(x)])
+
+    def apply_sharded(xs, ws, w_out, out_basis, gate_params):
+        full = np.broadcast_shapes(*[lead(x) for x in xs])
+        prefix, _ = _split_leads([lead(x) for x in xs])
+        if not prefix:
+            return apply(xs, ws, w_out, out_basis, gate_params)
+        rows, k = math.prod(prefix), len(prefix)
+        pad = -rows % rs.size
+
+        def to_rows(t, er):
+            ld = t.shape[: t.dim() - er]
+            t = t.reshape(*(1,) * (len(full) - len(ld)), *t.shape)
+            t = t.expand(*prefix, *t.shape[k:]).reshape(rows, *t.shape[k:])
+            if pad:
+                t = torch.cat([t, t.new_zeros((pad, *t.shape[1:]))], dim=0)
+            return t
+
+        memo: dict = {}
+
+        def flat(x):
+            if x is None or (isinstance(x, torch.Tensor) and x.dim() == 1):
+                return x  # absent, or one weight for every row
+            hit = memo.get(id(x))
+            if hit is None:
+                t = to_rows(x.data if isinstance(x, Rep) else x, ev_rank(x))
+                if isinstance(x, Rep):
+                    t = Rep(t, x.L, x.basis, x.form, x.sdtype)
+                hit = memo[id(x)] = (x, t)
+            return hit[1]
+
+        # a weight for every row stays whole on each rank: it is kept out of
+        # the args that `_sharded_rows` splits
+        ws_all = (*ws, w_out)
+        whole = [w if flat(w) is w else None for w in ws_all]
+
+        def run(a, b):
+            b = [bw if w is None else w for w, bw in zip(whole, b)]
+            return apply(list(a), b[:-1], b[-1], out_basis, gate_params)
+
+        out = _sharded_rows(run, rs, ([flat(x) for x in xs],
+                                      [None if w is not None else flat(x)
+                                       for w, x in zip(whole, ws_all)]))
+        data = out.data if isinstance(out, Rep) else out
+        data = data[:rows].reshape(*prefix, *data.shape[1:])
+        if isinstance(out, Rep):
+            return Rep(data, out.L, out.basis, out.form, out.sdtype)
+        return data
+
+    return apply_sharded
 
 
 def _warm_spectral_constants(conversion: str, Ls, Lf: int, Lout: int, cd) -> None:
@@ -1498,12 +1647,12 @@ class GauntEngine:
         row-parallel).  A bucket's ``batch_hint`` is the sum of its items'
         ``size`` hints.  Manybody items carry ``Ls`` and bucket by it.
         ``dtype='auto'`` resolves per bucket, as ``plan`` does.  ``donate``
-        is accepted and donates nothing (see `BatchedGauntPlan`);
-        ``shard_spec`` is not ported (ROADMAP Queue 1 item 10).
+        is accepted and donates nothing (see `BatchedGauntPlan`).
+        ``shard_spec`` (a `ShardSpec`) splits each bucket's rows over the
+        mesh's data-parallel ranks: the row granularity becomes
+        lcm(``pad_to``, rank count), so ragged row counts pad to equal
+        shards and slice back, and every rank gets every item's output.
         """
-        if shard_spec is not None:
-            raise NotImplementedError("sharded batched plans (shard_spec) are not "
-                                      "ported (ROADMAP Queue 1 item 10)")
         if kind not in KINDS:
             raise ValueError(f"unknown kind {kind!r} (expected one of {KINDS})")
         if kind == "channel_mix":
@@ -1528,8 +1677,12 @@ class GauntEngine:
             raise ValueError("plan_batch needs at least one item")
         dts = "auto" if (isinstance(dtype, str) and dtype == "auto") else _dtype_str(dtype)
         g = max(1, int(pad_to or 1))
+        mesh, dp, rs = self._resolve_shard(shard_spec)
+        if rs is not None:
+            g = math.lcm(g, rs.size)
         dev = resolve_device(device)
-        cache_key = (norm, kind, dts, backend, tune, requires_grad, donate, g, dev.type)
+        cache_key = (norm, kind, dts, backend, tune, requires_grad, donate, g, dev.type,
+                     mesh, dp)
         hit = self._batched.get(cache_key)
         if hit is not None:
             return hit
@@ -1547,8 +1700,21 @@ class GauntEngine:
             buckets.append(_Bucket(item_ids=tuple(idxs), plan=p))
         bp = self._batched[cache_key] = BatchedGauntPlan(
             kind=kind, dtype=dts, items=norm, buckets=tuple(buckets), granularity=g,
-            donate=donate)
+            donate=donate, shard=shard_spec, _rows=rs)
         return bp
+
+    @staticmethod
+    def _resolve_shard(shard_spec) -> tuple:
+        """A `ShardSpec` -> (mesh, dp axes, `RowShard`); (None, (), None)
+        when it is None or finds no mesh or no data-parallel axis."""
+        if shard_spec is None:
+            return None, (), None
+        mesh, dp = shard_spec.resolve()
+        if mesh is None or not dp:
+            return None, (), None
+        from ..distributed.sharding import row_shard
+
+        return mesh, dp, row_shard(mesh, dp)
 
     def calibrate_fused(self, L: int = 6, B: int = 64, dtype: str = "float32",
                         device=None) -> dict:
@@ -1705,8 +1871,11 @@ class GauntEngine:
         or 'fft' by `spectral_default` for dense grids); ``tree=False`` folds
         the grids left to right instead of the divide-and-conquer tree.
         ``donate=True`` is accepted and donates nothing (the chain never
-        writes its operands); ``shard_spec`` is not ported (ROADMAP Queue 1
-        item 10).  None of these options enters
+        writes its operands).  ``shard_spec`` (a `ShardSpec`) splits the
+        chain's rows over the mesh's data-parallel ranks (`_shard_chain`);
+        an unpinned sharded chain is 'tree' and never consults the measured
+        cache, as in the reference, and a pinned backend ('fused_hopper':
+        the chain kernel) runs on each rank's rows.  None of these options enters
         the measured key (`chain_measure_key`).  The hints
         make the measurement look like the real call: ``share_hint`` gives
         per-operand duplicate-group indices (a shared operand is timed as
@@ -1725,9 +1894,7 @@ class GauntEngine:
         Lout = sum(Ls) if Lout is None else int(Lout)
         if Lout > sum(Ls):
             raise ValueError("Lout cannot exceed the total degree (Gaunt selection rule)")
-        if shard_spec is not None:
-            raise NotImplementedError("sharded chains (shard_spec) are not ported "
-                                      "(ROADMAP Queue 1 item 10)")
+        mesh, dp, rs = self._resolve_shard(shard_spec)
         pinned_spectral = conversion is not None or conv is not None
         if conversion is None:
             conversion = "half"
@@ -1762,13 +1929,16 @@ class GauntEngine:
                                  f"got {share_hint!r}")
         hints = (batch_hint, share_hint, entry_hint, out_hint)
         if isinstance(dtype, str) and dtype == "auto":
-            dts = self._select_chain_dtype(Ls, Lout, hints, gate, tune, device)
+            # a sharded chain measures nothing: 'auto' is float32 there
+            dts = ("float32" if rs is not None else
+                   self._select_chain_dtype(Ls, Lout, hints, gate, tune, device))
         else:
             dts = _dtype_str(dtype)
         if backend is None:
             backend = (self._select_chain(Ls, Lout, dts, hints, gate, resolve_device(device))
-                       if tune == "measure" and not pinned_spectral else "tree")
-        key = (Ls, Lout, conversion, conv, dts, tree, backend, gate)
+                       if tune == "measure" and not pinned_spectral and rs is None
+                       else "tree")
+        key = (Ls, Lout, conversion, conv, dts, tree, backend, gate, mesh, dp)
         hit = self._chains.get(key)
         if hit is not None:
             return hit
@@ -1780,8 +1950,10 @@ class GauntEngine:
         else:
             apply = _build_chain_fused(Ls, Lout, dts, kernel=backend == "fused_hopper",
                                        gate=gate)
+        if rs is not None:
+            apply = _shard_chain(apply, rs)
         cp = self._chains[key] = ChainPlan(Ls, Lout, dts, backend, gate, apply,
-                                           conversion, conv, tree)
+                                           conversion, conv, tree, (mesh, dp))
         return cp
 
     @staticmethod

@@ -80,17 +80,15 @@ def manybody_gaunt_product(xs, Ls, Lout: int | None = None, weights=None,
 
     ``backend`` (a registered name, or 'auto' for the engine's pick) or
     ``conversion='packed'`` takes the batched kind='manybody' route.
-    ``donate`` is accepted and donates nothing; ``shard_spec`` is not
-    ported (ROADMAP Queue 1 item 10).  The operands' device is the plans'
-    device.
+    ``donate`` is accepted and donates nothing.  ``shard_spec``
+    (`engine.ShardSpec`) stays on either route: the chain, or the batched
+    bucket, splits its rows over the mesh's data-parallel ranks.  The
+    operands' device is the plans' device.
     """
     from . import engine as _engine
 
     if len(xs) != len(Ls) or len(xs) < 2:
         raise ValueError(f"chain needs >= 2 operands matching Ls, got {len(xs)} / {Ls}")
-    if shard_spec is not None:
-        raise NotImplementedError("sharded many-body products (shard_spec) are not "
-                                  "ported (ROADMAP Queue 1 item 10)")
     if dtype is None:
         dts = _engine._dtype_str(cdtype)
     else:
@@ -113,7 +111,8 @@ def manybody_gaunt_product(xs, Ls, Lout: int | None = None, weights=None,
             seen: dict = {}
             share = tuple(seen.setdefault(id(_data(x)), len(seen)) for x in xs)
         cp = _engine.plan_chain(Ls, Lout, conversion=conversion, conv=conv, dtype=dts,
-                                donate=donate, tune=tune, batch_hint=hint, entry_hint=entry,
+                                donate=donate, shard_spec=shard_spec, tune=tune,
+                                batch_hint=hint, entry_hint=entry,
                                 out_hint=out_basis, share_hint=share,
                                 gate=gate_params is not None, device=device)
         out = cp.apply(list(xs), weights=weights, out_basis=out_basis,
@@ -138,7 +137,7 @@ def manybody_gaunt_product(xs, Ls, Lout: int | None = None, weights=None,
     item = _engine.BatchItem(Ls=tuple(int(L) for L in Ls), Lout=Lout,
                              options=tuple(sorted((options or {}).items())))
     bp = _engine.plan_batch([item], kind="manybody", dtype=dts, backend=backend,
-                            tune=tune, donate=donate, device=device)
+                            tune=tune, donate=donate, shard_spec=shard_spec, device=device)
     out = bp.apply([list(xs)], weights=[weights])[0]
     return out if rdtype is None else out.to(rdtype)
 

@@ -1,4 +1,4 @@
 """Launchers.  `serve` runs batched LM decoding through the continuous-batching
-engine; `train` trains a language model on one device.  The reference's
-dry-run and mesh launchers, and its sharded training, come with
-distribution (ROADMAP Queue 1 item 10)."""
+engine; `train` trains a language model, on one device or sharded over a
+mesh under ``torchrun``; `mesh` builds the device meshes; `dryrun` lays out
+and traces a production-size cell on a fake process group."""

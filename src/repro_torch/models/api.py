@@ -23,6 +23,7 @@ from torch import nn
 
 from ..config import ModelConfig, ShapeConfig
 from ..device import resolve_device
+from ..distributed.sharding import gather_blocks
 from . import transformer as T
 
 __all__ = ["Model", "LMModule", "build_model", "input_specs", "count_params",
@@ -182,11 +183,15 @@ class LMModule(_Node):
     ("layers.0.attn.wq.w"), each per-layer list a ``ModuleList``.
     ``tree()`` gives back the nested dicts and lists of those very
     parameters, the tree `Model` takes; ``loss(batch)`` is `Model.loss` on
-    it."""
+    it.  The sharded train loop turns the parameters into `DTensor`s; the
+    loss then reads each layer's weights gathered whole as that layer
+    computes (`distributed.sharding.gather_blocks`)."""
+
+    gathers_blocks = True  # the sharded step leaves the gathering to `loss`
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__(params)
         self.model = Model(cfg, next(_leaves(params)).device)
 
     def loss(self, batch):
-        return self.model.loss(self.tree(), batch)
+        return self.model.loss(gather_blocks(self.tree()), batch)

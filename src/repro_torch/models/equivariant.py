@@ -58,6 +58,7 @@ from ..core.manybody import manybody_selfmix
 from ..core.rep import Rep
 from ..core.so3 import real_sph_harm_torch
 from ..device import resolve_device
+from ..distributed.sharding import get_activation_mesh
 
 __all__ = ["MaceGaunt", "SegnnNBody", "SelfmixLayer", "equi_linear", "radial_basis"]
 
@@ -204,14 +205,21 @@ def _cast_sd(x: torch.Tensor, dts: str) -> torch.Tensor:
     return x if x.dtype == dt else x.to(dt)
 
 
+def _shard(cfg: EquivariantConfig):
+    """The row layout of a ``shard_data`` config: the activation mesh's
+    data-parallel axes (None: unsharded)."""
+    return _engine.ShardSpec() if cfg.shard_data else None
+
+
 def _tp(cfg: EquivariantConfig, L1: int, L2: int, Lout: int, device, dts: str):
     """The configured tensor product at storage ``dts`` as a batched engine
-    plan (one bucket: the edge x channel leading dims run as one call), or
-    the CG baseline."""
+    plan (one bucket: the edge x channel leading dims run as one call; its
+    rows split over the data-parallel ranks with ``shard_data``), or the CG
+    baseline."""
     if cfg.tp_impl in _TP_BACKEND:
         bp = _engine.plan_batch([(L1, L2, Lout)], kind="pairwise",
                                 backend=_resolve_tp_backend(cfg.tp_impl, L1, L2),
-                                dtype=dts, device=device)
+                                dtype=dts, shard_spec=_shard(cfg), device=device)
         return lambda a, b: bp.apply([(_cast_sd(a, dts), _cast_sd(b, dts))])[0]
     return lambda a, b: cg_full_tensor_product(a, b, L1, L2, Lout)
 
@@ -225,13 +233,23 @@ def _tp_resident(cfg: EquivariantConfig, L1: int, L2: int, Lout: int, device, dt
     conversion elided, so a stack of n layers pays 1 filter conversion
     instead of n.  The product is a 2-operand chain plan with a Fourier
     entry, so ``chain_tune='measure'`` may run it on the collocation kernel
-    (the resident filter then enters as a grid)."""
+    (the resident filter then enters as a grid).  With ``shard_data`` the
+    same boundary contract runs as a row-sharded Fourier-boundary pairwise
+    bucket (resident grids split like SH rows), as in the reference."""
     if cfg.tp_impl not in ("gaunt", "gaunt_auto") or not getattr(cfg, "fourier_resident", True):
         return None
     tune = getattr(cfg, "chain_tune", "heuristic")
 
     def to_rep(filt):
         return Rep.from_sh(filt, L2).to_fourier("dense")
+
+    if cfg.shard_data:
+        bp = _engine.plan_batch(
+            [_engine.BatchItem(L1=L1, L2=L2, Lout=Lout,
+                               options=(("boundary", ("sh", "fourier", "sh")),))],
+            kind="pairwise", backend=_resolve_tp_backend("gaunt", L1, L2), dtype=dts,
+            shard_spec=_shard(cfg), device=device)
+        return to_rep, (lambda a, rep: bp.apply([(_cast_sd(a, dts), rep)])[0])
 
     def tp(a, rep):
         # planned per call so 'measure' keys on the real row count (a
@@ -286,8 +304,24 @@ class MaceGaunt(_Picks):
         self.readout_w2 = nn.Parameter(torch.empty(c.hidden, 1, device=dev))
         self.layers = nn.ModuleList(MaceLayer(c, dev) for _ in range(c.n_layers))
         self.conv = EquivariantConv(c.L, c.L_edge, c.L, method=c.conv_impl, device=dev)
+        self._sharded_conv = (None, None)  # (activation mesh, its conv) of shard_data
         self._init_picks(dev)
         self.init(generator if generator is not None else torch.Generator().manual_seed(0))
+
+    def conv_for(self, device) -> EquivariantConv:
+        """The conv of a call: with ``shard_data``, one whose rows split over
+        the activation mesh registered now, built once per mesh (its plans
+        and buckets are its own, so a conv built per call would plan anew
+        every call)."""
+        if not self.cfg.shard_data:
+            return self.conv
+        mesh = get_activation_mesh()
+        if self._sharded_conv[0] is not mesh or self._sharded_conv[1] is None:
+            c = self.cfg
+            self._sharded_conv = (mesh, EquivariantConv(
+                c.L, c.L_edge, c.L, method=c.conv_impl,
+                shard_spec=_engine.ShardSpec(mesh), device=device))
+        return self._sharded_conv[1]
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
@@ -345,13 +379,17 @@ class MaceGaunt(_Picks):
         S, n = pos.shape[:2]
         C, dim = c.channels, num_coeffs(c.L)
         rhat, dist, mask = _pair_geometry(pos, c.cutoff)
+        shard = _shard(c)
+        # with shard_data the conv's rows split over the activation mesh's
+        # data-parallel ranks
+        conv = self.conv_for(pos.device)
         # the edge geometry is layer-constant: build what the conv needs of
         # it once for the whole stack — the filter's Fourier grid (general)
         # or the alignment rotation and Wigner blocks (eSCN)
         geom = rhat[..., None, :]
         if c.fourier_resident:
-            geom = (self.conv.filter_rep(geom) if c.conv_impl == "general"
-                    else self.conv.geometry_rep(geom))
+            geom = (conv.filter_rep(geom) if c.conv_impl == "general"
+                    else conv.geometry_rep(geom))
         x = torch.cat([self.species[species.long()][..., None],
                        pos.new_zeros(S, n, C, dim - 1)], dim=-1)
         grid_gate = self.grid_gate_on(S * n * C, pos.device)
@@ -361,11 +399,11 @@ class MaceGaunt(_Picks):
             h = F.silu(rb @ lp.radial_w1) @ lp.radial_w2
             h = h.reshape(S, n, n, C, c.L + 1)  # per-edge per-degree weights
             xj = x[:, None].expand(S, n, n, C, dim)
-            m = self.conv(xj, geom, w1=h)
+            m = conv(xj, geom, w1=h)
             m = (m * mask[..., None, None]).sum(dim=2)
             A = equi_linear(lp.mix, m, c.L) + x
             mb_kw = dict(weights=[w.expand(S, n, C, c.L + 1) for w in lp.mb_w],
-                         tune=c.chain_tune, dtype=dts)
+                         tune=c.chain_tune, dtype=dts, shard_spec=shard)
             if grid_gate:
                 # the gate fuses into the many-body chain (gate before mb_mix)
                 B = manybody_selfmix(A, c.L, c.nu, Lout=c.L, gate_params=lp.gate(), **mb_kw)
@@ -582,7 +620,8 @@ class SelfmixLayer(_Picks):
     (a different parameterization: its weights are per path).
     ``compute_dtype`` is the product's storage dtype ('float32' |
     'bfloat16' | 'auto'; 'auto' is resolved once and kept in the state,
-    `_Picks`).  ``shard_spec`` is not ported (ROADMAP Queue 1 item 10)."""
+    `_Picks`).  ``shard_spec`` (`engine.ShardSpec`) splits the product's
+    rows over the mesh's data-parallel ranks on every route but 'cg'."""
 
     _PICKS = {"dtype_pick": ("float32", "bfloat16")}
 
@@ -591,9 +630,7 @@ class SelfmixLayer(_Picks):
                  compute_dtype: str = "float32", shard_spec=None, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if shard_spec is not None:
-            raise NotImplementedError("a sharded SelfmixLayer (shard_spec) is not "
-                                      "ported (ROADMAP Queue 1 item 10)")
+        self.shard_spec = shard_spec
         self.L, self.channels = L, channels
         self.tp_impl, self.resident, self.tune = tp_impl, resident, tune
         self.compute_dtype = compute_dtype
@@ -621,13 +658,14 @@ class SelfmixLayer(_Picks):
         hint = int(np.prod(x.shape[:-1])) if self.tune == "measure" else None
         return _engine.plan_chain((self.L, self.L), Lout=self.L, tune=self.tune,
                                   batch_hint=hint, share_hint=(0, 0) if hint else None,
-                                  dtype=dtype or self.storage_dtype(x), device=x.device)
+                                  dtype=dtype or self.storage_dtype(x),
+                                  shard_spec=self.shard_spec, device=x.device)
 
     def _pair_plan(self, x: torch.Tensor, dtype: str):
         L = self.L
         return _engine.plan_batch([(L, L, L)], kind="pairwise",
                                   backend=_resolve_tp_backend(self.tp_impl, L, L),
-                                  dtype=dtype, device=x.device)
+                                  dtype=dtype, shard_spec=self.shard_spec, device=x.device)
 
     def storage_dtype(self, x: torch.Tensor) -> str:
         """The product's storage dtype: ``compute_dtype``, where 'auto' is

@@ -13,9 +13,11 @@ dense branch.
 
 Every shape is static and nothing is read back to the host (no boolean
 index, ``nonzero`` or ``item``), so the decode step that runs this can be
-captured as a CUDA graph.  The reference's ``constrain_batch`` and
-``constrain_ep_weights`` are layout hints on a device mesh and change no
-number on one card; they come with sharding (ROADMAP Queue 1 item 10).
+captured as a CUDA graph.  The reference's layout hints
+(``constrain_batch`` on the dispatch activations, ``constrain_ep_weights``
+on the expert weights) sit where it puts them; in the port they change no
+layout and no number (`distributed.sharding`: a rank already holds its own
+batch rows, and its step gathers whole weights before computing).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import constrain_batch, constrain_ep_weights
 from .layers import dense, dense_init, normal
 
 __all__ = ["moe_capacity", "moe_init", "moe_apply", "moe_dense_reference"]
@@ -106,20 +109,23 @@ def moe_apply(p, x, E: int, k: int, cf: float, act: str = "swiglu", dtype=None):
     # into the drop bin, and N points at the zero row appended below
     entry_of_slot = torch.full((B, E * C + 1), N, dtype=torch.long, device=dev).scatter_(
         1, slot, torch.where(keep, entries, N))
-    xg = _rows(x, stok)  # [B,N,d] in sorted order
+    xg = constrain_batch(_rows(x, stok))  # [B,N,d] in sorted order
     xg_pad = torch.cat([xg, x.new_zeros(B, 1, d)], dim=1)
-    xe = _rows(xg_pad, entry_of_slot[:, : E * C]).reshape(B, E, C, d)
-    wg, wu, wd = (p[n] if dtype is None else p[n].to(dtype)
+    xe = constrain_batch(_rows(xg_pad, entry_of_slot[:, : E * C]).reshape(B, E, C, d),
+                         "model")
+    wg, wu, wd = (constrain_ep_weights(p[n] if dtype is None else p[n].to(dtype))
                   for n in ("we_gate", "we_up", "we_down"))
-    g = torch.einsum("becd,edf->becf", xe, wg)
-    u = torch.einsum("becd,edf->becf", xe, wu)
-    out = torch.einsum("becf,efd->becd", _act(g, act) * u, wd).reshape(B, E * C, d)
+    g = constrain_batch(torch.einsum("becd,edf->becf", xe, wg), "model")
+    u = constrain_batch(torch.einsum("becd,edf->becf", xe, wu), "model")
+    out = constrain_batch(torch.einsum("becf,efd->becd", _act(g, act) * u, wd),
+                          "model").reshape(B, E * C, d)
     out = torch.cat([out, out.new_zeros(B, 1, d)], dim=1)
 
     out_ent = _rows(out, slot)  # [B,N,d] sorted
     contrib = out_ent * torch.where(keep, sg, 0.0)[..., None].to(out.dtype)
     # back to (token, choice) order, then the sum over choices
-    y = _rows(contrib, inv_order).reshape(B, T, k, d).sum(dim=2)
+    contrib = constrain_batch(_rows(contrib, inv_order))
+    y = constrain_batch(contrib.reshape(B, T, k, d).sum(dim=2))
     if "shared" in p:
         y = y + _shared(p, x, dtype)
     return y.to(x.dtype), aux

@@ -56,6 +56,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.sharding import GatheredBlock, constrain_batch
 from . import ssm as ssm_mod
 from .attention import (attn_init, attn_out, attn_project_qkv, blockwise_attention,
                         decode_attention, full_attention)
@@ -304,8 +305,11 @@ def _encode(p, cfg, source_embeds):
 def _remat(cfg, fn, *args):
     """fn(*args), under activation checkpointing when ``cfg.remat`` and
     grad mode is on (the reference's ``jax.checkpoint`` of a scan body).
-    The blocks draw no random numbers, so no RNG state is kept."""
-    if cfg.remat and torch.is_grad_enabled():
+    The blocks draw no random numbers, so no RNG state is kept.  A block
+    whose weights are gathered when read (``args[0]`` a `GatheredBlock`:
+    the sharded train step) is always checkpointed, so its whole weights
+    live only while it computes, in the forward and again in the backward."""
+    if (cfg.remat or isinstance(args[0], GatheredBlock)) and torch.is_grad_enabled():
         return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
     return fn(*args)
 
@@ -333,6 +337,9 @@ def forward(p, cfg, batch, return_hidden: bool = False):
     if fam in ("dense", "moe", "vlm"):
         for lp in p["layers"]:
             h, a = _remat(cfg, _block_apply, lp, h, positions, cfg)
+            # the reference's pin of the carried state to the batch axes at
+            # the block boundary (a no-op here, `distributed.sharding`)
+            h = constrain_batch(h)
             aux = aux + a
     elif fam == "ssm":
         for lp in p["layers"]:

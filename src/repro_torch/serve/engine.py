@@ -430,7 +430,10 @@ class EquivariantServeEngine:
         model loaded from a state that holds them is not timed.  Then each
         bucket's step is built — on CUDA its graph is captured — with up to
         three attempts, so a transient failure (injected ``compile_fail`` or
-        real) does not keep a host down."""
+        real) does not keep a host down.
+
+        A ``shard_data`` config measures no chain: its sharded chains are
+        'tree' and never consult the measured cache, as in the reference."""
         cfg = self.model.cfg
         eng = _engine.get_engine()
         if cfg.autotune_cache is not None:
@@ -447,7 +450,7 @@ class EquivariantServeEngine:
         big = max(p.spec.n_slots * p.spec.max_atoms for p in self.pools) * cfg.channels
         dts = self.model.storage_dtype(big, self.model.device)
         gate_opts = (False, True) if self.model.grid_gate_on(big, self.model.device) else (False,)
-        if cfg.chain_tune == "measure":
+        if cfg.chain_tune == "measure" and not cfg.shard_data:
             for pool in self.pools:
                 rows = pool.spec.n_slots * pool.spec.max_atoms * cfg.channels
                 for d in dict.fromkeys(["float32", dts]):

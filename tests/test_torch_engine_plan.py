@@ -24,13 +24,14 @@ PORTED_KINDS = ("pairwise", "conv_filter", "channel_mix")
 
 @pytest.fixture(autouse=True)
 def default_calibration():
-    """Both cost models at their default calibration (another test of the
-    process may have calibrated the reference's)."""
-    ref_engine.reset_calibration()
-    port_engine.reset_calibration()
+    """Both cost models at their default calibration and both engines with
+    no cached plan (another test of the process may have calibrated the
+    reference's, and its plan cache keeps a pick made under that factor)."""
+    ref_engine.get_engine().clear()
+    port_engine.get_engine().clear()
     yield
-    ref_engine.reset_calibration()
-    port_engine.reset_calibration()
+    ref_engine.get_engine().clear()
+    port_engine.get_engine().clear()
 
 
 def _rand(shape, seed):

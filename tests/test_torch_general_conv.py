@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro.configs.gaunt_ff import gaunt_mace_ff as ref_cfg
+from repro.core import engine as ref_engine
 from repro.core.conv import EquivariantConv as RefConv
 from repro.models.equivariant import MaceGaunt as RefMace
 from repro_torch.configs.gaunt_ff import gaunt_mace_ff
@@ -36,6 +37,23 @@ from repro_torch.testing import (assert_close, random_angles, random_array, rand
 
 CPU = "cpu"
 TO_REF = {"fused_torch": "fused_xla", "fused_hopper": "fused_pallas"}
+
+
+@pytest.fixture(autouse=True)
+def isolated_engines():
+    """Each test starts from both engines as fresh: default calibration and
+    no cached plan.  Another test of the process may have calibrated the
+    reference (its measured factor can reach the 0.25 floor), and the
+    reference's plan cache keeps a pick made under that factor even after
+    ``reset_calibration()``; ``clear()`` drops both."""
+    _fresh_engines()
+    yield
+    _fresh_engines()
+
+
+def _fresh_engines():
+    ref_engine.get_engine().clear()
+    engine.get_engine().clear()
 
 
 def _t(a):
@@ -118,6 +136,16 @@ def test_auto_conv_selects_and_computes_as_the_reference():
         assert_close(conv(_t(x), _t(r)), np.asarray(ref(_j(x), _j(r))), dtype="float32")
 
 
+def test_auto_conv_after_a_reference_calibration_at_its_floor():
+    """A reference calibration at the 0.25 floor moves its auto pick, and
+    its plan cache keeps that pick; the isolation between tests restores
+    the pick the port is compared with."""
+    ref_engine.set_calibration(fused_skinny=0.25, fused_skinny_measured=True)
+    assert RefConv(3, 3, 3, method="auto", batch_hint=4096).backend == "fused_xla"
+    _fresh_engines()
+    test_auto_conv_selects_and_computes_as_the_reference()
+
+
 @pytest.mark.parametrize("backend", [None, "fft", "rfft"])
 def test_filter_rep_matches_reference(backend):
     """filter_rep: Y(r) (times w2) on a dense grid, or a half grid when the
@@ -147,8 +175,13 @@ def test_resident_filter_rejects_w2_and_geometry_rep_needs_escn():
     with pytest.raises(ValueError, match="geometry_rep"):
         conv.geometry_rep(r)
     assert isinstance(EquivariantConv(2, 2, 2).geometry_rep(r), WignerBlocks)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        EquivariantConv(2, 2, 2, method="general", shard_spec=object(), device=CPU)
+    with pytest.raises(ValueError, match="shard mode"):
+        EquivariantConv(2, 2, 2, method="general", shard_spec=engine.ShardSpec(mode="nope"),
+                        device=CPU)
+    # a spec with no mesh (none given, none registered) runs unsharded
+    inert = EquivariantConv(2, 2, 2, method="general", shard_spec=engine.ShardSpec(),
+                            device=CPU)
+    assert_close(inert(x, r), conv(x, r), dtype="float32")
     with pytest.raises(ValueError, match="unknown method"):
         EquivariantConv(2, 2, 2, method="nope", device=CPU)
 

@@ -230,7 +230,10 @@ def test_launcher_runs_on_cpu_and_resumes(tmp_path, capsys):
 
 
 def test_launcher_mesh_raises_item_10():
+    """A mesh of two devices runs under torchrun with two processes; in a
+    plain process (WORLD_SIZE unset) the launcher says so, before it joins
+    any process group."""
     args = launch_train.parser().parse_args(["--arch", "qwen2-0.5b", "--reduced", "--device",
                                              "cpu", "--mesh-data", "2"])
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         launch_train.run_once(args)

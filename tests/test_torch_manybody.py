@@ -35,12 +35,16 @@ MANYBODY = ["dense_einsum", "fft", "direct", "packed", "rfft"]
 
 @pytest.fixture(autouse=True)
 def fresh_calibration(monkeypatch):
-    """Each test sees both cost models at their defaults, and a calibration
-    made here does not outlive the test."""
+    """Each test sees both cost models at their defaults and both engines
+    with no cached plan (the reference's plan cache keeps a pick made under
+    another test's calibration), and a calibration made here does not
+    outlive the test."""
     monkeypatch.setattr(engine, "_CALIB", dict(engine._CALIB_DEFAULTS))
-    ref_engine.reset_calibration()
+    ref_engine.get_engine().clear()
+    engine.get_engine().clear()
     yield
-    ref_engine.reset_calibration()
+    ref_engine.get_engine().clear()
+    engine.get_engine().clear()
 
 
 def _t(a):
@@ -250,8 +254,12 @@ def test_manybody_gaunt_product_float64_from_cdtype():
 
 def test_manybody_gaunt_product_rejects_what_its_route_cannot_do():
     x = _t(random_irreps(1, (3,), 1))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        manybody_gaunt_product([x, x], [1, 1], shard_spec=object())
+    with pytest.raises(ValueError, match="shard mode"):
+        manybody_gaunt_product([x, x], [1, 1], shard_spec=engine.ShardSpec(mode="nope"))
+    # a spec with no mesh runs unsharded, on either route
+    for kw in ({}, {"conversion": "packed"}):
+        assert_close(manybody_gaunt_product([x, x], [1, 1], shard_spec=engine.ShardSpec(), **kw),
+                     manybody_gaunt_product([x, x], [1, 1], **kw), dtype="float32")
     gp = {"w1": torch.ones(1, 2), "w2": torch.ones(2, 1)}
     with pytest.raises(ValueError, match="chain route"):
         manybody_gaunt_product([x, x], [1, 1], backend="fft", gate_params=gp)
@@ -333,8 +341,11 @@ def test_chain_default_conv_follows_the_reference_rule():
         engine.plan_chain((2, 2), conversion="dense", conv="rfft", device=CPU)
     with pytest.raises(ValueError, match="conversion"):
         engine.plan_chain((2, 2), conversion="packed", device=CPU)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        engine.plan_chain((2, 2), shard_spec=object(), device=CPU)
+    with pytest.raises(ValueError, match="shard mode"):
+        engine.plan_chain((2, 2), shard_spec=engine.ShardSpec(mode="nope"), device=CPU)
+    # with no mesh the spec is inert: the unsharded plan itself
+    assert engine.plan_chain((2, 2), shard_spec=engine.ShardSpec(), device=CPU) \
+        is engine.plan_chain((2, 2), device=CPU)
 
 
 def test_chain_options_pin_tree_and_key_the_plan_cache_only():

@@ -31,6 +31,18 @@ PAIR_BACKENDS = ["dense_einsum", "fft", "direct", "packed", "rfft",
 CASES = [(1, 1, 2), (2, 2, 4), (3, 2, 3), (4, 4, 8)]
 
 
+
+@pytest.fixture(autouse=True)
+def isolated_engines():
+    """Both engines as fresh for each test: default calibration and no
+    cached plan, so a pick compared with the reference's is not one made
+    under another test's calibration."""
+    ref_engine.get_engine().clear()
+    port_engine.get_engine().clear()
+    yield
+    ref_engine.get_engine().clear()
+    port_engine.get_engine().clear()
+
 def _rand(shape, seed):
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
 

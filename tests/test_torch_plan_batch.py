@@ -155,8 +155,14 @@ def test_plan_batch_rejects_channel_mix_and_bad_items():
                                  backend="direct").apply([[jnp.asarray(x) for x in xs]])[0]
     assert_close(bp.apply([[_t(x) for x in xs]])[0].numpy(), np.asarray(want),
                  dtype="float32")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        engine.plan_batch([(1, 1, 2)], shard_spec=object(), device="cpu")
+    with pytest.raises(ValueError, match="shard mode"):
+        engine.plan_batch([(1, 1, 2)], shard_spec=engine.ShardSpec(mode="nope"), device="cpu")
+    # with no mesh the spec is inert: one rank, the rows' own granularity
+    inert = engine.plan_batch([engine.BatchItem(Ls=(2, 2))], kind="manybody",
+                              backend="direct", shard_spec=engine.ShardSpec(), device="cpu")
+    assert inert.granularity == 1
+    assert_close(inert.apply([[_t(x) for x in xs]])[0].numpy(), np.asarray(want),
+                 dtype="float32")
 
 
 @pytest.mark.parametrize("backend", ["direct", "rfft", "fused_torch"])

@@ -181,26 +181,33 @@ def test_mamba2_wrapper_runs_plain_version_only_for_cpu_tensors():
 def test_no_raise_names_the_ported_engine_items():
     """The general conv, the manybody plan kind and calibrate_fused are
     ported (ROADMAP Queue 1 items 4a-4c), and so are the attention
-    families: no source of the port names those items any more, and each
-    NotImplementedError that is left names the work that brings it,
-    sharding (item 10): the five `shard_spec` raises and the training
-    launcher's mesh."""
+    families and distribution (item 10): no source of the port names those
+    items any more, and the distribution modules and the dry run import no
+    jax and no module of the reference."""
     import re
 
     root = os.path.join(SRC, "repro_torch")
-    raises = []
     for dirpath, _, files in os.walk(root):
         for fn in files:
             if not fn.endswith(".py"):
                 continue
             text = open(os.path.join(dirpath, fn)).read()
             assert not re.search(r"item 4[abc]\b", text), fn
-            raises += [(fn, m.group(0)) for m in re.finditer(
-                r"raise NotImplementedError\((?:[^()]|\([^()]*\))*\)", text, re.S)]
-    assert len(raises) >= 5
-    for fn, r in raises:
-        assert "item 10" in r, (fn, r)
-    assert sum("item 10" in r for _, r in raises) == 6
+            assert not re.search(r"item 10\b", text), fn
+    mods = ["repro_torch.distributed.sharding", "repro_torch.distributed.collectives",
+            "repro_torch.distributed.elastic", "repro_torch.distributed",
+            "repro_torch.launch.mesh", "repro_torch.launch.dryrun"]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
+        " or m == 'repro' or m.startswith('repro.'))\n"
+        "print('BAD', bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=SRC), timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "BAD []" in out.stdout, out.stdout
 
 
 def test_no_raise_names_the_attention_families_item():

@@ -245,8 +245,19 @@ def test_selfmix_gaunt_equals_fused():
 
 
 def test_selfmix_rejects_shard_spec():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        SelfmixLayer(2, 4, shard_spec=object(), device="cpu")
+    """A shard spec of an unknown mode is rejected; one with no mesh (none
+    given, none registered) runs unsharded."""
+    from repro_torch.core.engine import ShardSpec
+
+    x = torch.as_tensor(np.random.default_rng(7).normal(size=(3, 4, num_coeffs(2)))
+                        .astype(np.float32))
+    with pytest.raises(ValueError, match="shard mode"):
+        SelfmixLayer(2, 4, shard_spec=ShardSpec(mode="nope"), device="cpu")(x)
+    for impl in ("gaunt", "gaunt_fused"):
+        a = SelfmixLayer(2, 4, tp_impl=impl, device="cpu")
+        b = SelfmixLayer(2, 4, tp_impl=impl, shard_spec=ShardSpec(), device="cpu")
+        b.load_state_dict(a.state_dict())
+        assert_close(b(x).detach().numpy(), a(x).detach().numpy(), dtype="float32")
 
 
 def test_configs_and_no_duplicate_random_init_leaves():
