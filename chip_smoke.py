@@ -163,7 +163,12 @@ result line):
      only where 80 GB forces one: gemma-2b, stablelm-3b, whisper-base (1,500
      source frames), qwen1.5-32b (8 of 64 layers), qwen2-vl-72b (4 of 80,
      3-axis positions3), dbrx-132b (2 of 40): a 2 x 256 prefill and 4
-     decode steps, each against `forward` at f32; gemma-2b's int8 KV cache
+     decode steps, each against `forward` at f32; the same at bf16 compute,
+     the served dtype, over the same weights (bf16 tier), and the bf16
+     forward against the f32 forward per token (bf16 loose tier): gemma-2b
+     held on its first 6 layers (its full depth printed), dbrx-132b's
+     parted tokens each after a near tie of its router (the rule of
+     tests/test_torch_lm_bf16.py) and at most 4 in 64; gemma-2b's int8 KV cache
      against its f32 cache over 16 greedy tokens (the quantizer's bound on
      the prefilled rows, any parting of the streams a near tie);
   16. LM training (`[lmtrain]`) — RWKV6-3B after its serving phase and
@@ -3165,15 +3170,36 @@ def phase_mamba2_times(device, x, dt, A, B, C, D, launches: int):
 LM_SLOTS, LM_MAX_LEN = 4, 512        # the engine of the served LM phases
 LM_TIMING_REPS = 21                  # engine steps timed, graph and eager in turns
 LM_FAMILY_BATCH, LM_FAMILY_SEQ, LM_FAMILY_STEPS = 2, 256, 4
-# (arch, layers kept, why): full width everywhere; depth cut only where the
-# f32 parameters would not fit in 80 GB
-LM_FAMILIES = [("gemma-2b", None, ""), ("stablelm-3b", None, ""), ("whisper-base", None, ""),
-               ("qwen1.5-32b", 8, "all 64 layers would be ~140 GB at f32"),
-               ("qwen2-vl-72b", 4, "all 80 layers would be ~290 GB at f32"),
-               ("dbrx-132b", 2, "all 40 layers would be ~530 GB at f32")]
+# (arch, layers kept, why, bf16 layers held): full width everywhere; depth
+# cut only where the f32 parameters would not fit in 80 GB.  bf16 compute,
+# the families' served dtype, runs over the same f32 weights at the depth
+# kept and is held there, except gemma-2b's: it normalises by (1 + scale)
+# and the reference's init sets each scale to 1, a gain of 2 in every norm,
+# under which bf16 rounding noise grows layer by layer past the bf16 tiers
+# (the reference's own bf16 forward too: tests/test_torch_lm_bf16.py at 18
+# layers).  Its bf16 figures are printed at every depth and held on the
+# first 6 layers.
+LM_FAMILIES = [("gemma-2b", None, "", 6), ("stablelm-3b", None, "", None),
+               ("whisper-base", None, "", None),
+               ("qwen1.5-32b", 8, "all 64 layers would be ~140 GB at f32", None),
+               ("qwen2-vl-72b", 4, "all 80 layers would be ~290 GB at f32", None),
+               ("dbrx-132b", 2, "all 40 layers would be ~530 GB at f32", None)]
+LM_BF16_SWEEP = (1, 2, 3, 4, 5, 6, 8, 10, 12, 14, 16)  # depths printed below a cut
+# a MoE's bf16 tokens that may part beyond their tier, each after a router
+# pick flip (`repro_torch.testing.pick_flips`): twice the 11 of dbrx-132b's
+# 530 that parted on an H100 (seed 3)
+LM_BF16_MAX_PARTED = 22
 # the int8 KV cache's greedy check at full width: the prompt of
 # tests/test_kv_int8.py (2 x 24 tokens), 16 greedy tokens
 INT8_PROMPT, INT8_GREEDY_TOKENS = 24, 16
+
+
+def _kernel_module(name: str):
+    """The module ``repro_torch.kernels.<name>``: the package's own name
+    ``wkv6`` is the wrapper function, as in the reference."""
+    import importlib
+
+    return importlib.import_module(f"repro_torch.kernels.{name}")
 
 
 def _free_device() -> None:
@@ -3330,14 +3356,19 @@ def phase_lm_engine(device, tag: str, model, params, n_requests: int = 8,
     return out
 
 
-def lm_consistency(cfg, params, device, tag: str, B: int = LM_FAMILY_BATCH,
-                   S: int = LM_FAMILY_SEQ, n_steps: int = LM_FAMILY_STEPS):
+def lm_run(cfg, params, device, tag: str, B: int = LM_FAMILY_BATCH,
+           S: int = LM_FAMILY_SEQ, n_steps: int = LM_FAMILY_STEPS, record: bool = False):
     """At ``cfg``'s compute dtype: forward over S + n_steps seeded tokens
     (vlm: with 3-axis positions3, text-like; encdec: seeded source frames);
-    prefill of the first S; then ``n_steps`` decode steps, each held against
-    forward at its position.  -> (prefill rel, worst decode rel), scale-relative."""
+    prefill of the first S; then ``n_steps`` decode steps.  -> dict(logits
+    [B, T, V] of forward, aux, last [B, V] of prefill, steps [n_steps, B,
+    V]); with ``record``, also routes = dict(forward=, run=) the MoE
+    router's `RouterLog` of the forward and of prefill + decode steps."""
+    import contextlib
+
     import torch
     from repro_torch.models.api import build_model
+    from repro_torch.testing import RouterLog
 
     model = build_model(cfg, device=device)
     g = torch.Generator(device=device).manual_seed(3)
@@ -3350,17 +3381,49 @@ def lm_consistency(cfg, params, device, tag: str, B: int = LM_FAMILY_BATCH,
     batch = dict(tokens=tokens, **extra)
     if cfg.family == "vlm":
         batch["positions3"] = torch.arange(T, device=device)[None, :, None].expand(B, T, 3)
-    logits_all, aux = model.forward(params, batch)
+    logs = {k: RouterLog() for k in ("forward", "prefill", "steps")}
+
+    def recording(k):
+        return logs[k] if record else contextlib.nullcontext()
+
+    with recording("forward"):
+        logits_all, aux = model.forward(params, batch)
     check(bool(torch.isfinite(logits_all).all()) and bool(torch.isfinite(aux)),
           f"{tag}: forward is not finite")
-    last, cache = model.prefill(params, dict(tokens=tokens[:, :S], **extra), T)
-    rel_p = rel_err(last[:, 0], logits_all[:, S - 1])[1]
-    rel_d = []
+    with recording("prefill"):
+        last, cache = model.prefill(params, dict(tokens=tokens[:, :S], **extra), T)
+    steps = []
     for j in range(n_steps):
-        step, cache = model.decode_step(params, cache, tokens[:, S + j:S + j + 1],
-                                        torch.full((B,), S + j, device=device))
-        rel_d.append(rel_err(step[:, 0], logits_all[:, S + j])[1])
-    return rel_p, max(rel_d), float(aux)
+        with recording("steps"):
+            step, cache = model.decode_step(params, cache, tokens[:, S + j:S + j + 1],
+                                            torch.full((B,), S + j, device=device))
+        steps.append(step[:, 0])
+    out = dict(logits=logits_all, aux=float(aux), last=last[:, 0], steps=torch.stack(steps))
+    if record:
+        out["routes"] = dict(forward=logs["forward"],
+                             run=RouterLog.sequence(logs["prefill"], logs["steps"]))
+    return out
+
+
+def lm_identity(r, S: int):
+    """Prefill's last logits and each decode step of `lm_run`'s result
+    against the forward at its position, per row: -> (err_p [B], err_d
+    [n_steps, B]), each over max(1, max|forward logits there|)."""
+    import torch
+
+    err_p = _token_err(r["last"], r["logits"][:, S - 1])
+    err_d = torch.stack([_token_err(r["steps"][j], r["logits"][:, S + j])
+                         for j in range(r["steps"].shape[0])])
+    return err_p, err_d
+
+
+def lm_consistency(cfg, params, device, tag: str, B: int = LM_FAMILY_BATCH,
+                   S: int = LM_FAMILY_SEQ, n_steps: int = LM_FAMILY_STEPS):
+    """`lm_run`, each decode step held against forward at its position.
+    -> (prefill rel, worst decode rel, forward aux), scale-relative."""
+    r = lm_run(cfg, params, device, tag, B, S, n_steps)
+    err_p, err_d = lm_identity(r, S)
+    return float(err_p.max()), float(err_d.max()), r["aux"]
 
 
 def phase_lm_main(device, cfg):
@@ -3513,20 +3576,141 @@ def phase_int8_cache(device, model, params, cfg):
     check(flip_ok, "the int8 cache changed a greedy token that was no near tie")
 
 
+def _token_err(got, ref):
+    """max |got - ref| over the last axis per token, over max(1, max|ref|):
+    the tokens' shares of `rel_err`."""
+    return (got.double() - ref.double()).abs().amax(-1) / max(1.0, float(ref.abs().max()))
+
+
+def _flip_before(flips, b: int, t: int):
+    """The latest explained pick flip of `pick_flips`'s result that can
+    reach position t of row b: at t, at any layer; or at an earlier
+    position of the row at a layer before the last, whose change a later
+    layer's attention carries to t.  -> (layer, position, margin, bound) or
+    None."""
+    import torch
+
+    flip, margin, bound = (a[:, b, :t + 1] for a in flips)
+    ok = flip & (margin <= bound)
+    ok[-1, :t] = False
+    if not bool(ok.any()):
+        return None
+    pos = int(torch.nonzero(ok.any(0)).max())
+    layer = int(torch.nonzero(ok[:, pos])[0])
+    return layer, pos, float(margin[layer, pos]), float(bound[layer, pos])
+
+
+def _hold_bf16(cfg, r16, r32, tag: str, S: int):
+    """Holds `lm_run`'s bf16 result ``r16``: prefill's last logits and the
+    decode steps against the bf16 forward at each position
+    (BF16_IDENTITY_TOL), the bf16 forward against the f32 forward ``r32``
+    per token (BF16_LOOSE_TOL).  For a MoE (both runs recorded), a token
+    beyond its tier passes only after a router pick flip between the two
+    runs it compares that can reach it (`_flip_before`), under the bound of
+    the runs' measured router-input difference (`pick_flips`); every flip
+    must be under it, and at most LM_BF16_MAX_PARTED tokens part."""
+    from repro_torch.testing import pick_flips
+
+    err_p, err_d = lm_identity(r16, S)
+    err_f = _token_err(r16["logits"], r32["logits"])
+    n = err_d.shape[0]
+    # (what, tolerance, error, row, position) of every token compared
+    sites = [("prefill", BF16_IDENTITY_TOL, float(err_p[b]), b, S - 1) for b in range(len(err_p))]
+    sites += [(f"decode {j}", BF16_IDENTITY_TOL, float(err_d[j, b]), b, S + j)
+              for j in range(n) for b in range(err_d.shape[1])]
+    sites += [("vs f32", BF16_LOOSE_TOL, e, b, t)
+              for b, row in enumerate(err_f.tolist()) for t, e in enumerate(row)]
+    parted = [x for x in sites if x[2] > x[1]]
+    line = (f"[lmfamilies] {tag} bfloat16 compute ({cfg.n_layers} layers, the f32 weights): "
+            f"prefill {err_p.shape[0]} x {S} last logits vs the bf16 forward rel "
+            f"{float(err_p.max()):.3e}; {n} decode steps vs the bf16 forward: worst rel "
+            f"{float(err_d.max()):.3e} (tol {BF16_IDENTITY_TOL}); bf16 forward vs the f32 "
+            f"forward rel {float(err_f.max()):.3e} (tol {BF16_LOOSE_TOL}); forward aux "
+            f"{r16['aux']:.5f}")
+    if "routes" not in r16:
+        print(line + f"; {'ok' if not parted else 'FAIL'}")
+        check(not parted, f"{tag}: bf16 compute outside its tiers at {len(parted)} tokens")
+        return
+    # the f32 forward against the bf16 forward; the bf16 forward against
+    # the bf16 prefill and decode steps
+    flips = {"vs f32": pick_flips(r32["routes"]["forward"], r16["routes"]["forward"]),
+             "cache": pick_flips(r16["routes"]["forward"], r16["routes"]["run"])}
+    unexplained = {k: int((f & (m > bd)).sum()) for k, (f, m, bd) in flips.items()}
+
+    def flip_for(what, b, t):
+        return _flip_before(flips["vs f32" if what == "vs f32" else "cache"], b, t)
+
+    reach = sum(flip_for(what, b, t) is not None for what, _, _, b, t in sites)
+    before = [flip_for(what, b, t) for what, _, _, b, t in parted]
+    ok = all(x is not None for x in before) and len(parted) <= LM_BF16_MAX_PARTED
+    print(line + f"; tokens parting beyond their tier: {len(parted)} of {len(sites)} (at most "
+          f"{LM_BF16_MAX_PARTED}), each after an explained pick flip that can reach it: "
+          f"{'ok' if ok else 'FAIL'}; tokens such a flip reaches: {reach} of {len(sites)}")
+    for k, (f, m, bd) in flips.items():
+        print(f"[lmfamilies] {tag} bf16 router, {k}: the two runs pick different experts at "
+              f"{int(f.sum())} of {f.numel()} (layer, token) sites, {unexplained[k]} of them "
+              f"past the bound of the runs' measured router-input difference")
+    for (what, tol, e, b, t), fb in zip(parted, before):
+        print(f"[lmfamilies] {tag} bf16 {what}: row {b} position {t} parts at {e:.3e} "
+              f"(tol {tol}); " + ("no explained pick flip reaches it: FAIL" if fb is None
+                                  else "the pick flip closest before it: layer {} position {}: "
+                                  "margin {:.3e}, bound {:.3e}".format(*fb)))
+    check(not any(unexplained.values()), f"{tag}: a bf16 router pick flip is past its bound")
+    check(all(x is not None for x in before),
+          f"{tag}: a bf16 token parts with no explained pick flip before it")
+    check(len(parted) <= LM_BF16_MAX_PARTED,
+          f"{tag}: {len(parted)} bf16 tokens part, more than {LM_BF16_MAX_PARTED}")
+
+
+def phase_lm_bf16(device, cfg, params, r32, tag: str, seq: int, held: int | None = None):
+    """The family at its served compute dtype, bf16, over the same f32
+    weights, against `lm_run`'s f32 result ``r32`` (`_hold_bf16`).  With
+    ``held`` under the depth: the full depth's figures and those of each
+    LM_BF16_SWEEP prefix of the same weights are printed, and the first
+    ``held`` layers are held.  -> seconds taken."""
+    t0 = time.perf_counter()
+    c16 = dataclasses.replace(cfg, dtype="bfloat16")
+    r16 = lm_run(c16, params, device, tag, S=seq, record=cfg.family == "moe")
+    if held is None or held >= cfg.n_layers:
+        _hold_bf16(cfg, r16, r32, tag, seq)
+        return time.perf_counter() - t0
+    print(f"[lmfamilies] {tag} bfloat16 compute: figures at each depth of the same weights "
+          f"(printed; held on the first {held} layers below)")
+    for depth in sorted({d for d in LM_BF16_SWEEP + (held,) if d < cfg.n_layers}) + [cfg.n_layers]:
+        pk = dict(params, layers=params["layers"][:depth])
+        ck = dataclasses.replace(cfg, n_layers=depth)
+        a32 = r32 if depth == cfg.n_layers else lm_run(ck, pk, device, tag, S=seq)
+        a16 = r16 if depth == cfg.n_layers else lm_run(
+            dataclasses.replace(ck, dtype="bfloat16"), pk, device, tag, S=seq)
+        err_p, err_d = lm_identity(a16, seq)
+        rel_f = float(_token_err(a16["logits"], a32["logits"]).max())
+        within = (max(float(err_p.max()), float(err_d.max())) <= BF16_IDENTITY_TOL
+                  and rel_f <= BF16_LOOSE_TOL)
+        print(f"[lmfamilies] {tag} bfloat16 depth {depth}: prefill vs the bf16 forward rel "
+              f"{float(err_p.max()):.3e}; decode steps worst rel {float(err_d.max()):.3e}; bf16 "
+              f"forward vs the f32 forward rel {rel_f:.3e} "
+              f"({'within' if within else 'outside'} the bf16 tiers)")
+        if depth == held:
+            _hold_bf16(ck, a16, a32, tag, seq)
+    return time.perf_counter() - t0
+
+
 def phase_lm_families(device, reduced: bool = False, seq: int = LM_FAMILY_SEQ):
     """The attention families at full width (depth cut only where 80 GB
     forces it): prefill 2 x 256, then 4 decode steps each held against
-    forward at f32 compute; gemma-2b's int8 KV cache against its f32 cache
-    over 16 greedy tokens.  ``reduced``: each arch's reduced config, uncut
-    (a rehearsal off the card, with a ``seq`` inside its max_seq)."""
+    forward at f32 compute; then at bf16 compute over the same weights
+    (`phase_lm_bf16`); gemma-2b's int8 KV cache against its f32 cache over
+    16 greedy tokens.  ``reduced``: each arch's reduced config, uncut and
+    held whole (a rehearsal off the card, with a ``seq`` inside its
+    max_seq)."""
     import torch
     from repro_torch.config import get_config
-    from repro_torch.models.api import build_model
 
-    for arch, keep, why in LM_FAMILIES:
+    t_all = time.perf_counter()
+    for arch, keep, why, held in LM_FAMILIES:
         t_phase = time.perf_counter()
         full = get_config(arch).reduced() if reduced else get_config(arch)
-        keep = None if reduced else keep
+        keep, held = (None, None) if reduced else (keep, held)
         cfg = dataclasses.replace(full, dtype="float32")
         if full.family == "moe":  # no entry may drop, as in the reference's consistency test
             cfg = dataclasses.replace(cfg, capacity_factor=lossless_cf(cfg))
@@ -3535,7 +3719,9 @@ def phase_lm_families(device, reduced: bool = False, seq: int = LM_FAMILY_SEQ):
             print(f"[lmfamilies] {arch}: depth cut to {keep} of {full.n_layers} layers ({why}); "
                   f"widths as published")
         model, params = _init_lm(device, cfg, "lmfamilies")
-        rel_p, rel_d, aux = lm_consistency(cfg, params, device, arch, S=seq)
+        r32 = lm_run(cfg, params, device, arch, S=seq, record=cfg.family == "moe")
+        err_p, err_d = lm_identity(r32, seq)
+        rel_p, rel_d = float(err_p.max()), float(err_d.max())
         ok = max(rel_p, rel_d) <= F32_IDENTITY_TOL
         print(f"[lmfamilies] {arch} float32 compute: prefill {LM_FAMILY_BATCH} x "
               f"{seq}" + (f" (source {cfg.max_source_len} frames)"
@@ -3543,8 +3729,11 @@ def phase_lm_families(device, reduced: bool = False, seq: int = LM_FAMILY_SEQ):
               + (" (positions3 [B,T,3])" if cfg.family == "vlm" else "")
               + f": last logits vs forward rel {rel_p:.3e}; {LM_FAMILY_STEPS} decode steps vs "
               f"forward at each position: worst rel {rel_d:.3e} (tol {F32_IDENTITY_TOL}) "
-              f"{'ok' if ok else 'FAIL'}; forward aux {aux:.5f}")
+              f"{'ok' if ok else 'FAIL'}; forward aux {r32['aux']:.5f}")
         check(ok, f"{arch}: decode after prefill differs from forward")
+        t_bf16 = phase_lm_bf16(device, cfg, params, r32, arch, seq, held)
+        print(f"[lmfamilies] {arch} bfloat16 compute added {t_bf16:.1f} s")
+        del r32
         if cfg.family == "vlm":  # the three position axes apart (a vision-like grid)
             T = 64
             ar = torch.arange(T, device=device)
@@ -3561,6 +3750,7 @@ def phase_lm_families(device, reduced: bool = False, seq: int = LM_FAMILY_SEQ):
         del model, params
         _free_device()
         print(f"[lmfamilies] {arch} phase {time.perf_counter() - t_phase:.1f} s")
+    print(f"[lmfamilies] all families {time.perf_counter() - t_all:.1f} s")
 
 
 # --------------------------------------------------------------------------
@@ -3797,7 +3987,9 @@ def scan_backward_ms(device, scan: str, cfg, params, tokens):
     seeded gradient of the output -> (device busy ms of one call, from a
     profile of it alone; host ms of a synchronized call, median of 3)."""
     import torch
-    from repro_torch.kernels import mamba2, wkv6
+    from repro_torch.kernels import mamba2
+
+    wkv6 = _kernel_module("wkv6")
     from repro_torch.models import ssm, transformer
     from repro_torch.models.layers import norm_apply
 
@@ -3839,7 +4031,9 @@ def lm_train_kernel_vs_plain(device, cfg, params, batch):
     gradient error relative to its norm, kernel launches of the kernel
     route)."""
     import torch
-    from repro_torch.kernels import mamba2, wkv6
+    from repro_torch.kernels import mamba2
+
+    wkv6 = _kernel_module("wkv6")
     from repro_torch.models import ssm
     from repro_torch.models.api import LMModule
 
@@ -3877,7 +4071,9 @@ def phase_lm_train_scan(device, model, params, scan: str, steps: int = SCAN_TRAI
     import numpy as np
     import torch
     from repro_torch.config import TrainConfig
-    from repro_torch.kernels import mamba2, wkv6
+    from repro_torch.kernels import mamba2
+
+    wkv6 = _kernel_module("wkv6")
     from repro_torch.models.api import LMModule, count_params
     from repro_torch.train import make_train_step
 
@@ -4010,7 +4206,9 @@ def phase_dist(device, lm_layers: int = DIST_LM_LAYERS, seq: int = DIST_LM_SEQ,
     from repro_torch.distributed.collectives import int8_ef_cross_pod_mean
     from repro_torch.distributed.sharding import (batch_shardings, param_shardings,
                                                   set_activation_mesh)
-    from repro_torch.kernels import gaunt_fused, wkv6
+    from repro_torch.kernels import gaunt_fused
+
+    wkv6 = _kernel_module("wkv6")
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.api import LMModule, build_model
     from repro_torch.models.equivariant import MaceGaunt

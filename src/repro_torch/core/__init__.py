@@ -5,6 +5,7 @@ Public API:
     plan_batch              ragged multi-degree workloads, one call per bucket
     plan_chain / ChainPlan  whole chained products (the many-body stage)
     Rep                     basis-tagged activations (sh | fourier | quad)
+    conversion_stats        the SH <-> Fourier / quad conversion counters
     GauntTensorProduct      full O(L^3) tensor product (fft / direct / packed / rfft)
     EquivariantConv         x (x) Y(rhat) on the eSCN rotation-aligned path
     manybody_gaunt_product  nu-fold products (one chain plan)
@@ -26,4 +27,4 @@ from .engine import (  # noqa: F401
 from .gaunt import GauntTensorProduct, expand_degree_weights  # noqa: F401
 from .irreps import Irreps, num_coeffs  # noqa: F401
 from .manybody import manybody_gaunt_product, manybody_selfmix  # noqa: F401
-from .rep import Rep  # noqa: F401
+from .rep import Rep, conversion_stats, reset_conversion_stats  # noqa: F401

@@ -16,6 +16,7 @@ __all__ = [
     "cg_full_tensor_product",
     "gaunt_einsum_reference",
     "gaunt_dense_tensor",
+    "gaunt_dense_tensor_torch",
 ]
 
 
@@ -56,6 +57,11 @@ def cg_full_tensor_product(x1: torch.Tensor, x2: torch.Tensor, L1: int, L2: int,
     out = [b.expand(*lead, 2 * l + 1) if b is not None
            else x1.new_zeros(*lead, 2 * l + 1) for l, b in enumerate(blocks)]
     return torch.cat(out, dim=-1)
+
+
+# The reference's ``gaunt_dense_tensor_jnp`` under the port's name; it
+# returns the cached numpy array, which torch callers wrap themselves.
+gaunt_dense_tensor_torch = gaunt_dense_tensor
 
 
 def gaunt_einsum_reference(x1: torch.Tensor, x2: torch.Tensor, L1: int, L2: int,

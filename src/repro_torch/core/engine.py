@@ -98,7 +98,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from . import constants
-from .gaunt import expand_degree_weights
+from .gaunt import expand_degree_weights  # re-exported where the reference defines it
 from .irreps import num_coeffs
 
 __all__ = [
@@ -119,6 +119,7 @@ __all__ = [
     "reset_calibration",
     "spectral_default",
     "build_escn",
+    "expand_degree_weights",
     "get_engine",
     "plan",
     "plan_batch",

@@ -16,7 +16,8 @@ integral (finite trig expansion, int_0^pi e^{int} dt in closed form).
 The `packed` forms expose the v = +-m block sparsity as stacked per-|m|
 matmuls (the paper's O(L^3) conversion).  The `half` forms keep only the
 v >= 0 columns, which determine the whole grid of a real spherical function
-through F[-u,-v] = conj(F[u,v]); `pack_hermitian` is that cut on a grid.
+through F[-u,-v] = conj(F[u,v]); `pack_hermitian` is that cut on a grid and
+`unpack_hermitian` its inverse.
 
 These builders are pure float64/complex128 numpy and match the reference
 ``repro.core.fourier`` bit for bit; caching lives in `core.constants`.
@@ -39,6 +40,7 @@ __all__ = [
     "sh_to_fourier_half",
     "fourier_to_sh_half",
     "pack_hermitian",
+    "unpack_hermitian",
     "grid_resize",
     "grid_resize_half",
     "s2quad_size",
@@ -228,6 +230,18 @@ def pack_hermitian(F, L: int):
     and every convolution of such grids).
     """
     return F[..., L:]
+
+
+def unpack_hermitian(Fh, L: int):
+    """Half form [..., 2L+1, L+1] -> full grid via F[-u,-v] = conj(F[u,v]):
+    numpy arrays and torch tensors alike."""
+    if isinstance(Fh, np.ndarray):
+        neg = np.conj(np.flip(Fh[..., 1:], axis=(-2, -1)))
+        return np.concatenate([neg, Fh], axis=-1)
+    import torch
+
+    neg = torch.conj(torch.flip(Fh[..., 1:], dims=(-2, -1)))
+    return torch.cat([neg, Fh], dim=-1)
 
 
 def _pad(F, widths):

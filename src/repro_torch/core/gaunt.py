@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from . import constants as _const
-from .fourier import pack_hermitian
+from .fourier import pack_hermitian, unpack_hermitian
 from .rep import count_conversion
 from .irreps import degree_slices, l_array, num_coeffs
 
@@ -163,12 +163,6 @@ def sh_to_fourier_bydeg(x: torch.Tensor, L: int, conversion: str = "dense",
     parts = [torch.einsum("...i,iuv->...uv", xc[..., sl], y[sl])
              for sl in degree_slices(L)]
     return torch.stack(parts, dim=-3)
-
-
-def unpack_hermitian(Fh: torch.Tensor, L: int) -> torch.Tensor:
-    """Half form [..., 2L+1, L+1] -> full grid via F[-u,-v] = conj(F[u,v])."""
-    neg = torch.conj(torch.flip(Fh[..., 1:], dims=(-2, -1)))
-    return torch.cat([neg, Fh], dim=-1)
 
 
 def _herm_spatial(Fh: torch.Tensor, L: int, N: int) -> torch.Tensor:

@@ -1,9 +1,27 @@
-"""Naive oracles of the port's sequence kernels, for tests."""
+"""Plain-torch oracles of the port's kernels, for tests: the Gaunt
+product unfused and against the exact Gaunt tensor, and the naive
+sequence recurrences."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["wkv6_ref", "mamba2_ssd_ref"]
+from ..core.cg import gaunt_einsum_reference
+
+__all__ = ["gaunt_fused_ref", "gaunt_oracle", "wkv6_ref", "mamba2_ssd_ref"]
+
+
+def gaunt_fused_ref(x1, x2, T1, T2, P):
+    """Sample-multiply-project Gaunt TP, unfused.
+
+    x1 [B, d1], x2 [B, d2]; T1 [d1, G], T2 [d2, G] torus sample matrices;
+    P [G, dout] projection.  out[B, dout] = ((x1 T1) * (x2 T2)) P.
+    """
+    return ((x1 @ T1) * (x2 @ T2)) @ P
+
+
+def gaunt_oracle(x1, x2, L1: int, L2: int, Lout: int):
+    """Ground truth: the dense einsum with the exact real Gaunt tensor."""
+    return gaunt_einsum_reference(x1, x2, L1, L2, Lout)
 
 
 def wkv6_ref(r, k, v, w, u):

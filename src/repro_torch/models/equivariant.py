@@ -60,7 +60,31 @@ from ..core.so3 import real_sph_harm_torch
 from ..device import resolve_device
 from ..distributed.sharding import get_activation_mesh
 
-__all__ = ["MaceGaunt", "SegnnNBody", "SelfmixLayer", "equi_linear", "radial_basis"]
+__all__ = ["MaceGaunt", "SegnnNBody", "SelfmixLayer", "equi_linear", "equi_linear_init",
+           "gate_init", "gate_apply", "radial_basis"]
+
+
+def equi_linear_init(generator: torch.Generator, L: int, c_in: int, c_out: int) -> torch.Tensor:
+    """A degree-wise channel mix [L+1, c_in, c_out] ~ N(0, 1/c_in), drawn
+    from ``generator`` on its device."""
+    return torch.randn((L + 1, c_in, c_out), generator=generator,
+                       device=generator.device) / math.sqrt(c_in)
+
+
+def gate_init(generator: torch.Generator, c: int, hidden: int = 32) -> dict:
+    """The gate's scalar MLP {w1 [c, hidden], w2 [hidden, c]}, drawn from
+    ``generator`` on its device (the reference's gate layout)."""
+    dev = generator.device
+    return {"w1": torch.randn((c, hidden), generator=generator, device=dev) / math.sqrt(c),
+            "w2": torch.randn((hidden, c), generator=generator, device=dev)
+            / math.sqrt(hidden)}
+
+
+def gate_apply(p: dict, x: torch.Tensor, L: int) -> torch.Tensor:
+    """Scalars gate higher degrees (the equivariant nonlinearity): x [..., C,
+    (L+1)^2] -> [silu(s), x_{l>0} * sigmoid(silu(s w1) w2)] with s the l=0
+    channel scalars, at the promoted dtype of x and the weights."""
+    return _gate_sh(p, x)
 
 
 def equi_linear(w: torch.Tensor, x: torch.Tensor, L: int) -> torch.Tensor:

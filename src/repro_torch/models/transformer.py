@@ -251,10 +251,28 @@ def init_params(generator, cfg, device="cpu"):
 # ---------------------------------------------------------------- forward
 
 
+def _in_dtype(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype`` (to nearest, ties to even), on the host
+    with no tensor, so that a captured step makes none."""
+    if dtype == torch.float64:
+        return x
+    if dtype == torch.float16:
+        return float(np.float16(x))
+    bits = int(np.array(x, np.float32).view(np.uint32))
+    if dtype == torch.bfloat16:
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return float(np.array(bits, np.uint32).view(np.float32))
+
+
 def _embed_tokens(p, cfg, tokens):
+    """The embedding rows in the compute dtype, times sqrt(d) where the
+    config scales them.  The factor is first rounded to the compute dtype,
+    as the reference's weakly typed Python scalar is (45.25, not 45.2548,
+    for gemma-2b at bf16), so that the scaled rows round as the
+    reference's do."""
     h = p["embed"]["embedding"][tokens].to(_adt(cfg))
     if cfg.embed_scale:
-        h = h * math.sqrt(cfg.d_model)
+        h = h * _in_dtype(math.sqrt(cfg.d_model), h.dtype)
     return h
 
 

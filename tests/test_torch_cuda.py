@@ -5,6 +5,7 @@ on the chain kernel against one on the tree, a checkpoint restored onto the
 CPU, a warm autotune cache).  Marked
 ``cuda``: these skip without an sm_90 GPU (run them on the card with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``)."""
+import importlib
 import importlib.util
 from pathlib import Path
 
@@ -19,7 +20,8 @@ from repro_torch.kernels.gaunt_fused import (chain_plain, gaunt_chain_fused_hopp
                                              reset_kernel_stats)
 from repro_torch.kernels.ops import gaunt_tp_fused
 from repro_torch.kernels import mamba2 as mamba2_mod
-from repro_torch.kernels import wkv6 as wkv6_mod
+# the package's own name `wkv6` is the wrapper function, as in the reference
+wkv6_mod = importlib.import_module("repro_torch.kernels.wkv6")
 
 pytestmark = pytest.mark.cuda
 

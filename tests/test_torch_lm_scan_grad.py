@@ -123,7 +123,11 @@ def test_scan_kernel_route_in_the_model_matches_plain(family, monkeypatch):
     kernel), `Model.loss` and its gradients equal the plain route's, the
     forward "launches" once a layer and again in remat's recompute, and the
     backward is the plain scan's."""
-    from repro_torch.kernels import mamba2, wkv6
+    import importlib
+
+    from repro_torch.kernels import mamba2
+    # the package's own name `wkv6` is the wrapper function, as in the reference
+    wkv6 = importlib.import_module("repro_torch.kernels.wkv6")
     from repro_torch.models import ssm
 
     cfg = dataclasses.replace(get_config(FAMILY_ARCH[family]).reduced(), remat=True)
