@@ -1,0 +1,7 @@
+"""device_idle_pct.serve: the share of the traced window in which nothing ran
+on the device (`torch.profiler`, graph replays included)."""
+from perfbench.trace import idle_pct
+
+
+def read(run):
+    return idle_pct(run, "serve")
