@@ -97,6 +97,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..spans import span
 from . import constants
 from .gaunt import expand_degree_weights  # re-exported where the reference defines it
 from .irreps import num_coeffs
@@ -997,7 +998,6 @@ def build_escn(L1: int, L2: int, Lout: int, geometry: str | None = None,
         from .gaunt import fourier_to_sh, sh_to_fourier
 
         dev = x.device
-        x = _wmul(x, w1, L1)
         if geometry == "wigner":
             if not isinstance(rhat, WignerBlocks):
                 raise ValueError("geometry='wigner' takes precomputed WignerBlocks "
@@ -1009,20 +1009,26 @@ def build_escn(L1: int, L2: int, Lout: int, geometry: str | None = None,
         else:
             Ds = wigner_blocks_from_rotmat(max(L1, Lout),
                                            align_rotation(rhat.to(_ACC[dtype])))
-        F1 = sh_to_fourier(apply_wigner_blocks(Ds[: L1 + 1], x), L1, "dense", cd)
-        fl = constants.to_torch(fl0, dev, rd)
-        if w2 is not None:
-            fl = fl * w2.to(rd)
-        cols = constants.to_torch(constants.filter_fourier_col(L2, cname), dev)
-        k = torch.einsum("...l,lu->...u", fl.to(cols.dtype), cols)
-        kmat = k[..., constants.to_torch(gidx, dev, torch.int64)] \
-            * constants.to_torch(mask, dev, rd)
-        F3 = torch.einsum("...ti,...iv->...tv", kmat, F1)
-        z = F3.new_zeros(F3.shape[:-1] + (pv,))
-        F3 = torch.cat([z, F3, z], dim=-1)
-        out_rot = fourier_to_sh(F3, L1 + L2, Lout, "dense", rd)
-        out = apply_wigner_blocks(Ds[: Lout + 1], out_rot, transpose=True)
-        return _wmul(out, w3, Lout)
+        with span("conv.rotate", x):
+            xr = apply_wigner_blocks(Ds[: L1 + 1], _wmul(x, w1, L1))
+        with span("conv.to_fourier", x):
+            F1 = sh_to_fourier(xr, L1, "dense", cd)
+        with span("conv.filter", x):
+            fl = constants.to_torch(fl0, dev, rd)
+            if w2 is not None:
+                fl = fl * w2.to(rd)
+            cols = constants.to_torch(constants.filter_fourier_col(L2, cname), dev)
+            k = torch.einsum("...l,lu->...u", fl.to(cols.dtype), cols)
+            kmat = k[..., constants.to_torch(gidx, dev, torch.int64)] \
+                * constants.to_torch(mask, dev, rd)
+            F3 = torch.einsum("...ti,...iv->...tv", kmat, F1)
+            z = F3.new_zeros(F3.shape[:-1] + (pv,))
+            F3 = torch.cat([z, F3, z], dim=-1)
+        with span("conv.to_sh", x):
+            out_rot = fourier_to_sh(F3, L1 + L2, Lout, "dense", rd)
+        with span("conv.rotate_back", x):
+            return _wmul(apply_wigner_blocks(Ds[: Lout + 1], out_rot, transpose=True),
+                         w3, Lout)
 
     return apply_conv
 
@@ -1305,7 +1311,10 @@ def _build_spectral(key: PlanKey, conversion: str, conv: str) -> Callable:
         return sh_to_fourier(_wmul(x, w, L), L, conversion, cd)
 
     def apply_pair(x1, x2, w1=None, w2=None, w3=None):
-        F3 = conv_fn(convert_in(x1, w1, L1, b1), convert_in(x2, w2, L2, b2), conv)
+        with span("conv.to_fourier", x1):
+            G1, G2 = convert_in(x1, w1, L1, b1), convert_in(x2, w2, L2, b2)
+        with span("conv.conv2d", x1):
+            F3 = conv_fn(G1, G2, conv)
         if bo == "fourier":
             from .rep import Rep
 
@@ -1313,8 +1322,8 @@ def _build_spectral(key: PlanKey, conversion: str, conv: str) -> Callable:
                 raise ValueError("w3 applies in SH; a Fourier-boundary output "
                                  "cannot carry per-degree output weights")
             return Rep(F3, L1 + L2, "fourier", form)
-        out = fourier_to_sh(F3, L1 + L2, Lout, conversion, rd)
-        return _wmul(out, w3, Lout)
+        with span("conv.to_sh", x1):
+            return _wmul(fourier_to_sh(F3, L1 + L2, Lout, conversion, rd), w3, Lout)
 
     return apply_pair
 

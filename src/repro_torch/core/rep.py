@@ -25,8 +25,9 @@ This module also holds the conversion counters.  Every ``sh_to_fourier``,
 quadrature leg here ticks one, which is how the tests prove that chain
 plans and resident filters elide conversions.  The port runs eagerly, so a
 counter ticks once per call; the reference ticks once per jit trace, and
-on eager calls the two agree (tested).  ``with conversion_stats(fresh=True)
-as c:`` scopes a count (snapshot and restore).
+on eager calls the two agree (tested).  A served bucket's CUDA graph ticks
+once per replay (`add_conversions`), not at its capture.  ``with
+conversion_stats(fresh=True) as c:`` scopes a count (snapshot and restore).
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ __all__ = [
     "Rep",
     "ConversionStats",
     "count_conversion",
+    "add_conversions",
     "conversion_stats",
     "reset_conversion_stats",
 ]
@@ -58,6 +60,14 @@ _COUNTS = {"sh_to_fourier": 0, "fourier_to_sh": 0,
 def count_conversion(name: str) -> None:
     """Record one basis conversion (called at every conversion call)."""
     _COUNTS[name] += 1
+
+
+def add_conversions(counts: dict) -> None:
+    """Add conversions no call ticked itself: a CUDA graph's replay runs
+    again every conversion captured in it, and its capture ran none (the
+    counterpart of `kernels.gaunt_fused.add_kernel_launches`)."""
+    for k, v in counts.items():
+        _COUNTS[k] += v
 
 
 class ConversionStats(dict):

@@ -59,6 +59,7 @@ from ..core.rep import Rep
 from ..core.so3 import real_sph_harm_torch
 from ..device import resolve_device
 from ..distributed.sharding import get_activation_mesh
+from ..spans import span
 
 __all__ = ["MaceGaunt", "SegnnNBody", "SelfmixLayer", "equi_linear", "equi_linear_init",
            "gate_init", "gate_apply", "radial_basis"]
@@ -402,46 +403,55 @@ class MaceGaunt(_Picks):
             species, pos = species[None], pos[None]
         S, n = pos.shape[:2]
         C, dim = c.channels, num_coeffs(c.L)
-        rhat, dist, mask = _pair_geometry(pos, c.cutoff)
         shard = _shard(c)
         # with shard_data the conv's rows split over the activation mesh's
         # data-parallel ranks
         conv = self.conv_for(pos.device)
-        # the edge geometry is layer-constant: build what the conv needs of
-        # it once for the whole stack — the filter's Fourier grid (general)
-        # or the alignment rotation and Wigner blocks (eSCN)
-        geom = rhat[..., None, :]
-        if c.fourier_resident:
-            geom = (conv.filter_rep(geom) if c.conv_impl == "general"
-                    else conv.geometry_rep(geom))
+        with span("geometry", pos):
+            rhat, dist, mask = _pair_geometry(pos, c.cutoff)
+            # the edge geometry is layer-constant: build what the conv needs
+            # of it once for the whole stack — the filter's Fourier grid
+            # (general) or the alignment rotation and Wigner blocks (eSCN)
+            geom = rhat[..., None, :]
+            if c.fourier_resident:
+                geom = (conv.filter_rep(geom) if c.conv_impl == "general"
+                        else conv.geometry_rep(geom))
+            rb = radial_basis(dist, c.n_radial, c.cutoff)
         x = torch.cat([self.species[species.long()][..., None],
                        pos.new_zeros(S, n, C, dim - 1)], dim=-1)
         grid_gate = self.grid_gate_on(S * n * C, pos.device)
         dts = self.storage_dtype(S * n * C, pos.device)
-        rb = radial_basis(dist, c.n_radial, c.cutoff)
         for lp in self.layers:
-            h = F.silu(rb @ lp.radial_w1) @ lp.radial_w2
-            h = h.reshape(S, n, n, C, c.L + 1)  # per-edge per-degree weights
-            xj = x[:, None].expand(S, n, n, C, dim)
-            m = conv(xj, geom, w1=h)
-            m = (m * mask[..., None, None]).sum(dim=2)
-            A = equi_linear(lp.mix, m, c.L) + x
-            mb_kw = dict(weights=[w.expand(S, n, C, c.L + 1) for w in lp.mb_w],
-                         tune=c.chain_tune, dtype=dts, shard_spec=shard)
+            with span("radial", pos):
+                h = F.silu(rb @ lp.radial_w1) @ lp.radial_w2
+                h = h.reshape(S, n, n, C, c.L + 1)  # per-edge per-degree weights
+            with span("conv", pos):
+                xj = x[:, None].expand(S, n, n, C, dim)
+                m = conv(xj, geom, w1=h)
+                m = (m * mask[..., None, None]).sum(dim=2)
+            with span("mix", pos):
+                A = equi_linear(lp.mix, m, c.L) + x
+            mb_kw = dict(tune=c.chain_tune, dtype=dts, shard_spec=shard)
             if grid_gate:
                 # the gate fuses into the many-body chain (gate before mb_mix)
-                B = manybody_selfmix(A, c.L, c.nu, Lout=c.L, gate_params=lp.gate(), **mb_kw)
-                x = x + equi_linear(lp.mb_mix, B, c.L)
-            else:
-                B = manybody_selfmix(A, c.L, c.nu, Lout=c.L, **mb_kw)
-                # the reference's gate_apply: scalars gate higher degrees
-                x = x + _gate_sh(lp.gate(), equi_linear(lp.mb_mix, B, c.L))
+                mb_kw["gate_params"] = lp.gate()
+            with span("manybody", pos):
+                B = manybody_selfmix(A, c.L, c.nu, Lout=c.L,
+                                     weights=[w.expand(S, n, C, c.L + 1) for w in lp.mb_w],
+                                     **mb_kw)
+            with span("mb_mix", pos):
+                if grid_gate:
+                    x = x + equi_linear(lp.mb_mix, B, c.L)
+                else:
+                    # the reference's gate_apply: scalars gate higher degrees
+                    x = x + _gate_sh(lp.gate(), equi_linear(lp.mb_mix, B, c.L))
         out = x[..., 0]
         return out[0] if single else out
 
     def _atom_energies(self, species, pos) -> torch.Tensor:
         feat = self.features(species, pos)
-        return (F.silu(feat @ self.readout_w1) @ self.readout_w2)[..., 0]
+        with span("readout", pos):
+            return (F.silu(feat @ self.readout_w1) @ self.readout_w2)[..., 0]
 
     def energy(self, species: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         """Total energy (scalar, or [S] for a batch of molecules)."""

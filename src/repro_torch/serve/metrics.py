@@ -8,7 +8,9 @@ One `ServeMetrics` instance rides along an engine and its scheduler/pools:
   any percentile can be asked for after the fact (`percentile`, `p50`/`p99`);
 - **per-step gauges** — slot occupancy (active/total slots at each dispatched
   step) and padding waste (real atoms vs padded atom-slots the step actually
-  computed on), both per pool and aggregated;
+  computed on), both per pool and aggregated; the host gap before each
+  dispatch (`observe_host_gap`: a pool's blocking read of one step to its
+  next dispatch, on ``time.perf_counter``);
 - **counters** — submissions, admissions, completions, structured rejections
   (`rejected:<reason>`), steps, early host-side stagings (the async-pipelining
   overlap hits);
@@ -21,10 +23,12 @@ One `ServeMetrics` instance rides along an engine and its scheduler/pools:
 - **engine surfacing** — `summary()` snapshots the Gaunt engine's
   `timing_runs` counter (``engine_timing_runs``), so a serve deployment can
   see mid-traffic autotune timing passes (there must be none after warmup)
-  without instrumenting the model.  The reference also snapshots its
-  basis-conversion counters (``conversions``); the port has no conversion
-  counters yet (its `core/rep.py` counts nothing), so that key is left out
-  rather than reported as an empty count.
+  without instrumenting the model, and the basis-conversion counters of
+  `core/rep.py` (``conversions``; a bucket's graph adds its conversions at
+  each replay), as the reference does;
+- **spans** — with the port's spans on (`repro_torch.spans`), `summary()`
+  gives each span's totals in the process: ``span:<name>:device_ms``,
+  ``span:<name>:host_ms`` and ``span:<name>:calls``.
 
 Everything is plain host-side Python (no device work, no locks — the serving
 loop is single-threaded by design); a fake clock can be injected for tests.
@@ -35,7 +39,9 @@ import collections
 import time
 from typing import Optional
 
+from .. import spans as _spans
 from ..core import engine as _engine
+from ..core import rep as _rep
 from ..distributed.fault_tolerance import StragglerMonitor
 
 __all__ = ["ServeMetrics", "percentile"]
@@ -67,6 +73,9 @@ class ServeMetrics:
         self.service_s: list[float] = []
         self.total_s: list[float] = []
         self.step_s: list[float] = []
+        # (end, seconds) of each host gap, and when the samples were reset
+        self.host_gap: list[tuple[float, float]] = []
+        self._reset_at = time.perf_counter()
         # per-step gauge samples
         self.occupancy: list[tuple[int, int]] = []   # (active, n_slots)
         self.atoms_real = 0        # sum over steps of real atoms evaluated
@@ -89,6 +98,8 @@ class ServeMetrics:
         self.service_s.clear()
         self.total_s.clear()
         self.step_s.clear()
+        self.host_gap.clear()
+        self._reset_at = time.perf_counter()
         self.occupancy.clear()
         self.atoms_real = self.atoms_padded = 0
         self.per_pool.clear()
@@ -141,6 +152,13 @@ class ServeMetrics:
         if self.straggler.record(self.counters["steps"], dur_s):
             self.counters["straggler_steps"] += 1
             pc["straggler_steps"] += 1
+
+    def observe_host_gap(self, start: float, end: float) -> None:
+        """A pool's host seconds from its last blocking read to its next
+        dispatch (``time.perf_counter`` at each end); a gap that began
+        before the last `reset` belongs to no window and is not kept."""
+        if start >= self._reset_at:
+            self.host_gap.append((end, end - start))
 
     # ------------------------------------------------------ fault tolerance
     def observe_step_failure(self, pool: str, kind: str) -> None:
@@ -206,8 +224,9 @@ class ServeMetrics:
 
     def summary(self) -> dict:
         """One flat dict for logging / bench records — latency percentiles,
-        gauges, counters, and the engine's autotune timing runs snapshotted
-        at call time."""
+        gauges, counters, and the engine's autotune timing runs, the
+        conversion counters and the span totals snapshotted at call time
+        (the spans' read waits for the device)."""
         out = {
             "submitted": self.counters["submitted"],
             "admitted": self.counters["admitted"],
@@ -244,6 +263,12 @@ class ServeMetrics:
             if k.startswith(("rejected:", "step_failures:", "retries:",
                              "failovers:")):
                 out[k] = v
-        # engine-side counter: mid-serve timing passes (zero after warmup)
+        # engine-side counters: mid-serve timing passes (zero after warmup)
+        # and basis conversions
         out["engine_timing_runs"] = _engine.get_engine().timing_runs
+        out["conversions"] = dict(_rep.conversion_stats())
+        for name, t in _spans.totals().items():
+            out[f"span:{name}:device_ms"] = t["device_s"] * 1e3
+            out[f"span:{name}:host_ms"] = t["host_s"] * 1e3
+            out[f"span:{name}:calls"] = t["calls"]
         return out

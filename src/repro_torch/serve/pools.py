@@ -40,6 +40,16 @@ replay of the bucket — and retires finished requests or advances
 relaxations.  Between the two the engine runs the scheduler's admission
 pass and stages other pools.
 
+What a step is made of shows in the port's spans (`repro_torch.spans`):
+with spans on at a bucket's capture, its graph holds a timed event pair
+for each stage of `_forward` (``evaluate``, ``energy``, the model's
+stages, ``force_backward``), read after each replay's blocking read; the
+host's round shows as ``stage``, ``replay``, ``wait_outputs``,
+``retire`` and ``host_gap``, the host's time from one step's blocking
+read to the bucket's next dispatch, which `ServeMetrics.observe_host_gap`
+keeps with spans off too.  A graph's kernel launches and basis
+conversions are counted at each replay (`launches`, `conversions`).
+
 Step-level fault tolerance: the host slot arrays are the source of truth,
 so recovery from a failed step is cheap — mark the device inputs stale and
 stage again.  A step that raises, exceeds the pool's watchdog deadline
@@ -64,6 +74,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import spans
+from ..core.rep import add_conversions, conversion_stats
 from ..kernels.gaunt_fused import add_kernel_launches, kernel_stats
 from . import faults
 
@@ -140,6 +152,9 @@ class SlotPool:
         self._graph = None
         self._outputs = None
         self.launches: dict = {}       # kernel launches per replay
+        self.conversions: dict = {}    # basis conversions per replay
+        self._span_events: list = []   # the graph's timed spans (spans on at capture)
+        self._waited_at = None         # perf_counter at the end of the last blocking read
         self.capture_s: float | None = None
         self.graph_bytes: int | None = None
         self.replays = 0
@@ -204,9 +219,12 @@ class SlotPool:
         """Masked energies [S] and forces [S, n, 3] of a slot batch: one
         backward of the summed energies.  The body each bucket's graph
         captures."""
-        e = self.model.energy_masked(species, pos, mask)
-        (g,) = torch.autograd.grad(e.sum(), pos)
-        return e.detach(), -g
+        with spans.span("evaluate", pos):
+            with spans.span("energy", pos):
+                e = self.model.energy_masked(species, pos, mask)
+            with spans.span("force_backward", pos):
+                (g,) = torch.autograd.grad(e.sum(), pos)
+            return e.detach(), -g
 
     def evaluate(self, species: np.ndarray, pos: np.ndarray, mask: np.ndarray):
         """The eager step on host slot arrays: masked energies [S] and forces
@@ -238,7 +256,8 @@ class SlotPool:
         (another pool's step in flight), counted so the overlap shows."""
         if self._staged and not self._dirty:
             return
-        self._upload(self.species, self.pos, self.mask)
+        with spans.span("stage"):
+            self._upload(self.species, self.pos, self.mask)
         self._staged, self._dirty = True, False
         if early and self.metrics is not None:
             self.metrics.observe_staged_early(self.spec.label())
@@ -276,9 +295,10 @@ class SlotPool:
             torch.cuda.empty_cache()   # as the capture does: its pool alone grows
             graph = torch.cuda.CUDAGraph()
             before, reserved = kernel_stats(), torch.cuda.memory_reserved(dev)
+            conv_before = dict(conversion_stats())
             t0 = time.perf_counter()
             # no pool argument: the graph gets its own memory pool
-            with torch.cuda.graph(graph):
+            with spans.capture() as span_events, torch.cuda.graph(graph):
                 outputs = self._forward(*self._inputs)
             torch.cuda.synchronize(dev)
             self.capture_s = time.perf_counter() - t0
@@ -290,7 +310,11 @@ class SlotPool:
         self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         # a capture records the kernels and launches none: only replays count
         add_kernel_launches({k: -v for k, v in self.launches.items()})
-        self._graph, self._outputs = graph, outputs
+        conv_after = conversion_stats()
+        self.conversions = {k: conv_after[k] - conv_before[k] for k in conv_after
+                            if conv_after[k] != conv_before[k]}
+        add_conversions({k: -v for k, v in self.conversions.items()})
+        self._graph, self._outputs, self._span_events = graph, outputs, span_events
 
     def step_staged(self):
         """Run the bucket's step on the staged inputs -> (energy, forces)
@@ -299,9 +323,11 @@ class SlotPool:
         self._ensure_step()
         if self._graph is None:
             return self._forward(*self._inputs)
-        self._graph.replay()
+        with spans.span("replay"):
+            self._graph.replay()
         self.replays += 1
         add_kernel_launches(self.launches)
+        add_conversions(self.conversions)
         return self._outputs
 
     def warmup_compile(self) -> None:
@@ -334,6 +360,15 @@ class SlotPool:
             return None
         self.stage()
         self._ensure_step()
+        if self._waited_at is not None:
+            # the host's time since the last blocking read, in which the
+            # device had nothing of this bucket's to run (with no request
+            # waiting, the wait for one too)
+            now = time.perf_counter()
+            if self.metrics is not None:
+                self.metrics.observe_host_gap(self._waited_at, now)
+            spans.observe("host_gap", self._waited_at, now)
+            self._waited_at = None
         t0 = self.clock()
         try:
             e, f = self.step_staged()
@@ -352,11 +387,20 @@ class SlotPool:
         the offending slots (a batch that fails as a whole is bisected
         first)."""
         try:
-            e = h.energy.cpu().numpy()   # blocks until the device is done
-            f = h.forces.cpu().numpy()
+            with spans.span("wait_outputs"):
+                e = h.energy.cpu().numpy()   # blocks until the device is done
+                f = h.forces.cpu().numpy()
         except Exception:
             self._on_step_failure(h.active, "step_raised")
             return []
+        self._waited_at = time.perf_counter()
+        if self._span_events:
+            spans.add_replay(self._span_events)
+        with spans.span("retire"):
+            return self._retire(h, e, f)
+
+    def _retire(self, h: _Inflight, e: np.ndarray, f: np.ndarray) -> list:
+        """`finish_step` once the outputs are on the host."""
         dur = self.clock() - h.t0
         timed_out = (self.step_timeout_s is not None
                      and dur > self.step_timeout_s)

@@ -35,6 +35,8 @@ import heapq
 import time
 from typing import Callable, Optional
 
+from .. import spans
+
 __all__ = ["AdmissionQueue", "Scheduler",
            "REASON_DEADLINE", "REASON_INVALID", "REASON_TOO_LARGE"]
 
@@ -138,6 +140,10 @@ class Scheduler:
         Touches only host state (queue bookkeeping + slot-array writes), so
         the engine step may safely run it as the ``overlap`` callback while
         a device step is in flight.  Returns the number admitted."""
+        with spans.span("admit"):
+            return self._admit_ready()
+
+    def _admit_ready(self) -> int:
         now = self.clock()
         for req in self.queue.expire(now):
             self._reject(req, REASON_DEADLINE,
@@ -173,6 +179,10 @@ class Scheduler:
         handing `admit_ready` (plus the optional ``poll`` arrival hook) to
         the step as its overlap callback, so the next batch is built while
         the device computes the current one.  True while work remains."""
+        with spans.span("pump"):
+            return self._pump(poll)
+
+    def _pump(self, poll) -> bool:
         def overlap():
             if poll is not None:
                 poll()

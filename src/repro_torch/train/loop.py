@@ -58,6 +58,7 @@ from ..checkpoint import CheckpointManager
 from ..config import TrainConfig
 from ..distributed.fault_tolerance import Heartbeat, PreemptionGuard, StragglerMonitor
 from ..optim import adamw, apply_updates, clip_by_global_norm, cosine_schedule
+from ..spans import span
 
 __all__ = ["TrainState", "make_train_step", "train_loop"]
 
@@ -78,17 +79,22 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig, optimizer=None):
 
     With ``tcfg.microbatch > 1`` the batch's leading axis splits into that
     many microbatches, taken in order; the loss and the float32 gradients
-    accumulate divided by their count, as in the reference."""
+    accumulate divided by their count, as in the reference.  The step's
+    stages are spans (`repro_torch.spans`): ``loss``, ``param_grad``,
+    ``clip``, ``optimizer``."""
     opt = optimizer or adamw(
         cosine_schedule(tcfg.lr, tcfg.warmup_steps, tcfg.total_steps),
         tcfg.b1, tcfg.b2, tcfg.eps, tcfg.weight_decay,
     )
 
     def grads_of(model, params: dict, batch):
-        loss, metrics = loss_fn(model, batch)
-        gs = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        grads = {k: torch.zeros_like(p) if g is None else g
-                 for (k, p), g in zip(params.items(), gs)}
+        on = next(iter(params.values()), None)
+        with span("loss", on):
+            loss, metrics = loss_fn(model, batch)
+        with span("param_grad", on):
+            gs = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+            grads = {k: torch.zeros_like(p) if g is None else g
+                     for (k, p), g in zip(params.items(), gs)}
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def update(opt_state, grads: dict, params: dict):
@@ -126,8 +132,11 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig, optimizer=None):
     def step(model, opt_state, batch):
         params = dict(model.named_parameters())
         loss, metrics, grads = loss_and_grads(model, params, batch)
-        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
-        opt_state = update(opt_state, grads, params)
+        on = next(iter(params.values()), None)
+        with span("clip", on):
+            grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+        with span("optimizer", on):
+            opt_state = update(opt_state, grads, params)
         return opt_state, dict(metrics, loss=loss, grad_norm=gnorm)
 
     step.loss_and_grads = loss_and_grads
