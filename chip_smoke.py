@@ -83,8 +83,16 @@ result line):
      each bucket's graph and eager step against [main]'s eSCN step, a
      profiled 32-atom graph step, a fresh engine warm from the phase's
      autotune file, 6 `train_loop` steps and a kernel- vs tree-pinned step
-     (`[general]`); `plan(kind='manybody')` on each of its five backends at
-     8,192 rows against the tree chain, forward and gradients, ms a call,
+     (`[general]`; the direct conv's forward and adjoint launches a layer
+     in each graph and through the replays); the direct conv's kernel pair
+     against its plain versions at odd shapes (generic kernels and
+     complex128 too) and at the served shape, forward, both adjoints and
+     the double backward, then its device times against the bound, the
+     plain shift-and-add and the fft route (`[direct]`, `[times] direct
+     conv`; the kernels line's `direct_conv` launches are the served
+     general run's forward and adjoint launches); `plan(kind='manybody')`
+     on each of its five backends at 8,192 rows against the tree chain,
+     forward and gradients, ms a call,
      and `plan_batch` with two Ls buckets (`[manybody]`); `calibrate_fused`
      at f32 and bf16, reloaded measured, and the offline `--fast` sweep
      then `--verify-warm` with zero timing runs (`[calibrate]`); the
@@ -213,6 +221,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1649,7 +1658,9 @@ def phase_general(device, cfg, buckets, sizes, escn_times=None, train_steps=GENE
     one chain launch a layer a replay, each bucket's graph and eager step
     against [main]'s eSCN step (``escn_times``), a profiled 32-atom graph
     step, a fresh engine warm from this phase's autotune file; then a few
-    `train_loop` steps and a kernel- vs tree-pinned step."""
+    `train_loop` steps and a kernel- vs tree-pinned step.  -> the served
+    run's launches of 'gaunt_chain', 'direct_conv' and
+    'direct_conv_adjoint', counted through the graphs' replays."""
     import os
     import tempfile
 
@@ -1684,8 +1695,8 @@ def phase_general(device, cfg, buckets, sizes, escn_times=None, train_steps=GENE
         print(f"[general] bucket {pool.spec.label()}: conv backend {conv.backend!r} "
               f"(resident filter: a dense {2 * gcfg.L_edge + 1}x{2 * gcfg.L_edge + 1} grid "
               f"per edge, built once per geometry; {pool.spec.n_slots * n * n * gcfg.channels:,}"
-              f" edge-channel rows a layer, {(2 * gcfg.L_edge + 1) ** 2} shifted "
-              f"{2 * gcfg.L + 1}x{2 * gcfg.L + 1} copies into a "
+              f" edge-channel rows a layer, each a direct {2 * gcfg.L + 1}x{2 * gcfg.L + 1} "
+              f"(*) {2 * gcfg.L_edge + 1}x{2 * gcfg.L_edge + 1} convolution into a "
               f"{2 * (gcfg.L + gcfg.L_edge) + 1}-wide grid); chain pick "
               f"{picks[pool.spec.label()]}"
               + (f"; graph captured in {pool.capture_s * 1e3:.1f} ms, graph memory "
@@ -1698,22 +1709,35 @@ def phase_general(device, cfg, buckets, sizes, escn_times=None, train_steps=GENE
                 check(pool.launches.get("gaunt_chain") == gcfg.n_layers,
                       f"[general] bucket {pool.spec.label()}: {pool.launches} chain "
                       f"launches per replay, not one a layer")
+            # the direct conv: a forward a layer, and in the force backward
+            # one adjoint pass a layer for both of its gradients
+            check(pool.launches.get("direct_conv") == gcfg.n_layers
+                  and pool.launches.get("direct_conv_adjoint") == gcfg.n_layers,
+                  f"[general] bucket {pool.spec.label()}: {pool.launches} direct conv "
+                  f"launches per replay, not a forward and an adjoint a layer")
     reqs = make_requests(sizes, gcfg.n_species, seed=100)
     replays = [p.replays for p in eng.pools]
     reset_kernel_stats()
     eng.run(reqs)
     if cuda:
         torch.cuda.synchronize()
-    launches = kernel_stats()["gaunt_chain"]
+    stats = kernel_stats()
+    launches = stats["gaunt_chain"]
     per_bucket = {p.spec.label(): (p.replays - r0, p.launches.get("gaunt_chain", 0)
                                    * (p.replays - r0)) for p, r0 in zip(eng.pools, replays)}
-    print(f"[general] served {len(reqs)} requests: gaunt_chain launches {launches} "
-          f"(counted through graph replays; per bucket (replays, launches): {per_bucket})")
+    print(f"[general] served {len(reqs)} requests: gaunt_chain launches {launches}, "
+          f"direct_conv {stats['direct_conv']}, direct_conv_adjoint "
+          f"{stats['direct_conv_adjoint']} (counted through graph replays; per bucket "
+          f"(replays, chain launches): {per_bucket})")
     check(all(r.done and not r.rejected for r in reqs), "[general] a request did not complete")
     if cuda:
         check(launches == sum(v for _, v in per_bucket.values()) and launches > 0,
               f"[general] gaunt_chain launches {launches} differ from the graphs' "
               f"replays {per_bucket}")
+        steps = sum(r for r, _ in per_bucket.values())
+        check(stats["direct_conv"] == stats["direct_conv_adjoint"] == steps * gcfg.n_layers,
+              f"[general] direct conv launches {stats} differ from a forward and an "
+              f"adjoint a layer in each of the {steps} replays")
     worst_e, worst_f = served_vs_direct(model, reqs, device)
     print(f"[general] served vs direct: energy rel {worst_e:.3e} (tol {F32_IDENTITY_TOL}), "
           f"forces rel {worst_f:.3e} (tol {F32_LOOSE_TOL})")
@@ -1784,7 +1808,7 @@ def phase_general(device, cfg, buckets, sizes, escn_times=None, train_steps=GENE
         del weng, warm
     del eng
     # training through the general conv: the loss's double backward runs
-    # through the direct 2D convolution's slice adds
+    # through the direct 2D convolution's kernel pair
     tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=train_steps,
                        log_every=1, grad_clip=10.0)
 
@@ -1834,7 +1858,155 @@ def phase_general(device, cfg, buckets, sizes, escn_times=None, train_steps=GENE
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    return launches
+    return {k: stats[k] for k in ("gaunt_chain", "direct_conv", "direct_conv_adjoint")}
+
+
+# the direct conv at the general conv's served shape: 16 slots x 32 x 32
+# atom pairs (edges), 256 channels, a 5 x 5 feature grid (L = 2) per channel
+# and a 7 x 7 filter grid (L_edge = 3) shared by an edge's channels
+DIRECT_LEAD = (16, 32, 32, 256)
+DIRECT_SIZES = (5, 7)
+# the odd shapes of the tests: (n1, n2), lead of F1, lead of F2
+DIRECT_CASES = [((5, 7), (64, 40), (64, 1)), ((7, 5), (64, 40), (64, 1)),
+                ((3, 9), (64, 40), (64, 40)), ((9, 9), (8, 1), (8, 33)),
+                ((5, 11), (16, 40), (16, 1)), ((4, 6), (3, 5), (3, 5))]
+
+
+def _direct_grids(lead1, lead2, n1, n2, device, seed, dtype="complex64"):
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    return (torch.randn(*lead1, n1, n1, dtype=dt, device=device, generator=g),
+            torch.randn(*lead2, n2, n2, dtype=dt, device=device, generator=g))
+
+
+def compare_direct_conv(A, B, second: bool = True):
+    """`full_conv` (the kernel pair on CUDA tensors) against the plain
+    versions on the same tensors: the forward, both adjoints (one random
+    output gradient) and, with ``second``, the double backward against
+    autograd through the plain shift-and-add.  -> (forward rel, adjoint
+    rel, double backward rel or None, forward max abs error)."""
+    import torch
+    from repro_torch.kernels.direct_conv import full_conv, full_conv_plain, valid_corr_plain
+
+    def rel(got, want):
+        return float((got - want).abs().max()) / max(1e-30, float(want.abs().max()))
+
+    with torch.no_grad():
+        want = full_conv_plain(A, B)
+        got = full_conv(A, B)
+        fwd, err = rel(got, want), float((got - want).abs().max())
+        del got
+    a, b = A.detach().requires_grad_(True), B.detach().requires_grad_(True)
+    gO = torch.randn_like(want)
+    del want
+    gA, gB = torch.autograd.grad(full_conv(a, b), (a, b), gO)
+    with torch.no_grad():
+        wA = valid_corr_plain(gO, B.conj())
+        wB = valid_corr_plain(gO, A.conj())
+        wA = wA.sum_to_size(A.shape)
+        wB = wB.sum_to_size(B.shape)
+    adj = max(rel(gA, wA), rel(gB, wB))
+    del gA, gB, wA, wB, gO
+    dbl = None
+    if second:
+        outs = []
+        for fn in (full_conv, full_conv_plain):
+            a, b = A.detach().requires_grad_(True), B.detach().requires_grad_(True)
+            O = fn(a, b)
+            ga, gb = torch.autograd.grad((O.abs() ** 2).sum(), (a, b), create_graph=True)
+            s = (ga.abs() ** 2).sum() + (gb.abs() ** 2).sum()
+            outs.append(torch.autograd.grad(s, (a, b)))
+        dbl = max(rel(outs[0][0], outs[1][0]), rel(outs[0][1], outs[1][1]))
+    return fwd, adj, dbl, err
+
+
+def phase_direct_conv(device, lead=DIRECT_LEAD, cases=DIRECT_CASES):
+    """The direct 2D convolution's kernel pair (`kernels/direct_conv.py`)
+    against its plain versions on the card: the odd shapes (the generic
+    kernels at (5, 11), (4, 6) and complex128), then the served shape
+    ``lead`` (F1 [*lead, 5, 5], F2 [*lead[:-1], 1, 7, 7]): forward, both
+    adjoints, the double backward on one edge-slot; a check that one
+    forward and backward launch one kernel each; then device times against
+    the bound, the plain shift-and-add and the fft route of `conv2d_full`.
+    -> the kernels line's entry, without its launches (those of the main
+    path: `phase_general`'s served run)."""
+    import torch
+    from repro_torch.core.gaunt import conv2d_full
+    from repro_torch.kernels.direct_conv import (full_conv, full_conv_plain, launch_adjoint,
+                                                 launch_full_conv)
+    from repro_torch.kernels.gaunt_fused import kernel_stats, reset_kernel_stats
+
+    cuda = device.type == "cuda"
+    for i, ((n1, n2), l1, l2) in enumerate(cases):
+        for dtype in ("complex64", "complex128"):
+            A, B = _direct_grids(l1, l2, n1, n2, device, seed=i, dtype=dtype)
+            fwd, adj, dbl, _ = compare_direct_conv(A, B)
+            tol = F32_IDENTITY_TOL if dtype == "complex64" else 1e-12
+            ok = fwd <= tol and adj <= tol and dbl <= tol
+            print(f"[direct] {dtype} {n1}x{n1} (*) {n2}x{n2}, F1 lead {l1}, F2 lead {l2}: "
+                  f"forward rel {fwd:.3e}, adjoint rel {adj:.3e}, double backward rel "
+                  f"{dbl:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"[direct] the kernel pair differs from its plain version at "
+                      f"{n1}x{n2} {dtype}")
+    n1, n2 = DIRECT_SIZES
+    A, B = _direct_grids(lead, lead[:-1] + (1,), n1, n2, device, seed=99)
+    fwd, adj, _, err = compare_direct_conv(A, B, second=False)
+    a1, b1 = A[:1, :1].contiguous(), B[:1, :1].contiguous()
+    _, _, dbl, _ = compare_direct_conv(a1, b1)
+    ok = fwd <= F32_IDENTITY_TOL and adj <= F32_IDENTITY_TOL and dbl <= F32_IDENTITY_TOL
+    print(f"[direct] served shape F1 {list(A.shape)} (*) F2 {list(B.shape)}: forward rel "
+          f"{fwd:.3e} (max abs {err:.3e}), adjoint rel {adj:.3e}, double backward rel "
+          f"{dbl:.3e} on one slot's edges (tol {F32_IDENTITY_TOL}) {'ok' if ok else 'FAIL'}")
+    check(ok, "[direct] the kernel pair differs from its plain version at the served shape")
+    a, b = A.detach().requires_grad_(True), B.detach().requires_grad_(True)
+    reset_kernel_stats()
+    out = full_conv(a, b)
+    torch.autograd.grad(out, (a, b), torch.ones_like(out))
+    stats = kernel_stats()
+    print(f"[direct] one forward and backward at the served shape: direct_conv "
+          f"{stats['direct_conv']}, direct_conv_adjoint {stats['direct_conv_adjoint']} "
+          f"launches")
+    if cuda:
+        check(stats["direct_conv"] == 1 and stats["direct_conv_adjoint"] == 1,
+              f"[direct] launches {stats}: not one forward and one adjoint")
+    del out, a, b
+    entry = {"max_abs_err": err, "ms": None, "adjoint_ms": None,
+             "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None}
+    if not cuda:
+        return entry
+    E, C = math.prod(lead[:-1]), lead[-1]
+    A4, B4 = A.reshape(E, C, n1, n1), B.reshape(E, 1, n2, n2)
+    N = n1 + n2 - 1
+    G4 = torch.randn(E, C, N, N, dtype=A.dtype, device=device)
+    fwd_k = device_ms(lambda: launch_full_conv(A4, B4))
+    adj_k = device_ms(lambda: launch_adjoint(G4, B4.conj(), A4.conj(), C, 1))
+    del G4
+    ev_k = event_ms(lambda: launch_full_conv(A4, B4), reps=20)
+    plain = event_ms(lambda: full_conv_plain(A, B), reps=5)
+    library = event_ms(lambda: conv2d_full(A, B, "fft"), reps=5)
+    el = A.element_size()
+    nbytes = el * (A.numel() + B.numel() + E * C * N * N)
+    flops = 8.0 * E * C * n1 * n1 * n2 * n2
+    bound_ms, bound_by = bound_of(flops, nbytes)
+    adj_bytes = el * (E * C * N * N + 2 * A.numel() + 2 * B.numel())
+    adj_bound, adj_by = bound_of(2 * flops, adj_bytes)
+    fwd_ms = fwd_k if fwd_k is not None else ev_k
+    print(f"[times] direct conv {n1}x{n1} (*) {n2}x{n2}, {E:,} edges x {C} channels, "
+          f"complex64: forward {fwd_ms:.4f} ms device ({'torch.profiler, 20 calls' if fwd_k is not None else 'CUDA events: the profiler saw no device time'}; "
+          f"events {ev_k:.4f} ms), bound {bound_ms:.4f} ms by {bound_by} "
+          f"({nbytes / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP), {bound_ms / fwd_ms * 100:.1f}% "
+          f"of bound; adjoint (gA and the channel-summed gB) "
+          + (f"{adj_k:.4f} ms device, bound {adj_bound:.4f} ms by {adj_by} "
+             f"({adj_bytes / 1e9:.3f} GB), {adj_bound / adj_k * 100:.1f}% of bound"
+             if adj_k is not None else "not measured")
+          + f"; plain shift-and-add forward {plain:.3f} ms, conv2d_full fft route "
+          f"{library:.3f} ms (CUDA events, median of 5)")
+    print_registers("direct", "direct_conv")
+    entry.update(ms=fwd_ms, adjoint_ms=adj_k, plain_ms=plain, bound_ms=bound_ms,
+                 bound_by=bound_by, library_ms=library)
+    return entry
 
 
 def phase_manybody(device, rows: int = MANYBODY_ROWS):
@@ -2045,16 +2217,35 @@ def _device_us(e) -> float:
     return 0.0
 
 
+def _per_call_us(events, reps: int, keep=None):
+    """Device microseconds a call from the profiler's kernel events of
+    ``reps`` calls (those ``keep`` accepts): each kernel's mean over the
+    launches the profiler kept, times its launches a call (its count over
+    ``reps``, rounded); None when a kernel kept under half of them.  The
+    profiler now and then loses the first kernels of its window, so the
+    summed time over ``reps`` would read low (16 of 20 calls kept: 0.8 of
+    the time)."""
+    total = 0.0
+    for e in events:
+        if keep is not None and not keep(e):
+            continue
+        launches = round(e.count / reps)
+        if launches == 0:
+            return None
+        total += _device_us(e) / e.count * launches
+    return total
+
+
 def device_ms(fn, reps: int = 20):
-    """GPU time per call from torch.profiler: the summed device time of the
-    kernels ``fn`` launches, over ``reps`` calls; None when two profiled
-    runs in a row record no device time (then only the event times
-    stand).  A profiled run now and then records none; the second is a
-    retry."""
+    """GPU time per call from torch.profiler: the device time of the
+    kernels ``fn`` launches, a call (`_per_call_us` over ``reps`` calls);
+    None when two profiled runs in a row record no device time (then only
+    the event times stand).  A profiled run now and then records none; the
+    second is a retry."""
     for _ in range(2):
-        total = sum(_device_us(e) for e in _profiled_kernels(fn, reps))
-        if total > 0:
-            return total / reps / 1e3
+        us = _per_call_us(_profiled_kernels(fn, reps), reps)
+        if us:
+            return us / 1e3
     return None
 
 
@@ -2777,15 +2968,16 @@ def _pass_ms(calls: dict, kernels: tuple, reps: int = 20):
     ({element type of the kernels' inputs as their names spell it
     ('__nv_bfloat16', 'float'): a call}); ``kernels`` names the two passes
     (state pass, output pass) -> {type: (both, state pass, output pass)},
-    or None when the profiler records no device time."""
+    or None when the profiler records no device time (`_per_call_us`)."""
     events = _profiled_kernels(lambda: [fn() for fn in calls.values()], reps)
     out = {}
     for t in calls:
-        state, outp = (sum(_device_us(e) for e in events
-                           if f"{name}<{t}," in e.key or f"{name}<{t}>" in e.key)
-                       / reps / 1e3 for name in kernels)
-        out[t] = (state + outp, state, outp)
-    return out if all(v[0] > 0 for v in out.values()) else None
+        state, outp = (_per_call_us(events, reps, lambda e, n=name: f"{n}<{t}," in e.key
+                                    or f"{n}<{t}>" in e.key) for name in kernels)
+        if not state or not outp:
+            return None
+        out[t] = ((state + outp) / 1e3, state / 1e3, outp / 1e3)
+    return out
 
 
 WKV6_PASSES = ("wkv6_state_kernel", "wkv6_out_kernel")
@@ -4488,7 +4680,8 @@ def main() -> int:
         phase_batched(device)
         phase_policies(device, buckets, sizes)
         # the paper's general convolution, the manybody plans, calibration
-        phase_general(device, cfg, buckets, sizes, escn_times)
+        general = phase_general(device, cfg, buckets, sizes, escn_times)
+        direct = phase_direct_conv(device)
         phase_manybody(device)
         phase_calibrate(device)
         phase_quickstart(device)
@@ -4630,6 +4823,13 @@ def main() -> int:
         "bound_ms": ssd_bound_ms,
         "bound_by": ssd_bound_by,
         "library_ms": None,
+    }, {
+        "name": "direct_conv",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/direct_conv.cu",
+        "replaces": None,
+        "launches": general["direct_conv"] + general["direct_conv_adjoint"],
+        **direct,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

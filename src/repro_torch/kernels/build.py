@@ -27,7 +27,8 @@ _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"gaunt_chain": _CSRC / "gaunt_chain.cu",
            "gaunt_pair": _CSRC / "gaunt_pair.cu",
            "wkv6": _CSRC / "wkv6.cu",
-           "mamba2_ssd": _CSRC / "mamba2_ssd.cu"}
+           "mamba2_ssd": _CSRC / "mamba2_ssd.cu",
+           "direct_conv": _CSRC / "direct_conv.cu"}
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LOADED: dict[str, ctypes.CDLL] = {}

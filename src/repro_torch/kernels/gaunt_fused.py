@@ -76,19 +76,31 @@ __all__ = [
     "kernel_stats",
     "reset_kernel_stats",
     "add_kernel_launches",
+    "register_kernel_counters",
 ]
 
 # launches of each CUDA kernel and storage mode since the last reset
 # (ticked in `launch_chain_kernel` / `launch_pair_kernel`, once per kernel
-# launch, and by a CUDA graph's replay: `add_kernel_launches`)
+# launch, by the wrappers of other modules that register their counters,
+# and by a CUDA graph's replay: `add_kernel_launches`)
 _STATS = {"gaunt_chain": 0, "gaunt_chain_bf16": 0, "gaunt_pair": 0, "gaunt_pair_bf16": 0}
 
 
 def kernel_stats() -> dict:
     """Launches since the last reset per kernel and storage mode:
     'gaunt_chain' and 'gaunt_pair' at f32, 'gaunt_chain_bf16' and
-    'gaunt_pair_bf16' at bf16."""
+    'gaunt_pair_bf16' at bf16, and the counters other wrappers register
+    (`register_kernel_counters`: the direct conv's 'direct_conv' and
+    'direct_conv_adjoint')."""
     return dict(_STATS)
+
+
+def register_kernel_counters(*names: str) -> None:
+    """Add counters of another module's kernels to `kernel_stats`, at zero
+    (a name already there keeps its count); the module ticks them with
+    `add_kernel_launches`."""
+    for k in names:
+        _STATS.setdefault(k, 0)
 
 
 def reset_kernel_stats() -> None:

@@ -307,7 +307,8 @@ class SlotPool:
             if collecting:
                 gc.enable()
         after = kernel_stats()
-        self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        self.launches = {k: after[k] - before.get(k, 0) for k in after
+                         if after[k] != before.get(k, 0)}
         # a capture records the kernels and launches none: only replays count
         add_kernel_launches({k: -v for k, v in self.launches.items()})
         conv_after = conversion_stats()
