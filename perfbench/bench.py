@@ -2,12 +2,18 @@
 guards, the device record, and the result line.
 
 A cell of ``BENCHMARK.json`` names a configuration (``configs/<name>.json``:
-the model's sizes and settings, its weights' init) and a traffic mix
-(``traffic/<name>.json``: whose ``kind`` picks the driver, ``serve`` or
-``train``, and whose parameters drive it); its limits are
+its ``family``, the model's sizes and settings, its weights' init) and a
+traffic mix (``traffic/<name>.json``: whose ``kind`` names the run kind's
+module, ``<kind>.py``, and whose parameters drive it); its limits are
 ``limits/<cell>.json``; each metric is read by ``metrics/<metric>.py``
-(``read(run) -> number | None``).  A later cell, mix or metric is a new
-file and a new manifest entry.
+(``read(run) -> number | None``).  A configuration's ``family`` names
+``families/<family>.py``: everything that belongs to one model (its
+weights, the port's model, its plain reference, its inputs, its counts of
+work), which the run kinds call and never name.  A later configuration,
+family, run kind, mix or metric is a new file and a new manifest entry.
+
+Each file is looked up under the directories of `ROOTS` in order (the
+package's own directory; tests put another before it).
 """
 from __future__ import annotations
 
@@ -19,12 +25,17 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+ROOTS = [HERE]
 CACHE_DIR = HERE / ".cache"
 AUTOTUNE_CACHE = CACHE_DIR / "autotune.json"
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
-__all__ = ["manifest", "cell", "config", "traffic", "limits", "metrics_of", "metric_reader",
-           "forbidden_modules", "device_record", "emit", "fail", "finite"]
+__all__ = ["manifest", "cell", "config", "traffic", "limits", "family", "kind",
+           "metrics_of", "metric_reader", "port_spans", "forbidden_modules", "device_record",
+           "emit", "fail", "finite"]
+
+# what every family gives; each run kind lists what else it calls (``FAMILY``)
+FAMILY = ("make_weights", "build", "reference")
 
 
 def _json(path: Path) -> dict:
@@ -44,16 +55,58 @@ def cell(name: str, man: dict | None = None) -> dict:
     raise SystemExit(f"unknown workload {name!r}")
 
 
+def _found(sub: str, name: str, suffix: str = ".json") -> Path:
+    """``<root>/<sub>/<name><suffix>`` under the first of `ROOTS` that has
+    it; a name found nowhere stops the run, naming it."""
+    for root in ROOTS:
+        path = root / sub / f"{name}{suffix}"
+        if path.is_file():
+            return path
+    raise SystemExit(f"perfbench: no {sub}/{name}{suffix} under "
+                     f"{', '.join(map(str, ROOTS))}")
+
+
 def config(name: str) -> dict:
-    return _json(HERE / "configs" / f"{name}.json")
+    return _json(_found("configs", name))
 
 
 def traffic(name: str) -> dict:
-    return _json(HERE / "traffic" / f"{name}.json")
+    return _json(_found("traffic", name))
 
 
 def limits(cell_name: str) -> dict:
-    return _json(HERE / "limits" / f"{cell_name}.json")
+    return _json(_found("limits", cell_name))
+
+
+def _from_file(path: Path, module_name: str):
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _module(path: Path, sub: str, name: str):
+    """The module of ``path`` (``<root>/<sub>/<name>.py``): the package's
+    own imported as such, another root's loaded from its file."""
+    dotted = name if sub == "." else f"{sub}.{name}"
+    if path.parent.resolve() == (HERE / sub).resolve():
+        return importlib.import_module(f"perfbench.{dotted}")
+    return _from_file(path, "perfbench_" + dotted.replace(".", "_"))
+
+
+def family(name: str):
+    """The module ``families/<name>.py``: one model's weights, port model,
+    plain reference, inputs and counts of work."""
+    return _module(_found("families", name, ".py"), "families", name)
+
+
+def kind(name: str):
+    """The module ``<name>.py`` that drives a traffic mix of kind ``name``
+    (its ``run``, and ``FAMILY``: what it calls of a family)."""
+    mod = _module(_found(".", name, ".py"), ".", name)
+    if not hasattr(mod, "run") or not hasattr(mod, "FAMILY"):
+        raise SystemExit(f"perfbench: {name}.py is no run kind (no run and FAMILY)")
+    return mod
 
 
 def metrics_of(cell_name: str, trace: bool, man: dict | None = None) -> list:
@@ -67,11 +120,16 @@ def metrics_of(cell_name: str, trace: bool, man: dict | None = None) -> list:
 
 def metric_reader(name: str):
     """``metrics/<name>.py``'s ``read``."""
-    path = HERE / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location("perfbench_metric_" + name.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    path = _found("metrics", name, ".py")
+    return _from_file(path, "perfbench_metric_" + name.replace(".", "_")).read
+
+
+def port_spans():
+    """The port's span module (`repro_torch.spans`), or None where the
+    program has none."""
+    if importlib.util.find_spec("repro_torch.spans") is None:
+        return None
+    return importlib.import_module("repro_torch.spans")
 
 
 def forbidden_modules(names=None) -> list:

@@ -19,6 +19,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import gc  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
@@ -31,27 +32,24 @@ from perfbench import bench, check  # noqa: E402
 from perfbench.run import run_cell  # noqa: E402
 
 
-def control_serve(cfg, rec, seed, device):
-    from perfbench import weights as W
-
+def control_serve(family, cfg, rec, seed, device):
     sample = check.sample_requests(rec["records"], seed)
-    wts = W.make(cfg["model"], cfg["init"], seed, device)
-    return {"tf32": check.control_serve(cfg["model"], wts, sample, device)}
+    wts = family.make_weights(cfg, seed, device)
+    return {"tf32": check.control_serve(family, cfg, wts, sample, device)}
 
 
-def control_train(cfg, mix, seed, device):
+def control_train(family, cfg, mix, seed, device):
     import torch
 
-    from perfbench import weights as W
-    from perfbench.train import _batches, adamw_settings
+    from perfbench.train import adamw_settings
     from repro_torch.config import TrainConfig
 
     opt = adamw_settings(TrainConfig(**mix["optimizer"]))
-    w0 = W.make(cfg["model"], cfg["init"], seed, device)
-    batch = _batches(mix, seed)
+    w0 = family.make_weights(cfg, seed, device)
+    batch = family.batches(mix, seed)
     batches = [{k: torch.as_tensor(v) for k, v in batch(j).items()}
                for j in range(mix["check_steps"])]
-    return check.control_train(cfg["model"], w0, batches, opt, mix["w_e"], mix["w_f"], device)
+    return check.control_train(family, cfg, w0, batches, opt, mix, device)
 
 
 def main(argv=None) -> int:
@@ -71,11 +69,16 @@ def main(argv=None) -> int:
     man = bench.manifest()
     c = bench.cell(a.workload, man)
     cfg, mix = bench.config(c["config"]), bench.traffic(c["traffic"])
+    family = bench.family(cfg["family"])
     seeds = [int(s) for s in a.seeds.split(",") if s]
     controls = {int(s) for s in a.control_seeds.split(",") if s}
     lower: dict = {}
     upper: dict = {}
     for s in seeds:
+        # each run's engine, graphs and reference leave cached blocks behind;
+        # one process holding a dozen runs' worth fails a later capture
+        gc.collect()
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         res, checks, rec = run_cell(a.workload, s, a.seconds, False, "cuda", t0, man)
         vals = {k: v["value"] for k, v in checks.items()}
@@ -85,8 +88,8 @@ def main(argv=None) -> int:
                           "attempted": res["attempted"],
                           "setup_s": rec["setup_s"]}), flush=True)
         if s in controls:
-            ctl = (control_serve(cfg, rec, s, "cuda") if rec["kind"] == "serve"
-                   else control_train(cfg, mix, s, "cuda"))
+            ctl = (control_serve(family, cfg, rec, s, "cuda") if rec["kind"] == "serve"
+                   else control_train(family, cfg, mix, s, "cuda"))
             for kind, r in ctl.items():
                 for k, v in r.items():
                     upper.setdefault(kind, {})[k] = min(upper.get(kind, {}).get(k, 1e9), v)

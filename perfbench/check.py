@@ -1,6 +1,7 @@
 """The comparison that decides ``correct``: what the timed path produced
-against the plain reference (`perfbench.reference`), each number beside
-its limit (``perfbench/limits/<cell>.json``).
+against the plain reference of the configuration's family (its
+``reference``), each number beside its limit
+(``perfbench/limits/<cell>.json``).
 
 Serve cells: a sample, drawn from the seed, of the requests the window
 served (the one with the most atoms always in it); the reference
@@ -11,7 +12,8 @@ evaluates each molecule once, grouped by atom count.
   the reference force components of the sample.
 
 Training cell: the first three steps of the window's own step object,
-followed by the reference from the same weights on the same batches.
+followed by the reference from the same weights on the same batches
+(the family's ``reference_loss`` under `perfbench.plain.adamw_reference`).
 - ``loss_err``: the largest |loss - loss_ref| / |loss_ref| of the three;
 - ``grad_err``: the worst leaf's gap between the norms of the first
   (clipped) gradient, the program's worked out from its AdamW state after
@@ -26,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .reference import Reference, adamw_reference, tf32
+from .plain import adamw_reference, tf32
 
 __all__ = ["sample_requests", "serve_readings", "train_readings", "verdict", "control_serve",
            "control_train"]
@@ -46,9 +48,9 @@ def sample_requests(records: list, seed: int, k: int = SAMPLE) -> list:
     return [records[i] for i in sorted(idx)]
 
 
-def reference_serve(model: dict, weights: dict, records: list, dtype, device):
+def reference_serve(family, cfg: dict, weights: dict, records: list, dtype, device):
     """The reference's (energies, forces) of each record, in order."""
-    ref = Reference(model, weights, dtype=dtype, device=device)
+    ref = family.reference(cfg, weights, dtype, device)
     out = [None] * len(records)
     by_n: dict = {}
     for i, r in enumerate(records):
@@ -96,12 +98,13 @@ def train_readings(prog: dict, ref: dict) -> dict:
             "update_err": _norm_gap(prog["delta"], ref["delta"], moved)}
 
 
-def reference_train(model: dict, weights: dict, batches: list, opt: dict, w_e: float,
-                    w_f: float, dtype, device) -> dict:
+def reference_train(family, cfg: dict, weights: dict, batches: list, opt: dict, mix: dict,
+                    dtype, device) -> dict:
     """The reference's {losses, grad, delta} over ``batches``."""
-    ref = Reference(model, weights, dtype=dtype, device=device)
-    losses, first, after = adamw_reference(ref, batches, opt, w_e, w_f)
+    ref = family.reference(cfg, weights, dtype, device)
     w0 = ref.params()
+    losses, first, after = adamw_reference(
+        w0, lambda batch, w: family.reference_loss(ref, batch, w, mix), batches, opt)
     return {"losses": losses, "grad": first, "delta": {k: after[k] - w0[k] for k in after}}
 
 
@@ -111,24 +114,24 @@ def verdict(readings: dict, limits: dict) -> bool:
                for k, v in limits.items())
 
 
-def control_serve(model: dict, weights: dict, records: list, device) -> dict:
+def control_serve(family, cfg: dict, weights: dict, records: list, device) -> dict:
     """The control's readings: the reference in float32 with TF32 products
     in the program's place, against the reference in float64."""
-    ref = reference_serve(model, weights, records, torch.float64, device)
+    ref = reference_serve(family, cfg, weights, records, torch.float64, device)
     with tf32(True):
-        low = reference_serve(model, weights, records, torch.float32, device)
+        low = reference_serve(family, cfg, weights, records, torch.float32, device)
     served = [{"species": r["species"], "energy": e, "forces": f} for r, (e, f) in zip(records, low)]
     return serve_readings(served, ref)
 
 
-def control_train(model: dict, weights: dict, batches: list, opt: dict, w_e: float,
-                  w_f: float, device) -> dict:
+def control_train(family, cfg: dict, weights: dict, batches: list, opt: dict, mix: dict,
+                  device) -> dict:
     """{"tf32": the control's readings, "half_batch": those of the
     reference fed half of each batch (a fault)}, against the reference in
     float64."""
-    ref = reference_train(model, weights, batches, opt, w_e, w_f, torch.float64, device)
+    ref = reference_train(family, cfg, weights, batches, opt, mix, torch.float64, device)
     with tf32(True):
-        low = reference_train(model, weights, batches, opt, w_e, w_f, torch.float32, device)
+        low = reference_train(family, cfg, weights, batches, opt, mix, torch.float32, device)
     half = [{k: v[: len(v) // 2] for k, v in b.items()} for b in batches]
-    halfb = reference_train(model, weights, half, opt, w_e, w_f, torch.float64, device)
+    halfb = reference_train(family, cfg, weights, half, opt, mix, torch.float64, device)
     return {"tf32": train_readings(low, ref), "half_batch": train_readings(halfb, ref)}

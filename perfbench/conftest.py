@@ -1,7 +1,5 @@
 """Fixtures of the benchmark's tests: the ``cuda`` marker, a card check made
 inside a fixture, and the cells shrunk to CPU size."""
-import json
-
 import pytest
 
 from perfbench import bench
@@ -41,15 +39,15 @@ TINY_MODEL = {"channels": 8, "hidden": 16, "chain_tune": "heuristic"}
 def tiny(monkeypatch):
     """Every cell at a size a CPU test holds: 8 channels, molecules of 5-8
     atoms, small buckets and batches; the limits are the cells' own."""
+    base_config, base_traffic = bench.config, bench.traffic
+
     def config(name):
-        with open(bench.HERE / "configs" / f"{name}.json") as f:
-            c = json.load(f)
+        c = base_config(name)
         c["model"] = dict(c["model"], **TINY_MODEL)
         return c
 
     def traffic(name):
-        with open(bench.HERE / "traffic" / f"{name}.json") as f:
-            t = json.load(f)
+        t = base_traffic(name)
         if t["kind"] == "serve":
             small = len(t["buckets"]) > 1
             t.update(atoms=[5, 8] if small else [6, 6], clients=8,

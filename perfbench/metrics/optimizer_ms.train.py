@@ -1,0 +1,9 @@
+"""optimizer_ms.train: the device time a training step of the optimizer's
+update (the port's span ``optimizer``), over the steps before the traced
+part of the window, in ms (`perfbench.trace.span_ms`).  Nothing to read
+without the spans."""
+from perfbench.trace import span_ms
+
+
+def read(run):
+    return span_ms(run, "train", "optimizer")

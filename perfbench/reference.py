@@ -16,9 +16,8 @@ kernel, no plan, no constant table.  Its own pieces:
   truncated at L, the gate (scalars gate the higher degrees) before
   ``mb_mix`` when ``grid_gate`` is 'on' (after it when 'off'), and a
   per-atom readout of the invariant channels summed into the energy;
-- forces -dE/dpos and the training loss's gradients by autograd;
-- AdamW with the global-norm clip and the cosine schedule, for the
-  training cell.
+- forces -dE/dpos and the training loss's gradients by autograd (AdamW
+  over them is `perfbench.plain.adamw_reference`, shared by every family).
 
 The function is basis independent: the conv's filter sum_m Y_lm(r) Y_lm(u)
 is the zonal function (2l+1)/(4 pi) P_l(r.u), and every other operation
@@ -27,19 +26,18 @@ or order convention of the real harmonics within a degree.  Only the
 degree-major layout [(L+1)^2] with l = 0 first is shared with the port.
 
 Precision: the reference runs in float64 (``dtype``).  Its control runs it
-in float32 with TF32 matrix products (`tf32`), the nearest precision below
-the port's float32 with TF32 off.
+in float32 with TF32 matrix products (`perfbench.plain.tf32`), the nearest
+precision below the port's float32 with TF32 off.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["real_sh", "quadrature", "gaunt", "Reference", "adamw_reference", "tf32"]
+__all__ = ["real_sh", "quadrature", "gaunt", "Reference"]
 
 
 def real_sh(L: int, v: torch.Tensor) -> torch.Tensor:
@@ -96,18 +94,6 @@ def gaunt(La: int, Lb: int, Lc: int) -> np.ndarray:
     return np.einsum("q,qa,qb,qc->abc", w, Ya, Yb, Yc)
 
 
-@contextlib.contextmanager
-def tf32(on: bool):
-    """TF32 matrix products on (the control) or off, restored after."""
-    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = on
-    torch.backends.cudnn.allow_tf32 = on
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
-
-
 def _degrees(L: int) -> np.ndarray:
     """The degree of each packed coefficient."""
     return np.concatenate([np.full(2 * l + 1, l) for l in range(L + 1)])
@@ -117,7 +103,7 @@ class Reference:
     """MACE-Gaunt at the sizes of ``model`` (the configuration's ``model``
     dict: L, L_edge, channels, n_layers, nu, n_species, cutoff, n_radial,
     hidden, grid_gate) on ``weights`` (name -> tensor, the names of
-    `perfbench.weights.shapes`), at ``dtype`` on ``device``."""
+    `perfbench.families.mace.shapes`), at ``dtype`` on ``device``."""
 
     def __init__(self, model: dict, weights: dict, dtype=torch.float64, device="cpu"):
         self.m = model
@@ -206,45 +192,3 @@ class Reference:
         de = (e - batch["energy"].to(self.device, self.dtype)) ** 2
         df = ((-g - batch["forces"].to(self.device, self.dtype)) ** 2).mean(dim=(-2, -1))
         return (w_e * de + w_f * df).mean()
-
-
-def _cosine_lr(peak: float, warmup: int, total: int, step: int, floor: float = 0.1) -> float:
-    """Linear warmup, then cosine decay to floor * peak at ``total``
-    (``step`` 1-based)."""
-    if step < warmup:
-        return peak * step / max(warmup, 1)
-    t = min(max((step - warmup) / max(total - warmup, 1), 0.0), 1.0)
-    return peak * (floor + (1 - floor) * 0.5 * (1 + math.cos(math.pi * t)))
-
-
-def adamw_reference(ref: Reference, batches: list, opt: dict, w_e: float, w_f: float):
-    """Train ``ref``'s weights for len(batches) steps: clip by the global
-    norm, then AdamW with decoupled weight decay on leaves of ndim >= 2.
-    -> (losses, clipped gradients of step 1 {name: tensor}, weights after
-    the last step {name: tensor})."""
-    w = {k: v.clone().requires_grad_(True) for k, v in ref.params().items()}
-    mu = {k: torch.zeros_like(v) for k, v in w.items()}
-    nu = {k: torch.zeros_like(v) for k, v in w.items()}
-    losses, first = [], None
-    for t, batch in enumerate(batches, start=1):
-        loss = ref.loss(batch, w, w_e, w_f)
-        names = list(w)
-        gs = torch.autograd.grad(loss, [w[k] for k in names])
-        norm = torch.sqrt(sum((g ** 2).sum() for g in gs))
-        scale = min(1.0, opt["grad_clip"] / max(float(norm), 1e-9))
-        grads = {k: g * scale for k, g in zip(names, gs)}
-        if first is None:
-            first = {k: g.detach().clone() for k, g in grads.items()}
-        lr = _cosine_lr(opt["lr"], opt["warmup_steps"], opt["total_steps"], t)
-        b1, b2 = opt["b1"], opt["b2"]
-        with torch.no_grad():
-            for k in names:
-                g = grads[k]
-                mu[k] = b1 * mu[k] + (1 - b1) * g
-                nu[k] = b2 * nu[k] + (1 - b2) * g * g
-                u = (mu[k] / (1 - b1 ** t)) / (torch.sqrt(nu[k] / (1 - b2 ** t)) + opt["eps"])
-                if w[k].dim() >= 2:
-                    u = u + opt["weight_decay"] * w[k]
-                w[k] -= lr * u
-        losses.append(float(loss.detach()))
-    return losses, first, {k: v.detach() for k, v in w.items()}

@@ -13,7 +13,9 @@ Without a CUDA device, or with fewer than the cell asks for, it exits
 non-zero and prints no result; so it does if a module of JAX or of the
 JAX package ``repro`` is loaded once the window has closed.  Kernel builds
 stay in the checkout (``build/kernels``), the chain autotune cache at
-``perfbench/.cache/autotune.json``.
+``perfbench/.cache/autotune.json``.  With ``--trace 1`` the port's spans
+are on (``REPRO_TORCH_SPANS=1``, set before the port is imported), with
+``--trace 0`` off.
 """
 from __future__ import annotations
 
@@ -46,15 +48,14 @@ def parse(argv=None):
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
              t_start: float, man: dict | None = None, **kw):
-    """(result fields, checks, run record) of one run of cell ``name``;
+    """(result fields, checks, run record) of one run of cell ``name``: the
+    run kind of its traffic on its configuration's ``family``;
     ``kw`` goes to the driver (tests)."""
-    from perfbench import serve, train
-
     man = man or bench.manifest()
     c = bench.cell(name, man)
     cfg, mix, lim = bench.config(c["config"]), bench.traffic(c["traffic"]), bench.limits(name)
-    driver = {"serve": serve.run, "train": train.run}[mix["kind"]]
-    return driver(c, cfg, mix, lim, seed, seconds, trace, device, t_start, **kw)
+    family, kind = bench.family(cfg["family"]), bench.kind(mix["kind"])
+    return kind.run(c, cfg, family, mix, lim, seed, seconds, trace, device, t_start, **kw)
 
 
 def read_metrics(name: str, trace: bool, rec: dict, man: dict) -> dict:
@@ -70,6 +71,8 @@ def read_metrics(name: str, trace: bool, rec: dict, man: dict) -> dict:
 def main(argv=None) -> int:
     args = parse(argv)
     os.environ.setdefault("USE_FLAX", "0")
+    # the port reads this once, where its span module is imported
+    os.environ["REPRO_TORCH_SPANS"] = "1" if args.trace else "0"
     man = bench.manifest()
     c = bench.cell(args.workload, man)
     import torch

@@ -3,20 +3,25 @@
 
 Each client is one molecule (an MD walker or a screening worker): it sends
 its next request only after its reply.  A request is one energy-and-forces
-evaluation (``steps=1``) of the client's last geometry plus a Gaussian
-displacement.  The mix file gives the atom counts (every count in
-[lo, hi] equally often, the seed deciding which client gets which), the
-species, the buckets (max_atoms, n_slots), the number of clients and the
-displacement.  Every seed sends the same multiset of sizes.
+evaluation (``steps=1``) of the client's first geometry plus a fresh
+Gaussian displacement, so that no walker drifts however many requests it
+sends.  The mix file gives the atom counts (every count in [lo, hi]
+equally often, the seed deciding which client gets which), the species,
+the buckets (max_atoms, n_slots), the number of clients and the
+displacement.  Every seed sends the same multiset of sizes.  The
+configuration's family gives the weights, the port's model, the molecules
+and the reference (``FAMILY`` below).
 
 Set-up: the weights and the molecules from the seed, the model, the
 engine's warmup (the autotune cache, then every bucket's graph), and one
 untimed round in which every client is served once.  The window then
 measures ``seconds``, closing at the end of the first step past them:
 clients stop sending then, and the requests in flight are drained.  With
-``trace`` the window's last part runs under the profiler; the host-clock
-readings of a traced run come from the part before it.  A request the
-engine rejects counts as failed; its client goes on.
+``trace`` the window's last part runs under the profiler, and the port's
+spans (on where ``run.py`` switched them on), reset where the window
+opens, are snapshotted where that part begins; the host-clock readings of
+a traced run come from the part before it.  A request the engine rejects
+counts as failed; its client goes on.
 """
 from __future__ import annotations
 
@@ -26,54 +31,45 @@ import time
 import numpy as np
 import torch
 
-from . import check, work
-from .lj import lj_dataset
+from . import bench, check
 from .trace import Tracer, span
 
-__all__ = ["build_model", "make_clients", "run"]
+__all__ = ["FAMILY", "Client", "make_clients", "run"]
 
-
-def build_model(cfg: dict, weights: dict, device):
-    """The port's MaceGaunt at the configuration, on ``weights`` (its chain
-    picks persist where ``run.py`` points $REPRO_TORCH_AUTOTUNE_CACHE)."""
-    from repro_torch.configs.gaunt_ff import EquivariantConfig
-    from repro_torch.models.equivariant import MaceGaunt
-
-    ec = EquivariantConfig(name=cfg["name"], kind="mace", **cfg["model"])
-    model = MaceGaunt(ec, device=device)
-    model.load_state_dict(weights)
-    return model
+# what a serve cell calls of its configuration's family, beside bench.FAMILY
+FAMILY = ("molecules", "serve_flops", "kernel_bounds")
 
 
 class Client:
-    """One walker: its species, its last geometry, its own random stream."""
+    """One walker: its species, its first geometry, its own random stream."""
     __slots__ = ("cid", "species", "pos", "rng", "k")
 
     def __init__(self, cid, species, pos, rng):
         self.cid, self.species, self.pos, self.rng, self.k = cid, species, pos, rng, 0
 
     def next_request(self, disp: float):
+        """The next request: the first geometry plus N(0, disp) in every
+        coordinate, drawn anew (a bounded walk)."""
         from repro_torch.serve.engine import EquivariantRequest
 
-        self.pos = (self.pos + self.rng.normal(0.0, disp, self.pos.shape)).astype(np.float32)
+        pos = (self.pos + self.rng.normal(0.0, disp, self.pos.shape)).astype(np.float32)
         self.k += 1
-        return EquivariantRequest(species=self.species, pos=self.pos.copy(), steps=1,
+        return EquivariantRequest(species=self.species, pos=pos, steps=1,
                                   rid=self.cid * 1_000_000 + self.k)
 
 
-def make_clients(mix: dict, seed: int) -> list:
+def make_clients(family, mix: dict, seed: int) -> list:
     """The mix's clients for ``seed``: the same sizes for every seed, in an
-    order and with geometries drawn from it."""
+    order and with the family's molecules drawn from it."""
     lo, hi = mix["atoms"]
     sizes = np.random.default_rng([seed, 1]).permutation(
         np.resize(np.arange(lo, hi + 1), mix["clients"]))
     out = [None] * len(sizes)
     for n in np.unique(sizes):
         idx = np.nonzero(sizes == n)[0]
-        d = lj_dataset(len(idx), int(n), mix["species"], seed=[seed, 3, int(n)])
+        species, pos = family.molecules(mix, int(n), len(idx), seed)
         for j, c in enumerate(idx):
-            out[c] = Client(int(c), d["species"][j].astype(np.int64), d["pos"][j],
-                            np.random.default_rng([seed, 2, int(c)]))
+            out[c] = Client(int(c), species[j], pos[j], np.random.default_rng([seed, 2, int(c)]))
     return out
 
 
@@ -128,22 +124,21 @@ class Loop:
                         self.submit(c, now)
 
 
-def run(cell: dict, cfg: dict, mix: dict, lim: dict, seed: int, seconds: float,
+def run(cell: dict, cfg: dict, family, mix: dict, lim: dict, seed: int, seconds: float,
         trace: bool, device, t_start: float) -> tuple[dict, dict, dict]:
     """One run of a serve cell -> (result fields, checks, run record)."""
     from repro_torch.core import engine as ge
     from repro_torch.serve.engine import EquivariantServeEngine
-    from . import weights as W
 
     device = torch.device(device)
     phases = {"start": time.perf_counter() - t_start}
-    wts = W.make(cfg["model"], cfg["init"], seed, device)
-    model = build_model(cfg, wts, device)
+    wts = family.make_weights(cfg, seed, device)
+    model = family.build(cfg, wts, device)
     phases["model"] = time.perf_counter() - t_start
     engine = EquivariantServeEngine(model, buckets=[tuple(b) for b in mix["buckets"]],
                                     warmup=True)
     phases["warmup"] = time.perf_counter() - t_start
-    clients = make_clients(mix, seed)
+    clients = make_clients(family, mix, seed)
     phases["clients"] = time.perf_counter() - t_start
     Loop(engine, clients, mix["displacement"]).run(0.0, None, until_each=True)
     if trace:
@@ -155,7 +150,10 @@ def run(cell: dict, cfg: dict, mix: dict, lim: dict, seed: int, seconds: float,
         {k: round(v, 3) for k, v in phases.items()}), flush=True)
     eng = ge.get_engine()
     timing_setup = eng.timing_runs
+    spans = bench.port_spans()
     engine.metrics.reset()
+    if spans is not None:
+        spans.reset()
     setup_s = time.perf_counter() - t_start
 
     records: list = []
@@ -163,15 +161,20 @@ def run(cell: dict, cfg: dict, mix: dict, lim: dict, seed: int, seconds: float,
     t0 = time.perf_counter()
     t_close = t0 + seconds
     trace_from = t_close - min(mix["trace_seconds"], seconds / 2) if trace else None
-    tracer = Tracer() if trace else None
+    tracer = Tracer(device) if trace else None
     marks: dict = {}
+    snap = None
 
     def on_pump():
+        nonlocal snap
         if tracer is None or tracer.t0 is not None or time.perf_counter() < trace_from:
             return
         marks.update(t=time.perf_counter(), n_wait=len(engine.metrics.queue_wait_s),
                      atoms=(engine.metrics.atoms_real, engine.metrics.atoms_padded),
                      replays=[p.replays for p in engine.pools])
+        if spans is not None:
+            totals = spans.totals()
+            snap = {"totals": totals, "steps": totals.get("evaluate", {}).get("calls", 0)}
         tracer.start()
 
     def on_close():
@@ -189,18 +192,21 @@ def run(cell: dict, cfg: dict, mix: dict, lim: dict, seed: int, seconds: float,
 
     rec = {"kind": "serve", "setup_s": setup_s, "window_s": loop.closed_at - t0, "t0": t0,
            "t_close": loop.closed_at, "records": records, "metrics": engine.metrics,
-           "model": cfg["model"], "marks": marks, "trace": None,
+           "family": family, "cfg": cfg, "marks": marks, "trace": None, "spans": snap,
            "memory_peak_bytes": peak}
     if tracer is not None and tracer.t0 is not None:
         rec["trace"] = tracer.summary()
-        rec["chain"] = _chain_bound(engine, cfg["model"], marks)
+        rec["kernels"] = family.kernel_bounds(cfg, [
+            {"n_slots": p.spec.n_slots, "max_atoms": p.spec.max_atoms, "launches": p.launches,
+             "replays": r1 - r0}
+            for p, r0, r1 in zip(engine.pools, marks["replays"], marks["replays_end"])])
     # the program's state goes before the reference runs
     del engine, model, loop
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
     sample = check.sample_requests([r for r in records if not r["failed"]], seed)
-    refs = check.reference_serve(cfg["model"], wts, sample, torch.float64, device)
+    refs = check.reference_serve(family, cfg, wts, sample, torch.float64, device)
     readings = check.serve_readings(sample, refs)
     print(f"perfbench: check of {len(sample)} requests "
           f"{time.perf_counter() - t_check:.2f} s", flush=True)
@@ -211,16 +217,3 @@ def run(cell: dict, cfg: dict, mix: dict, lim: dict, seed: int, seconds: float,
               "attempted": attempted, "failed": failed}
     return result, checks, rec
 
-
-def _chain_bound(engine, model: dict, marks: dict) -> dict:
-    """The least time of the chain kernel calls in the traced window: each
-    bucket's replays there times its chain launches a replay, each call on
-    the bucket's rows (n_slots x max_atoms x channels)."""
-    total_s, launches = 0.0, 0
-    for p, r0, r1 in zip(engine.pools, marks["replays"], marks["replays_end"]):
-        per = p.launches.get("gaunt_chain", 0)
-        rows = p.spec.n_slots * p.spec.max_atoms * model["channels"]
-        f, b = work.chain_work(rows, model["L"], model["nu"], model["L"], gated=True)
-        total_s += (r1 - r0) * per * work.bound_s(f, b)
-        launches += (r1 - r0) * per
-    return {"bound_s": total_s, "launches": launches}

@@ -7,7 +7,8 @@ import numpy as np
 import pytest
 import torch
 
-from perfbench import bench, check, weights as W
+from perfbench import bench, check
+from perfbench.families import mace
 from perfbench.lj import lj_dataset
 
 
@@ -16,10 +17,10 @@ from perfbench.lj import lj_dataset
 def test_serve_control_fails_the_limits(card, cell):
     c = bench.cell(cell)
     cfg, lim = bench.config(c["config"]), bench.limits(cell)
-    wts = W.make(cfg["model"], cfg["init"], 5, card)
+    wts = mace.make_weights(cfg, 5, card)
     d = lj_dataset(8, 27, 4, seed=5)
     recs = [{"species": d["species"][i].astype(np.int64), "pos": d["pos"][i]} for i in range(8)]
-    readings = check.control_serve(cfg["model"], wts, recs, card)
+    readings = check.control_serve(mace, cfg, wts, recs, card)
     assert not check.verdict(readings, lim), readings
 
 
@@ -28,7 +29,7 @@ def test_train_control_fails_the_limits(card):
     cell = "mace_escn.train_3bpa"
     c = bench.cell(cell)
     cfg, mix, lim = bench.config(c["config"]), bench.traffic(c["traffic"]), bench.limits(cell)
-    w0 = W.make(cfg["model"], cfg["init"], 5, card)
+    w0 = mace.make_weights(cfg, 5, card)
     d = lj_dataset(12, 27, 4, seed=5)
     batches = [{k: torch.as_tensor(v[4 * i: 4 * i + 4]) for k, v in d.items()} for i in range(3)]
     from repro_torch.config import TrainConfig
@@ -36,6 +37,5 @@ def test_train_control_fails_the_limits(card):
     from perfbench.train import adamw_settings
 
     opt = adamw_settings(TrainConfig(**mix["optimizer"]))
-    readings = check.control_train(cfg["model"], w0, batches, opt, mix["w_e"], mix["w_f"],
-                                   card)["tf32"]
+    readings = check.control_train(mace, cfg, w0, batches, opt, mix, card)["tf32"]
     assert not check.verdict(readings, lim), readings

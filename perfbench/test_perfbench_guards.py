@@ -1,10 +1,13 @@
 """The harness's guarantees: it and its reference load no module of JAX or
 of the JAX package ``repro`` (whole top-level names compared: the port's
-``repro_torch`` begins with ``repro``), the reference loads nothing of the
-port, and a run that finds no card exits non-zero and prints no result."""
+``repro_torch`` begins with ``repro``), no family's reference or inputs
+load anything of the port, and a run that finds no card exits non-zero and
+prints no result."""
 import os
 import subprocess
 import sys
+
+import pytest
 
 from perfbench import bench
 
@@ -27,6 +30,7 @@ def test_harness_started_loads_no_jax():
         "import sys, time\n"
         f"sys.path[:0] = [{ROOT!r}]\n"
         "import perfbench.run, perfbench.calibrate, perfbench.serve, perfbench.train\n"
+        "import perfbench.families.mace\n"
         "from perfbench import bench, run\n"
         "import json\n"
         "base_c, base_t = bench.config, bench.traffic\n"
@@ -53,13 +57,53 @@ def test_reference_loads_nothing_of_the_port():
         "import sys\n"
         f"sys.path[:0] = [{ROOT!r}]\n"
         "import perfbench.reference, perfbench.check, perfbench.work, perfbench.lj\n"
-        "import perfbench.weights\n"
+        "import perfbench.weights, perfbench.plain, perfbench.families.mace\n"
         f"tops = {TOPS}\n"
         "print('BAD', [t for t in tops if t in ('repro_torch', 'repro', 'jax', 'jaxlib',"
         " 'flax')])\n")
     out = _python(code)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "BAD []" in out.stdout, out.stdout
+
+
+FAMILIES = sorted(p.stem for p in (bench.HERE / "families").glob("*.py")
+                  if p.stem != "__init__")
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_family_reference_loads_nothing_of_the_port(family):
+    """Each family's plain reference, run on its own inputs for every cell
+    of a configuration that names it (one molecule, or one row of the first
+    batch), loads no module of the port, of JAX or of ``repro``."""
+    code = (
+        "import sys, torch\n"
+        f"sys.path[:0] = [{ROOT!r}]\n"
+        "from perfbench import bench\n"
+        f"fam = bench.family({family!r})\n"
+        "man = bench.manifest()\n"
+        "ran = 0\n"
+        "for w in man['workloads']:\n"
+        "    cfg, mix = bench.config(w['config']), bench.traffic(w['traffic'])\n"
+        f"    if cfg['family'] != {family!r}:\n"
+        "        continue\n"
+        "    wts = fam.make_weights(cfg, 3, 'cpu')\n"
+        "    ref = fam.reference(cfg, wts, torch.float64, 'cpu')\n"
+        "    if mix['kind'] == 'serve':\n"
+        "        sp, pos = fam.molecules(mix, mix['atoms'][0], 1, 3)\n"
+        "        e, f = ref.energy_forces(torch.as_tensor(sp), torch.as_tensor(pos))\n"
+        "    else:\n"
+        "        b = {k: torch.as_tensor(v[:1]) for k, v in fam.batches(mix, 3)(0).items()}\n"
+        "        e = fam.reference_loss(ref, b, ref.params(), mix)\n"
+        "    assert torch.isfinite(e).all()\n"
+        "    ran += 1\n"
+        f"tops = {TOPS}\n"
+        "print('RAN', ran)\n"
+        "print('BAD', [t for t in tops if t in ('repro_torch', 'repro', 'jax', 'jaxlib',"
+        " 'flax')])\n")
+    out = _python(code)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "BAD []" in out.stdout, out.stdout
+    assert "RAN 0" not in out.stdout
 
 
 def test_forbidden_names_are_whole_top_level_names():

@@ -1,6 +1,7 @@
 """BENCHMARK.json against its rules: allowed characters, each per-layer
 metric moving an end-to-end metric that each of its cells reports, and
-every file a cell or metric names present."""
+every file a cell or metric names present, each configuration's family
+among them."""
 import re
 
 import pytest
@@ -66,3 +67,17 @@ def test_configs_used_and_files_under_paths():
         assert c["file"].startswith(tuple(p + "/" for p in MAN["paths"]))
     pairs = [(w["config"], w["traffic"]) for w in MAN["workloads"]]
     assert len(pairs) == len(set(pairs))
+
+
+@pytest.mark.parametrize("cfg", MAN["configs"], ids=lambda c: c["name"])
+def test_config_names_a_family_that_gives_the_interface(cfg):
+    """Every configuration names a family whose file exists and that gives
+    what every family gives and what each run kind of its cells calls."""
+    c = bench.config(cfg["name"])
+    assert (bench.HERE / "families" / f"{c['family']}.py").is_file()
+    fam = bench.family(c["family"])
+    need = set(bench.FAMILY)
+    for w in MAN["workloads"]:
+        if w["config"] == cfg["name"]:
+            need |= set(bench.kind(bench.traffic(w["traffic"])["kind"]).FAMILY)
+    assert not [n for n in sorted(need) if not callable(getattr(fam, n, None))]

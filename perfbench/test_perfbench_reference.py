@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from perfbench import weights as W
+from perfbench.families import mace
 from perfbench.lj import lj_dataset
 from perfbench.reference import Reference, gaunt, quadrature, real_sh
 
@@ -49,7 +49,8 @@ def test_gaunt_tensor_is_symmetric_and_exact():
 @pytest.mark.parametrize("grid_gate", ["on", "off"])
 @pytest.mark.parametrize("seed", [1, 2 ** 33 + 5])
 def test_energy_forces_match_the_port(conv, grid_gate, seed):
-    wts = W.make(dict(MODEL, grid_gate=grid_gate), INIT, seed, "cpu")
+    wts = mace.make_weights({"model": dict(MODEL, grid_gate=grid_gate), "init": INIT}, seed,
+                            "cpu")
     d = lj_dataset(2, 7, 4, seed=seed)
     sp, pos = torch.from_numpy(d["species"]).long(), torch.from_numpy(d["pos"])
     e, f = _port(conv, grid_gate, wts).energy_forces(sp, pos)
@@ -60,7 +61,7 @@ def test_energy_forces_match_the_port(conv, grid_gate, seed):
 
 
 def test_loss_gradients_match_the_port():
-    wts = W.make(MODEL, INIT, 7, "cpu")
+    wts = mace.make_weights({"model": MODEL, "init": INIT}, 7, "cpu")
     d = lj_dataset(2, 6, 4, seed=7)
     batch = {k: torch.from_numpy(v) for k, v in d.items()}
     model = _port("escn", "on", wts)

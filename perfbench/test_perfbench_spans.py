@@ -1,7 +1,9 @@
 """What the benchmark reads of the port's own timing: `host_gap_ms.serve`
 on synthetic run records and on a serve cell driven at CPU size, nothing
-where the program keeps no host gaps, and an idle gap named by the port's
-``rt.`` span where it is the innermost host range."""
+where the program keeps no host gaps, an idle gap named by the port's
+``rt.`` span where it is the innermost host range, and the span metrics
+(a span's device time a step before the trace mark) on synthetic records
+and on traced runs at CPU size with the spans on."""
 import time
 from types import SimpleNamespace
 
@@ -55,3 +57,74 @@ def test_gap_named_by_the_ports_innermost_span():
     gaps = Tracer._gaps(np.asarray(merged, dtype=float), host)
     assert gaps[0][0] == SPAN_PREFIX + "scheduler_pump > rt.retire"
     assert gaps[0][1] == pytest.approx(10e-6)
+
+
+SPAN_METRICS = [("step_device_ms.serve", "serve", "evaluate"),
+                ("conv_ms.serve", "serve", "conv"),
+                ("manybody_ms.serve", "serve", "manybody"),
+                ("force_backward_ms.serve", "serve", "force_backward"),
+                ("loss_ms.train", "train", "loss"),
+                ("param_grad_ms.train", "train", "param_grad"),
+                ("optimizer_ms.train", "train", "optimizer")]
+
+
+def _span_run(kind, name, device_s, steps):
+    other = {"calls": 3, "device_s": 9.0}
+    return {"kind": kind, "spans": {"steps": steps,
+                                    "totals": {name: {"calls": 2 * steps, "device_s": device_s},
+                                               "other": other}}}
+
+
+@pytest.mark.parametrize("metric,kind,name", SPAN_METRICS, ids=[m[0] for m in SPAN_METRICS])
+def test_span_metric_is_device_ms_a_step(metric, kind, name):
+    """A span entered once a layer (two calls a step) counts whole a step."""
+    read = bench.metric_reader(metric)
+    assert read(_span_run(kind, name, 0.9, 4)) == pytest.approx(225.0)
+    other = "train" if kind == "serve" else "serve"
+    assert read(_span_run(other, name, 0.9, 4)) is None
+
+
+@pytest.mark.parametrize("metric,kind,name", SPAN_METRICS, ids=[m[0] for m in SPAN_METRICS])
+def test_span_metric_nothing_to_read(metric, kind, name):
+    read = bench.metric_reader(metric)
+    assert read({"kind": kind, "spans": None}) is None            # spans off or absent
+    assert read({"kind": kind}) is None
+    assert read(_span_run(kind, name, 0.9, 0)) is None             # no step before the mark
+    assert read(_span_run(kind, "elsewhere", 0.9, 4)) is None      # the span never ran
+    assert read(_span_run(kind, name, 0.0, 4)) is None             # host time only (CPU)
+
+
+@pytest.fixture
+def spans_on():
+    from repro_torch import spans
+
+    prev = spans.set_enabled(True)
+    spans.reset()
+    yield spans
+    spans.set_enabled(prev)
+    spans.reset()
+
+
+@pytest.mark.parametrize("cell,step_span", [("mace_escn.md_3bpa", "evaluate"),
+                                            ("mace_escn.train_3bpa", "loss")])
+def test_traced_run_carries_the_span_snapshot(tiny, spans_on, cell, step_span):
+    """A traced run at CPU size with the spans on keeps, at its trace mark,
+    the spans' totals and the steps before the mark: the step's span was
+    entered once a step, the conv or loss stages inside it too."""
+    res, _, rec = run.run_cell(cell, 2 ** 32 + 9, 0.6, True, "cpu", time.perf_counter())
+    assert res["attempted"] > 0 and res["failed"] == 0
+    snap = rec["spans"]
+    assert snap["steps"] > 0
+    assert snap["totals"][step_span]["calls"] == snap["steps"]
+    inner = "conv" if step_span == "evaluate" else "param_grad"
+    assert snap["totals"][inner]["calls"] >= snap["steps"]
+    assert snap["totals"][step_span]["host_s"] > 0
+    assert rec["trace"]["window_s"] > 0
+    # CPU spans time the host alone: no device metric is read from them
+    assert not [m for m, _, _ in SPAN_METRICS if bench.metric_reader(m)(rec) is not None]
+
+
+def test_untraced_run_keeps_no_snapshot(tiny, spans_on):
+    _, _, rec = run.run_cell("mace_escn.md_3bpa", 2 ** 32 + 9, 0.3, False, "cpu",
+                             time.perf_counter())
+    assert rec["spans"] is None

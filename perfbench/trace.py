@@ -11,6 +11,10 @@ to what the per-layer metrics and the result's ``breakdown`` read.
   device, the longest 200 attributed to what the host was doing then (the
   benchmark's own span, and the innermost host operation inside it), and
   summed by that name.
+
+`span_ms` reads the port's own spans (`repro_torch.spans`), which a traced
+run switches on and snapshots at the trace mark: a span's device time a
+step before the mark.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["Tracer", "span", "idle_pct"]
+__all__ = ["Tracer", "span", "idle_pct", "span_ms"]
 
 SPAN_PREFIX = "pb."
 
@@ -45,6 +49,33 @@ def idle_pct(run: dict, kind: str):
     return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])
 
 
+def span_ms(run: dict, kind: str, name: str):
+    """The device time of the port's span ``name`` a step, in ms, over the
+    steps of a ``kind`` run before its trace mark (the snapshot
+    ``run["spans"]``: {totals, steps}); None for a run of another kind,
+    without the snapshot (spans off, or a program without them), or where
+    the span took no device time."""
+    snap = run.get("spans")
+    if run["kind"] != kind or not snap or not snap["steps"]:
+        return None
+    t = snap["totals"].get(name)
+    if not t or t["device_s"] <= 0:
+        return None
+    return 1e3 * t["device_s"] / snap["steps"]
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _activities(device) -> list:
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return acts
+
+
 def _union(iv: np.ndarray) -> np.ndarray:
     """Merge [start, end] intervals sorted by start."""
     out = []
@@ -57,10 +88,11 @@ def _union(iv: np.ndarray) -> np.ndarray:
 
 
 class Tracer:
-    """One traced window: ``start()`` and ``stop()`` between steps, then
-    ``summary()``."""
+    """One traced window on ``device``: ``start()`` and ``stop()`` between
+    steps, then ``summary()``."""
 
-    def __init__(self):
+    def __init__(self, device="cuda"):
+        self.device = device
         self.prof = None
         self.t0 = self.t1 = None
 
@@ -68,21 +100,18 @@ class Tracer:
     def warm(device) -> None:
         """Start and stop the profiler once in set-up, so that its first
         start (CUPTI's initialisation) falls outside the window."""
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]):
+        with torch.profiler.profile(activities=_activities(device)):
             torch.ones(1, device=device).add_(1)
-            torch.cuda.synchronize(device)
+            _sync(device)
 
     def start(self) -> None:
-        torch.cuda.synchronize()
-        self.prof = torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA])
+        _sync(self.device)
+        self.prof = torch.profiler.profile(activities=_activities(self.device))
         self.prof.__enter__()
         self.t0 = time.perf_counter()
 
     def stop(self) -> None:
-        torch.cuda.synchronize()
+        _sync(self.device)
         self.t1 = time.perf_counter()
         self.prof.__exit__(None, None, None)
 

@@ -1,30 +1,31 @@
-"""The training cell: the port's ``make_train_step`` on ``MaceGaunt.loss``
-(energy and force matching, the double backward) with AdamW.
+"""Training cells: the port's ``make_train_step`` on the family's loss
+with AdamW.
 
-The mix file gives the data set (``dataset`` LJ clusters of ``atoms``
-atoms and ``species`` species from the seed), the batch (taken in order,
-cycling), the loss weights and the ``TrainConfig`` fields.  Set-up builds
-one step object (model, optimizer state) and drives it through its first
-``check_steps`` steps on the window's own feed: those steps warm it up and
-are what the reference follows.  The window then steps the same object for
-``seconds``, each batch moved to the device and the loss read every
-``log_every`` steps, as the port's ``train_loop`` does; it closes with a
-synchronisation.
+The mix file gives the data set (the family's ``batches`` read its size,
+the batch, and what else they need from it), the loss's parameters and the
+``TrainConfig`` fields.  Set-up builds one step object (model, optimizer
+state) and drives it through its first ``check_steps`` steps on the
+window's own feed: those steps warm it up and are what the reference
+follows.  The window then steps the same object for ``seconds``, each
+batch moved to the device and the loss read every ``log_every`` steps, as
+the port's ``train_loop`` does; it closes with a synchronisation.  With
+``trace`` the port's spans (on where ``run.py`` switched them on), reset
+where the window opens, are snapshotted where its traced part begins.
 """
 from __future__ import annotations
 
 import json
 import time
 
-import numpy as np
 import torch
 
-from . import check
-from .lj import lj_dataset
-from .serve import build_model
+from . import bench, check
 from .trace import Tracer, span
 
-__all__ = ["run", "adamw_settings"]
+__all__ = ["FAMILY", "run", "adamw_settings"]
+
+# what a training cell calls of its configuration's family, beside bench.FAMILY
+FAMILY = ("batches", "loss", "reference_loss", "train_flops")
 
 
 def adamw_settings(tcfg) -> dict:
@@ -34,42 +35,29 @@ def adamw_settings(tcfg) -> dict:
                 grad_clip=tcfg.grad_clip)
 
 
-def _batches(mix: dict, seed: int):
-    d = lj_dataset(mix["dataset"], mix["atoms"], mix["species"], seed=[seed, 4])
-    d["species"] = d["species"].astype(np.int64)
-    B, n = mix["batch"], mix["dataset"] // mix["batch"]
-
-    def batch(i):
-        lo = (i % n) * B
-        return {k: v[lo:lo + B] for k, v in d.items()}
-    return batch
-
-
-def run(cell: dict, cfg: dict, mix: dict, lim: dict, seed: int, seconds: float,
+def run(cell: dict, cfg: dict, family, mix: dict, lim: dict, seed: int, seconds: float,
         trace: bool, device, t_start: float, step_factory=None) -> tuple[dict, dict, dict]:
-    """One run of the training cell -> (result fields, checks, run record).
+    """One run of a training cell -> (result fields, checks, run record).
     ``step_factory`` (tests only) wraps the program's step."""
     from repro_torch.config import TrainConfig
     from repro_torch.core import engine as ge
     from repro_torch.train.loop import make_train_step
-    from . import weights as W
 
     device = torch.device(device)
     phases = {"start": time.perf_counter() - t_start}
-    wts = W.make(cfg["model"], cfg["init"], seed, device)
+    wts = family.make_weights(cfg, seed, device)
     w0 = {k: v.clone() for k, v in wts.items()}
-    model = build_model(cfg, wts, device)
+    model = family.build(cfg, wts, device)
     tcfg = TrainConfig(**mix["optimizer"])
-    w_e, w_f = mix["w_e"], mix["w_f"]
 
     def loss_fn(m, batch):
-        return m.loss(batch, w_e=w_e, w_f=w_f), {}
+        return family.loss(m, batch, mix), {}
 
     step_fn, opt = make_train_step(loss_fn, tcfg)
     if step_factory is not None:
         step_fn = step_factory(step_fn)
     opt_state = opt.init(dict(model.named_parameters()))
-    batch = _batches(mix, seed)
+    batch = family.batches(mix, seed)
 
     def feed(i):
         return {k: torch.as_tensor(v, device=device) for k, v in batch(i).items()}
@@ -91,20 +79,26 @@ def run(cell: dict, cfg: dict, mix: dict, lim: dict, seed: int, seconds: float,
         {k: round(v, 3) for k, v in phases.items()}), flush=True)
     eng = ge.get_engine()
     timing_setup = eng.timing_runs
+    spans = bench.port_spans()
+    if spans is not None:
+        spans.reset()
     setup_s = time.perf_counter() - t_start
 
-    tracer = Tracer() if trace else None
+    tracer = Tracer(device) if trace else None
     t0 = time.perf_counter()
     t_close = t0 + seconds
     trace_from = t_close - min(mix["trace_seconds"], seconds / 2) if trace else None
-    i, steps, marks = mix["check_steps"], 0, {}
+    i, steps, marks, snap = mix["check_steps"], 0, {}, None
     while True:
         now = time.perf_counter()
         if now >= t_close:
             break
         if tracer is not None and tracer.t0 is None and now >= trace_from:
-            torch.cuda.synchronize(device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
             marks.update(t=time.perf_counter(), steps=steps)
+            if spans is not None:
+                snap = {"totals": spans.totals(), "steps": steps}
             tracer.start()
         with span("train_step"):
             opt_state, metrics = step_fn(model, opt_state, feed(i))
@@ -124,8 +118,8 @@ def run(cell: dict, cfg: dict, mix: dict, lim: dict, seed: int, seconds: float,
     print(f"perfbench: engine timing_runs {eng.timing_runs} (set-up {timing_setup}, "
           f"window {timing_window})", flush=True)
     rec = {"kind": "train", "setup_s": setup_s, "window_s": t_end - t0, "steps": steps,
-           "t0": t0, "marks": marks, "model": cfg["model"], "mix": mix, "trace": None,
-           "memory_peak_bytes": peak}
+           "t0": t0, "marks": marks, "family": family, "cfg": cfg, "mix": mix, "trace": None,
+           "spans": snap, "memory_peak_bytes": peak}
     if tracer is not None and tracer.t0 is not None:
         rec["trace"] = tracer.summary()
     del model, opt_state, step_fn
@@ -134,7 +128,7 @@ def run(cell: dict, cfg: dict, mix: dict, lim: dict, seed: int, seconds: float,
     t_check = time.perf_counter()
     batches = [{k: torch.as_tensor(v) for k, v in batch(j).items()}
                for j in range(mix["check_steps"])]
-    ref = check.reference_train(cfg["model"], w0, batches, adamw_settings(tcfg), w_e, w_f,
+    ref = check.reference_train(family, cfg, w0, batches, adamw_settings(tcfg), mix,
                                 torch.float64, device)
     readings = check.train_readings({"losses": losses, "grad": grad, "delta": delta}, ref)
     print(f"perfbench: check of {len(batches)} steps {time.perf_counter() - t_check:.2f} s",
