@@ -67,10 +67,15 @@ result line):
      kernel- vs tree-pinned forward and gradients, one `gaunt_chain` launch
      a layer, the quadrature gate, 40 SGD steps on the kernel and 40 with
      CG, a profiled step (`[segnn]`); `SelfmixLayer` at
-     `gaunt_equiformer_selfmix`'s width on 2,560 nodes (81,920 rows): the
-     measured shared-operand key, every route against the tree, one launch
-     a pinned call, times per route, bf16 and 'auto' (`[selfmix]`,
-     `[times] selfmix`); `plan_batch` buckets on the pair kernel (one launch
+     `gaunt_equiformer_selfmix`'s width on 2,560 nodes (81,920 rows), and
+     again at the EquiformerV2 cell's key (L=6, 128 channels, 1,376 nodes,
+     176,128 rows): the measured shared-operand key, every route's product
+     branch against the tree's, one launch a pinned call, times per route,
+     bf16 and 'auto' (`[selfmix]`, `[times] selfmix`); `EquiformerV2Gaunt`
+     at its OC20 widths served on
+     one bucket of 86 atoms x 16 slots as a graph, against the plain
+     float64 reference, with its launches per replay and step time
+     (`[equiformer]`); `plan_batch` buckets on the pair kernel (one launch
      per bucket) and Fourier-boundary buckets (`[batched]`); the measured
      gate policy at every serve bucket, `gaunt_mace_ff` with
      grid_gate='auto' served == direct, and this run's autotune file
@@ -1347,13 +1352,15 @@ def phase_segnn(device, n_systems: int = SEGNN_SYSTEMS, steps: int = SEGNN_STEPS
 
 def phase_selfmix(device, nodes: int = SELFMIX_NODES, L: int | None = None,
                   C: int | None = None):
-    """`SelfmixLayer` at `gaunt_equiformer_selfmix`'s width (L=4, 32
-    channels) on ``nodes`` nodes, tune='measure': the measured shared-operand
-    key (share (0, 0)), the tree-, looped- and kernel-pinned layers and the
-    gaunt_fused route against each other, equivariance, one `gaunt_chain`
-    launch a pinned call, each route's time (CUDA events and host clock, the
-    CG route beside), and compute_dtype bf16 against f32 with the pick that
-    'auto' resolves to.  -> gaunt_chain launches in the kernel-pinned call."""
+    """`SelfmixLayer` at ``L`` and ``C`` channels (default
+    `gaunt_equiformer_selfmix`'s width, L=4, 32 channels) on ``nodes``
+    nodes, tune='measure': the measured shared-operand key (share (0, 0)),
+    the product branch (output - x) of the tree-, looped- and kernel-pinned
+    layers and of the gaunt_fused route against each other, equivariance,
+    one `gaunt_chain` launch a pinned call, each route's time (CUDA events
+    and host clock, the CG route beside), and compute_dtype bf16 against
+    f32 with the pick that 'auto' resolves to.  -> gaunt_chain launches in
+    the kernel-pinned call."""
     import numpy as np
     import torch
     from repro_torch.configs.gaunt_ff import gaunt_equiformer_selfmix as cfg
@@ -1384,7 +1391,8 @@ def phase_selfmix(device, nodes: int = SELFMIX_NODES, L: int | None = None,
     key = ge.chain_measure_key((L, L), L, "float32", rows, (0, 0), False, device)
     times, spread = ge.measured_times[key], ge.measured_spread[key]
     pick = ge.measured_pick(key)
-    print(f"[selfmix] {cfg.name}: L={L} channels={C}, {nodes} nodes ({rows} rows); "
+    width = cfg.name if (L, C) == (cfg.L, cfg.channels) else "EquiformerV2's Selfmix"
+    print(f"[selfmix] {width}: L={L} channels={C}, {nodes} nodes ({rows} rows); "
           f"measured key Ls=({L}, {L}) share (0, 0) rows={key[3]} "
           f"({'CUDA events' if cuda else 'host clock'} per eager call, median of "
           f"{_engine._MEASURE_REPS}, [min, max]): "
@@ -1404,9 +1412,13 @@ def phase_selfmix(device, nodes: int = SELFMIX_NODES, L: int | None = None,
         fused = layer(tp_impl="gaunt_fused")
         fused.load_state_dict(base.state_dict())
         routes["gaunt_fused"] = fused(x)
-    worst = max(rel_err(v, routes["tree"])[1] for v in routes.values())
-    print(f"[selfmix] routes against the tree: "
-          + ", ".join(f"{k} rel {rel_err(v, routes['tree'])[1]:.3e}" for k, v in routes.items())
+    # the product branch alone: x, which every route adds alike, would hide
+    # a fault in the chain
+    branch = {k: v - x for k, v in routes.items()}
+    worst = max(rel_err(v, branch["tree"])[1] for v in branch.values())
+    print(f"[selfmix] product branch (output - x) against the tree's (max |tree| "
+          f"{float(branch['tree'].abs().max()):.3e}): "
+          + ", ".join(f"{k} rel {rel_err(v, branch['tree'])[1]:.3e}" for k, v in branch.items())
           + f" (tol {F32_IDENTITY_TOL}); gaunt_chain launches per kernel-pinned call "
           f"{launches} (expected 1)")
     check(worst <= F32_IDENTITY_TOL, "[selfmix] the routes disagree")
@@ -1471,9 +1483,112 @@ def phase_selfmix(device, nodes: int = SELFMIX_NODES, L: int | None = None,
     check(rbf <= BF16_IDENTITY_TOL, "[selfmix] the bf16 layer differs from the f32 one")
     check(kept == auto.storage_dtype(x) and ge.timing_runs == runs,
           "[selfmix] a reloaded layer did not keep the stored dtype")
-    del x, routes, base, fused, bf, auto, again
+    del x, routes, branch, base, fused, bf, auto, again
     gc.collect()
     if cuda:
+        torch.cuda.empty_cache()
+    return launches
+
+
+EQUIFORMER_BUCKET = (86, 16)               # the benchmark cell's bucket: 86 atoms x 16 slots
+
+
+def phase_equiformer(device, bucket=EQUIFORMER_BUCKET, sizes=range(70, 87), cfg=None,
+                     reps: int = 5):
+    """`EquiformerV2Gaunt` at `gaunt_equiformer_v2_oc20`
+    served through `EquivariantServeEngine` on one bucket, its step a CUDA
+    graph: OC20-sized adsorbate slabs (`perfbench.families.equiformer.slabs`)
+    fill every slot; the measured Selfmix pick, the capture, the graph's
+    kernel launches per replay, every served system against the plain
+    float64 reference (`perfbench.equiformer_reference`) and against a
+    direct evaluation, the graph step's time (host clock after a
+    synchronisation, median of ``reps``) and peak memory.  -> the replay's
+    launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from perfbench.equiformer_reference import EquiformerReference
+    from perfbench.families.equiformer import slabs
+    from repro_torch.configs.gaunt_ff import gaunt_equiformer_v2_oc20
+    from repro_torch.core import engine as _engine
+    from repro_torch.models.equiformer import EquiformerV2Gaunt
+    from repro_torch.serve.engine import EquivariantRequest, EquivariantServeEngine
+
+    cfg = cfg or gaunt_equiformer_v2_oc20
+    max_atoms, n_slots = bucket
+    model = EquiformerV2Gaunt(cfg, device=device, generator=torch.Generator().manual_seed(35))
+    n_par = sum(p.numel() for p in model.parameters())
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    eng = EquivariantServeEngine(model, buckets=[bucket], warmup=True)
+    pool = eng.pools.pools[0]
+    ge = _engine.get_engine()
+    key = ge.chain_measure_key((cfg.L, cfg.L), cfg.L, cfg.compute_dtype,
+                               n_slots * max_atoms * cfg.channels, (0, 0), False, device)
+    print(f"[equiformer] {cfg.name}: {n_par / 1e6:.2f} M parameters, L={cfg.L} "
+          f"m_max={cfg.m_max} C={cfg.channels} {cfg.n_layers} blocks; bucket {max_atoms} "
+          f"atoms x {n_slots} slots; warmup {time.perf_counter() - t0:.1f} s; Selfmix chain "
+          f"pick at {key[3]} rows: {ge.measured_pick(key)} ("
+          + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in ge.measured_times.get(key, {}).items())
+          + ")")
+    if pool.capture_s is not None:
+        print(f"[equiformer] graph captured in {pool.capture_s:.2f} s, graph memory "
+              f"{pool.graph_bytes / 2 ** 30:.2f} GiB, kernel launches per replay {pool.launches}")
+    rng = np.random.default_rng([35, 3])
+    reqs = []
+    for i in range(n_slots):
+        n = int(list(sizes)[i % len(sizes)])
+        sp, pos = slabs(n, 1, rng)
+        reqs.append(EquivariantRequest(species=sp[0], pos=pos[0], rid=i))
+    for r in reqs:
+        check(pool.admit(r), "no free slot")
+    before = pool.replays
+    eng.step()
+    check(all(r.done and not r.rejected for r in reqs), "a request was not served")
+    check(pool.replays == before + 1 or device.type != "cuda", "the step was not one replay")
+    worst_d = worst_e = worst_f = 0.0
+    for r in reqs:
+        check(np.isfinite(r.energy) and np.all(np.isfinite(r.forces)), f"request {r.rid}: non-finite")
+        e, f = model.energy_forces(torch.as_tensor(r.species, device=device),
+                                   torch.as_tensor(r.pos, device=device))
+        worst_d = max(worst_d, float(np.abs(r.forces - f.cpu().numpy()).max())
+                      / max(1e-30, float(f.abs().max())))
+    ref = EquiformerReference(dataclasses.asdict(cfg), model.state_dict(), torch.float64,
+                              device)
+    t1 = time.perf_counter()
+    e_ref, f_ref = [], []
+    for r in reqs:
+        e, f = ref.energy_forces(torch.as_tensor(r.species)[None], torch.as_tensor(r.pos)[None])
+        e_ref.append(float(e[0]))
+        f_ref.append(f[0].cpu().numpy())
+    t_ref = time.perf_counter() - t1
+    e_rms = float(np.sqrt(np.mean(np.square(e_ref))))
+    f_rms = float(np.sqrt(np.mean(np.concatenate([f.ravel() for f in f_ref]) ** 2)))
+    for r, e, f in zip(reqs, e_ref, f_ref):
+        worst_e = max(worst_e, abs(r.energy - e) / e_rms)
+        worst_f = max(worst_f, float(np.abs(r.forces - f).max()) / f_rms)
+    print(f"[equiformer] served {len(reqs)} systems of {min(sizes)}-{max(sizes)} atoms: vs the "
+          f"float64 reference energy {worst_e:.3e} of the RMS {e_rms:.4f}, forces {worst_f:.3e} "
+          f"of the RMS {f_rms:.4f} (reference {t_ref:.1f} s); served vs direct forces "
+          f"{worst_d:.3e} of max|F|")
+    check(worst_e < 1e-4 and worst_f < 1e-3, "served EquiformerV2 off the reference")
+    if device.type == "cuda":
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize(device)
+            t = time.perf_counter()
+            pool.step_staged()
+            torch.cuda.synchronize(device)
+            times.append(time.perf_counter() - t)
+        print(f"[times] equiformer graph step ({n_slots} x {max_atoms} atoms): "
+              f"{1e3 * float(np.median(times)):.2f} ms host clock, median of {reps}; peak "
+              f"memory {torch.cuda.max_memory_allocated(device) / 2 ** 30:.2f} GiB")
+    launches = dict(pool.launches)
+    del eng, pool, model, ref
+    gc.collect()
+    if device.type == "cuda":
         torch.cuda.empty_cache()
     return launches
 
@@ -4629,7 +4744,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.config import get_config
-    from repro_torch.configs.gaunt_ff import gaunt_mace_ff
+    from repro_torch.configs.gaunt_ff import gaunt_equiformer_v2_oc20, gaunt_mace_ff
 
     device = torch.device("cuda")
     cfg = dataclasses.replace(gaunt_mace_ff, chain_tune="measure", grid_gate="on")
@@ -4677,6 +4792,11 @@ def main() -> int:
         # the paper's two other models, batched plans and the measured policies
         phase_segnn(device)
         phase_selfmix(device)
+        # the chain kernel at the EquiformerV2 cell's key: (6, 6) -> 6, shared
+        # operand, one bucket's 86 x 16 atoms x 128 channels = 176,128 rows
+        phase_selfmix(device, nodes=EQUIFORMER_BUCKET[0] * EQUIFORMER_BUCKET[1],
+                      L=gaunt_equiformer_v2_oc20.L, C=gaunt_equiformer_v2_oc20.channels)
+        phase_equiformer(device)
         phase_batched(device)
         phase_policies(device, buckets, sizes)
         # the paper's general convolution, the manybody plans, calibration

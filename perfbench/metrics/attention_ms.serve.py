@@ -1,0 +1,10 @@
+"""attention_ms.serve: the device time a served step of the equivariant graph
+attention of every block, its separable norm and residual included (the
+port's span ``attention``; the force head's attention is under ``heads``),
+over the steps (``evaluate`` calls) before the traced part of the window,
+in ms (`perfbench.trace.span_ms`).  Nothing to read without the spans."""
+from perfbench.trace import span_ms
+
+
+def read(run):
+    return span_ms(run, "serve", "attention")

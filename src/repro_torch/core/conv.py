@@ -15,13 +15,20 @@ escn    : rotate the frame so the edge lands on the zenith; the filter then
 
 Wigner rotations are built differentiably from the rotation matrix by the CG
 intertwiner recursion  D^l = C^T (D^{l-1} (x) D^1) C, so forces flow through
-the geometry.
+the geometry.  `edge_frame_wigner` cuts the blocks to the orders |m| <= m_max
+of an edge frame (EquiformerV2's SO(2) convolutions), in `edge_frame_index`'s
+m-primary order.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from functools import lru_cache
+
+import numpy as np
+import torch.nn.functional as F
 
 from . import constants as _const
 from . import engine as _engine
@@ -32,6 +39,8 @@ __all__ = [
     "align_rotation",
     "wigner_blocks_from_rotmat",
     "apply_wigner_blocks",
+    "edge_frame_index",
+    "edge_frame_wigner",
     "WignerBlocks",
     "EquivariantConv",
 ]
@@ -92,6 +101,44 @@ def apply_wigner_blocks(Ds, x: torch.Tensor, transpose: bool = False) -> torch.T
     x = x.to(dt)
     return torch.cat([torch.einsum(eq, D.to(dt), x[..., l * l: (l + 1) ** 2])
                       for l, D in enumerate(Ds)], dim=-1)
+
+
+@lru_cache(maxsize=None)
+def edge_frame_index(L: int, m_max: int) -> np.ndarray:
+    """The packed indices l*l + l + m of the coefficients an edge frame
+    keeps, in m-primary order: m = 0 for l = 0..L, then for each m =
+    1..m_max the +m coefficients (l = m..L) and the -m ones."""
+    out = [l * l + l for l in range(L + 1)]
+    for m in range(1, m_max + 1):
+        for sign in (1, -1):
+            out += [l * l + l + sign * m for l in range(m, L + 1)]
+    return np.asarray(out, dtype=np.int64)
+
+
+@lru_cache(maxsize=None)
+def _l_major_to_m_primary(L: int, m_max: int) -> np.ndarray:
+    """Row permutation from the l-major order of the |m| <= m_max rows
+    (l = 0..L, m ascending) to `edge_frame_index`'s order."""
+    l_major = [l * l + l + m for l in range(L + 1)
+               for m in range(-min(l, m_max), min(l, m_max) + 1)]
+    pos = {k: i for i, k in enumerate(l_major)}
+    return np.asarray([pos[int(k)] for k in edge_frame_index(L, m_max)], dtype=np.int64)
+
+
+def edge_frame_wigner(Ds, m_max: int) -> torch.Tensor:
+    """The rows |m| <= m_max of the block-diagonal Wigner rotation with
+    blocks ``Ds`` ([D^0, ..., D^L], each [..., 2l+1, 2l+1]) as one matrix
+    W [..., n_edge, (L+1)^2], rows in `edge_frame_index` order.
+    ``x @ W^T`` takes features x [..., C, (L+1)^2] into the edge frame
+    (cut to |m| <= m_max), ``y @ W`` takes them back (the transpose)."""
+    L = len(Ds) - 1
+    dim = (L + 1) ** 2
+    rows = []
+    for l, D in enumerate(Ds):
+        k = min(l, m_max)
+        rows.append(F.pad(D[..., l - k: l + k + 1, :], (l * l, dim - (l + 1) ** 2)))
+    perm = _const.to_torch(_l_major_to_m_primary(L, m_max), Ds[0].device)
+    return torch.cat(rows, dim=-2).index_select(-2, perm)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,7 +8,8 @@ Clebsch-Gordan pieces behind the Wigner recursion's CG blocks
 Gaunt tensor (`real_gaunt_tensor`, the dense oracle); and the real Wigner-D
 matrices (`wigner_D_real_packed`) that the equivariance checks rotate with,
 and the zyz Euler angles of a rotation (`euler_from_matrix_zyz`,
-`align_to_z_angles`).
+`align_to_z_angles`); the S^2 grid of the EquiformerV2 family's
+activations (`s2_grid_matrices`).
 The numpy code runs once per shape, in float64 or exact rational arithmetic,
 and is cached by `core.constants`.
 
@@ -50,6 +51,7 @@ __all__ = [
     "rotation_matrix_zyz",
     "euler_from_matrix_zyz",
     "align_to_z_angles",
+    "s2_grid_matrices",
 ]
 
 
@@ -231,6 +233,36 @@ def sphere_quadrature(bandlimit: int) -> tuple[np.ndarray, np.ndarray]:
     ).reshape(-1, 3)
     w = (wg[:, None] * wp * np.ones_like(p)[None, :]).reshape(-1)
     return xyz, w
+
+
+@lru_cache(maxsize=None)
+def s2_grid_matrices(L: int, res: int, m_max: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """(to_grid, from_grid), each [res * res, (L+1)^2] float64: the S^2 grid
+    of the EquiformerV2 family's pointwise activations.
+
+    Points: ``res`` Gauss-Legendre nodes z_a = cos(t_a) (weights w_a) times
+    ``res`` uniform angles p_b = 2 pi b / res, latitude-major (g = a res +
+    b).  to_grid[g, i] = s_l S_i(t_a, p_b) samples a signal; from_grid[g, i]
+    = s_l w_a (2 pi / res) S_i(t_a, p_b) projects a grid back.  With
+    ``m_max`` below L (a signal of orders |m| <= m_max only, as in an edge
+    frame) the degrees l > m_max carry EquiformerV2's rescale s_l =
+    sqrt((2l+1) / (2 m_max + 1)) in both; otherwise s_l = 1.  The round
+    trip from_grid^T to_grid is s_l^2 on each degree (the identity without
+    the rescale) once res >= L + 1 and res > 2 L."""
+    z, w = np.polynomial.legendre.leggauss(res)
+    p = 2 * math.pi * np.arange(res) / res
+    st = np.sqrt(np.maximum(0.0, 1 - z ** 2))
+    xyz = np.stack([np.outer(st, np.cos(p)), np.outer(st, np.sin(p)),
+                    np.outer(z, np.ones(res))], -1).reshape(-1, 3)
+    Y = real_sph_harm(L, xyz)
+    ls = np.concatenate([np.full(2 * l + 1, l) for l in range(L + 1)])
+    scale = np.ones(num_coeffs(L))
+    if m_max is not None and m_max < L:
+        big = ls > m_max
+        scale[big] = np.sqrt((2 * ls[big] + 1) / (2 * m_max + 1))
+    to_grid = Y * scale
+    quad = np.repeat(w, res) * (2 * math.pi / res)
+    return to_grid, to_grid * quad[:, None]
 
 
 # --------------------------------------------------------------------------

@@ -395,6 +395,24 @@ class MaceGaunt(_Picks):
             c, (c.L,) * c.nu, c.L, batch_hint=rows, share_hint=(0,) * c.nu, device=device,
             dtype=self.storage_dtype(rows, device)))
 
+    def serve_chain_keys(self, slot_atoms: list) -> list:
+        """The chain keys the serve engine measures at warmup for buckets of
+        ``slot_atoms`` (n_slots * max_atoms each): [(Ls, Lout, plan_chain
+        keywords)], each bucket's many-body chain on atoms x channels rows
+        at float32 and the storage dtype, ungated and (grid gate on) gated.
+        The 'auto' storage dtype and grid gate are resolved first, at the
+        largest bucket's rows.  None unless chain_tune='measure', and none
+        with ``shard_data`` (its sharded chains are 'tree')."""
+        c = self.cfg
+        big = max(slot_atoms) * c.channels
+        dts = self.storage_dtype(big, self.device)
+        gates = (False, True) if self.grid_gate_on(big, self.device) else (False,)
+        if c.chain_tune != "measure" or c.shard_data:
+            return []
+        return [((c.L,) * c.nu, c.L, dict(batch_hint=a * c.channels, share_hint=(0,) * c.nu,
+                                          dtype=d, gate=g))
+                for a in slot_atoms for d in dict.fromkeys(["float32", dts]) for g in gates]
+
     def features(self, species: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         """-> per-atom invariant channels [..., n, C]."""
         c = self.cfg

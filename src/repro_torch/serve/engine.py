@@ -363,9 +363,10 @@ class EquivariantRequest:
 
 
 class EquivariantServeEngine:
-    """Continuous batching for a `MaceGaunt` over size-bucketed atom-padded
-    slot pools: each step dispatches one batched evaluation per active
-    bucket and overlaps the next step's admissions with the device."""
+    """Continuous batching for a force field (`MaceGaunt`,
+    `EquiformerV2Gaunt`) over size-bucketed atom-padded slot pools: each
+    step dispatches one batched evaluation per active bucket and overlaps
+    the next step's admissions with the device."""
 
     def __init__(self, model, n_slots: int = 4, max_atoms: int = 16,
                  warmup: bool = False, buckets=None, clock=time.monotonic,
@@ -417,23 +418,21 @@ class EquivariantServeEngine:
         in ``autotune_cache_load_failed`` and degrades to cold measurement:
         serving still comes up.
 
-        With ``chain_tune='measure'`` each layer's many-body chain picks its
+        With ``chain_tune='measure'`` each chain of the model picks its
         backend by timing the candidates at the call's row count, which
         cannot happen inside a captured graph (`engine._select_chain`
-        raises there).  A bucket's step presents n_slots * max_atoms *
-        channels rows (all slots in one pass), so each bucket's key is
-        measured here at that count: at float32 and at the model's storage
-        dtype, gated and ungated when the grid gate is on, as the reference
-        does.  The model's 'auto' storage dtype and grid gate are resolved
-        first, once for the model at the largest bucket's rows, and kept in
-        its state (`MaceGaunt.storage_dtype`, `MaceGaunt.grid_gate_on`): a
-        model loaded from a state that holds them is not timed.  Then each
-        bucket's step is built — on CUDA its graph is captured — with up to
-        three attempts, so a transient failure (injected ``compile_fail`` or
-        real) does not keep a host down.
-
-        A ``shard_data`` config measures no chain: its sharded chains are
-        'tree' and never consult the measured cache, as in the reference."""
+        raises there).  A bucket's step presents all its slots in one pass,
+        so the model names the chain keys to measure at each bucket's
+        n_slots * max_atoms atoms (``serve_chain_keys``: MACE's many-body
+        chain at the storage dtypes and gate options it runs, resolving its
+        'auto' storage dtype and grid gate first, once, at the largest
+        bucket, and keeping them in its state (`MaceGaunt.storage_dtype`,
+        `MaceGaunt.grid_gate_on`), so a model loaded from a state that holds
+        them is not timed; EquiformerV2's Selfmix chain), and they are
+        measured here.
+        Then each bucket's step is built — on CUDA its graph is captured —
+        with up to three attempts, so a transient failure (injected
+        ``compile_fail`` or real) does not keep a host down."""
         cfg = self.model.cfg
         eng = _engine.get_engine()
         if cfg.autotune_cache is not None:
@@ -445,19 +444,9 @@ class EquivariantServeEngine:
             eng._maybe_load_cache()
         if eng.cache_unusable:
             self.metrics.counters["autotune_cache_load_failed"] += 1
-        # the model's 'auto' decisions are resolved before any step is
-        # built: every bucket, and direct evaluation, run one function
-        big = max(p.spec.n_slots * p.spec.max_atoms for p in self.pools) * cfg.channels
-        dts = self.model.storage_dtype(big, self.model.device)
-        gate_opts = (False, True) if self.model.grid_gate_on(big, self.model.device) else (False,)
-        if cfg.chain_tune == "measure" and not cfg.shard_data:
-            for pool in self.pools:
-                rows = pool.spec.n_slots * pool.spec.max_atoms * cfg.channels
-                for d in dict.fromkeys(["float32", dts]):
-                    for g in gate_opts:
-                        _engine.plan_chain((cfg.L,) * cfg.nu, cfg.L, tune="measure",
-                                           batch_hint=rows, share_hint=(0,) * cfg.nu,
-                                           dtype=d, gate=g, device=self.model.device)
+        for Ls, Lout, kw in self.model.serve_chain_keys(
+                [p.spec.n_slots * p.spec.max_atoms for p in self.pools]):
+            _engine.plan_chain(Ls, Lout, tune="measure", device=self.model.device, **kw)
         for pool in self.pools:
             for attempt in range(3):
                 try:

@@ -12,7 +12,9 @@ deployment's largest molecule.
 A step evaluates every slot of a bucket in one pass: the model runs on the
 stacked [n_slots, max_atoms] batch and one backward of the sum of the
 masked slot energies gives every slot's forces (the slots never interact,
-so this equals the reference's per-slot ``vmap(value_and_grad)``).  The
+so this equals the reference's per-slot ``vmap(value_and_grad)``); a
+model whose forward gives the forces (``energy_forces_masked``, the
+EquiformerV2 family) runs forward only.  The
 many-body chain of each layer therefore sees n_slots * max_atoms * channels
 rows.
 
@@ -217,9 +219,14 @@ class SlotPool:
     # ------------------------------------------------------------ the step
     def _forward(self, species, pos, mask):
         """Masked energies [S] and forces [S, n, 3] of a slot batch: one
-        backward of the summed energies.  The body each bucket's graph
-        captures."""
+        backward of the summed energies, or, for a model that gives its
+        forces directly (``energy_forces_masked``), its forward pass alone
+        under ``no_grad``.  The body each bucket's graph captures."""
         with spans.span("evaluate", pos):
+            direct = getattr(self.model, "energy_forces_masked", None)
+            if direct is not None:
+                with torch.no_grad(), spans.span("energy", pos):
+                    return direct(species, pos, mask)
             with spans.span("energy", pos):
                 e = self.model.energy_masked(species, pos, mask)
             with spans.span("force_backward", pos):

@@ -36,8 +36,12 @@ serving loop, which is one thread.  The names in use:
   ``conv.filter``, ``conv.to_sh``, ``conv.rotate_back``
   (`core.engine.build_escn`), and a spectral pairwise product's
   ``conv.to_fourier``, ``conv.conv2d``, ``conv.to_sh`` (the general conv's);
+- model (`models.equiformer.EquiformerV2Gaunt`): ``graph``,
+  ``edge_embed``, ``attention``, ``ffn``, ``selfmix`` (each block's),
+  ``heads``;
 - served step (`serve.pools.SlotPool._forward`): ``evaluate``,
-  ``energy``, ``force_backward``;
+  ``energy``, ``force_backward`` (none for a model that gives its forces
+  directly);
 - host round: ``pump``, ``admit`` (`serve.scheduler`), ``stage``,
   ``replay``, ``wait_outputs``, ``retire``, ``host_gap``
   (`serve.pools`);
